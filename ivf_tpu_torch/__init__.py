@@ -1,0 +1,22 @@
+"""ivf_tpu_torch — the PyTorch/CUDA port of ``ivf_tpu`` for NVIDIA Hopper.
+
+The JAX package ``ivf_tpu`` stays the reference; this package reproduces
+its I3D temporal-mask search + Grad-CAM path (``api.find_masks``) with
+PyTorch on one H100. Module names mirror ``ivf_tpu``:
+
+  ops/          TF-SAME conv/pool semantics; ``ops/kernels/`` holds the
+                hand-written CUDA kernels (sources in ``csrc/``) that
+                replace the Pallas TPU kernels, each beside its plain
+                PyTorch version
+  models/       I3D (eval mode) with BN folding and the kernel routes
+  interpret/    perturbations, the batched mask search, Grad-CAM
+  utils/        weight conversion from the JAX package's variable tree
+  api.py        ``build_model`` / ``find_masks``
+
+Public tensors keep the JAX layout: clips are ``(B, T, H, W, C)``.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+This package never imports JAX or ``ivf_tpu``: what it needs from there is
+copied.
+"""
+
+__version__ = "0.1.0"

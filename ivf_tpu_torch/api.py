@@ -1,0 +1,208 @@
+"""Public entry points of the port (port of ``ivf_tpu/api.py``):
+``build_model`` and the monolithic ``find_masks``.
+
+Both run on ``cuda`` unless the caller passes ``device="cpu"`` (as the
+tests do); with no GPU and no explicit device they raise rather than run
+on the CPU.
+
+Not ported yet (ROADMAP.md): the chunked search and convergence refill,
+the emission journal and resume, class-of-interest / subset / min_score
+filtering and its compaction, random mask init, viz artifacts and the
+async writer, ``search_stats.json``, ``grad_cam_run``, bfloat16 compute,
+dataset loading from the config, and the ``do_gradcam`` /
+``run_temp_mask`` / ``max_batches`` switches of ``ivf_tpu``'s
+``find_masks`` (every batch runs the search and Grad-CAM).
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import time
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+from ivf_tpu_torch.config import Config
+from ivf_tpu_torch.interpret.gradcam import grad_cam_batched, i3d_grad_cam_fns
+from ivf_tpu_torch.interpret.mask_opt import (
+    find_mask_from_carry,
+    init_mask_central,
+    make_search_carry,
+)
+from ivf_tpu_torch.models.i3d import I3D
+from ivf_tpu_torch.models.registry import get_model
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as given, else ``cuda``; raises when CUDA is absent and no
+    device was asked for."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "ivf_tpu_torch runs on a CUDA device and none is available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
+
+
+def build_model(
+    cfg: Config, softmax_override: Optional[bool] = None, device=None
+) -> I3D:
+    """The configured I3D in eval mode on ``device``, its weights drawn
+    from ``cfg.seed``."""
+    m = cfg.model
+    if m.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={m.compute_dtype!r}: only float32 is ported; bfloat16 "
+            "needs the argmax-index pool (ROADMAP.md, Queue 1: bf16 compute)"
+        )
+    name = m.conv_model.lower()
+    if "i3d" not in name:
+        raise NotImplementedError(f"model '{m.conv_model}': only I3D is ported")
+    kwargs = dict(
+        num_classes=m.num_classes,
+        softmax=m.soft_max if softmax_override is None else softmax_override,
+        last_relu=m.last_relu,
+        last_stride=m.last_stride,
+        stride_mod_layers=tuple(m.stride_mod_layers),
+        use_pallas=m.use_pallas,
+        pallas_pool=m.pallas_pool,
+    )
+    if "kth" in name:
+        kwargs["final_time_length"] = m.final_temp_time
+    model = get_model(m.conv_model, **kwargs)
+    model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
+    return model.to(resolve_device(device)).eval()
+
+
+def _check_supported(cfg: Config) -> None:
+    mk = cfg.mask
+    if mk.mask_init_type != "central":
+        raise NotImplementedError("only central mask init is ported")
+    if mk.class_oi is not None:
+        raise NotImplementedError("class-of-interest filtering is not ported")
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def find_masks(
+    cfg: Config,
+    weights: Optional[Mapping[str, torch.Tensor]],
+    dataset,
+    stats: Optional[dict] = None,
+    device=None,
+):
+    """Temporal-mask search + Grad-CAM over ``dataset`` (items
+    ``(clip_uint8 (T, H, W, 3), label, clip_id)``), in batches of
+    ``cfg.data.batch_size``.
+
+    Per batch: the class-score forward, targets (argmax for 'guessed',
+    labels for 'true'), central mask init, the full ``opt_iter``-step
+    search (with ``early_stop``/``eta_patience``), finalize, Grad-CAM at
+    ``cfg.mask.top_layer``. ``weights`` is a state dict for the model
+    (e.g. from ``utils.convert``); None keeps the seeded init.
+
+    Returns (time_mask_results, grad_cam_results), lists of per-clip dicts
+    with the reference's key names, also pickled to
+    ``<output_dir>/<model_name>/results/all{TimeMask,GradCam}Results_
+    <model_name>_<class_oi>_.p``. ``stats`` (a dict) receives the batch
+    and row counts, each row's steps run, and the host seconds of the
+    mask init and of the search (device-synchronized).
+    """
+    _check_supported(cfg)
+    mk = cfg.mask
+    dev = resolve_device(device)
+    model = build_model(cfg, softmax_override=True, device=dev)
+    if weights is not None:
+        model.load_state_dict(weights)
+    model.requires_grad_(False)
+    score_fn = model  # float32 class probabilities, (B, num_classes)
+    ffn, hfn = i3d_grad_cam_fns(model, mk.top_layer)
+    search_kwargs = dict(
+        lam1=mk.lam1,
+        lam2=mk.lam2,
+        lr=mk.opt_lr,
+        perturbation_type=mk.mask_perturb_type,
+        early_stop=mk.early_stop,
+        eta=mk.eta,
+        closed_form=mk.closed_form,
+        eta_patience=mk.eta_patience,
+    )
+    results_path = os.path.join(cfg.output_dir, cfg.model_name, "results")
+    os.makedirs(results_path, exist_ok=True)
+    run_stats = {
+        "search_launches": 0,
+        "searched_rows": 0,
+        "n_steps_run": [],
+        "init_seconds": 0.0,
+        "search_seconds": 0.0,
+    }
+    time_mask_results, grad_cam_results = [], []
+    bsz = cfg.data.batch_size
+    for start in range(0, len(dataset), bsz):
+        rows = [dataset[i] for i in range(start, min(start + bsz, len(dataset)))]
+        labels = np.asarray([int(r[1]) for r in rows])
+        ids = [str(r[2]) for r in rows]
+        # uint8 crosses to the device (4x fewer bytes), one cast there; no
+        # normalization, as in ivf_tpu's find_masks
+        clips = torch.from_numpy(np.ascontiguousarray(np.stack([r[0] for r in rows])))
+        clips = clips.to(dev).float()
+        with torch.no_grad():
+            outputs = score_fn(clips)
+        if mk.grad_cam_type == "guessed":
+            targets = outputs.argmax(dim=-1)
+        else:
+            targets = torch.as_tensor(labels, device=dev)
+        outputs_np = outputs.cpu().numpy()
+        pred = outputs_np.argmax(axis=-1)
+
+        _sync(dev)
+        t0 = time.perf_counter()
+        inits = init_mask_central(score_fn, clips, targets, mask_type=mk.mask_perturb_type)
+        _sync(dev)
+        t1 = time.perf_counter()
+        res = find_mask_from_carry(
+            score_fn, clips, targets, make_search_carry(inits),
+            n_steps=mk.opt_iter, **search_kwargs,
+        )
+        _sync(dev)
+        run_stats["init_seconds"] += t1 - t0
+        run_stats["search_seconds"] += time.perf_counter() - t1
+        run_stats["search_launches"] += 1
+        run_stats["searched_rows"] += len(rows)
+        masks = res.mask.cpu().numpy()
+        freeze = res.freeze_score.cpu().numpy()
+        reverse = res.reverse_score.cpu().numpy()
+        run_stats["n_steps_run"].extend(res.n_steps_run.cpu().tolist())
+        cams, _ = grad_cam_batched(
+            ffn, hfn, clips, targets,
+            normalize_per_frame=mk.normalization_mode == "frame",
+        )
+        cams = cams.cpu().numpy()
+        for j in range(len(rows)):
+            head = {"true_class": int(labels[j]), "pred_class": int(pred[j]), "video_id": ids[j]}
+            time_mask_results.append(
+                {
+                    **head,
+                    "time_mask": masks[j],
+                    "original_score_guess": float(outputs_np[j].max()),
+                    "original_score_true": float(outputs_np[j][labels[j]]),
+                    "freeze_score": float(freeze[j]),
+                    "reverse_score": float(reverse[j]),
+                }
+            )
+            grad_cam_results.append({**head, "GCHeatMap": cams[j]})
+
+    if stats is not None:
+        stats.update(run_stats)
+    for kind, results in (("TimeMask", time_mask_results), ("GradCam", grad_cam_results)):
+        path = os.path.join(results_path, f"all{kind}Results_{cfg.model_name}_{mk.class_oi}_.p")
+        with open(path, "wb") as f:
+            pickle.dump(results, f)
+    return time_mask_results, grad_cam_results

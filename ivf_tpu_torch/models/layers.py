@@ -1,0 +1,184 @@
+"""I3D building blocks, eval mode (port of ``ivf_tpu/models/layers.py``).
+
+Activations are contiguous channels-last ``(B, T, H, W, C)``; conv weights
+are ``(Cout, Cin, kT, kH, kW)``. Parameter names follow the reference
+torch modules (``conv3d.weight|bias``, ``bn.weight|bias|running_mean|
+running_var``), which are also the names ``utils/convert.py`` produces.
+
+Inference only: BatchNorm normalizes with its running statistics and is
+folded into the preceding conv by default (``fold_bn``). The JAX
+package's ``fuse_3x3``, ``fuse_pool_conv``, ``pool_impl`` other than
+``reduce_window`` and training-mode BN are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ivf_tpu_torch.ops.conv import conv3d_same, max_pool3d_same
+from ivf_tpu_torch.ops.kernels.maxpool3d import maxpool3d_s1
+from ivf_tpu_torch.ops.kernels.pointwise_conv import pointwise_conv
+
+
+class TorchBatchNorm(nn.Module):
+    """BatchNorm over the trailing channel axis with torch's eval-mode
+    semantics: ``(x - running_mean) * rsqrt(running_var + eps) * weight +
+    bias``. The I3D reference uses eps=1e-3."""
+
+    def __init__(self, channels: int, eps: float = 1e-3):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def fold(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The eval-mode affine ``(s, t)`` with ``bn(x) = x * s + t``."""
+        s = self.weight * torch.rsqrt(self.running_var + self.eps)
+        return s, self.bias - self.running_mean * s
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError("training-mode BatchNorm is not ported")
+        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+        return y * self.weight + self.bias
+
+
+class Conv3dParams(nn.Module):
+    """Weight ``(Cout, Cin, kT, kH, kW)`` and optional bias of one conv —
+    a parameter holder named like the reference's ``nn.Conv3d``; the
+    padding semantics live in ``ops/conv.py``."""
+
+    def __init__(self, cin: int, cout: int, kernel: Sequence[int], bias: bool):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin, *kernel))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+
+class Unit3D(nn.Module):
+    """Conv3D(SAME) -> BN -> activation, the I3D building block.
+
+    With ``use_pallas`` a 1x1x1 stride-1 conv runs through the pointwise
+    kernel (``ops/kernels/pointwise_conv.py``) with the ReLU fused into its
+    epilogue when BN is folded or absent.
+    """
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_shape: Sequence[int] = (1, 1, 1),
+        stride: Sequence[int] = (1, 1, 1),
+        use_batch_norm: bool = True,
+        use_bias: bool = False,
+        activation: Optional[Callable] = F.relu,
+        fold_bn: bool = True,
+        use_pallas: bool = False,
+    ):
+        super().__init__()
+        self.kernel_shape = tuple(kernel_shape)
+        self.stride = tuple(stride)
+        self.activation = activation
+        self.fold_bn = fold_bn
+        self.use_pallas = use_pallas
+        self.conv3d = Conv3dParams(in_channels, out_channels, kernel_shape, use_bias)
+        self.bn = TorchBatchNorm(out_channels) if use_batch_norm else None
+
+    @property
+    def folding(self) -> bool:
+        return self.bn is not None and self.fold_bn
+
+    def folded(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Conv (weight, bias) with BN folded in when ``folding``."""
+        w, b = self.conv3d.weight, self.conv3d.bias
+        if self.folding:
+            s, t = self.bn.fold()
+            w = w * s.view(-1, 1, 1, 1, 1)
+            b = t if b is None else b * s + t
+        return w, b
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.folded()
+        pointwise = self.kernel_shape == (1, 1, 1) and self.stride == (1, 1, 1)
+        relu_fused = False
+        if self.use_pallas and pointwise:
+            relu_fused = self.activation is F.relu and (self.folding or self.bn is None)
+            cout, cin = w.shape[:2]
+            x = pointwise_conv(
+                x.contiguous(), w.reshape(cout, cin).t().contiguous(), b, relu=relu_fused
+            )
+        else:
+            x = conv3d_same(x, w, self.stride, b)
+        if self.bn is not None and not self.folding:
+            x = self.bn(x)
+        if self.activation is not None and not relu_fused:
+            x = self.activation(x)
+        return x
+
+
+class InceptionModule(nn.Module):
+    """4-branch Inception block; ``out_channels = [b0, b1a, b1b, b2a, b2b,
+    b3b]``, output = channel concat of (b0, b1, b2, b3).
+
+    ``fuse_1x1``: with folded BN, the three parallel 1x1x1 branch convs
+    (b0, b1a, b2a) run as ONE conv whose output channels split after the
+    shared ReLU. ``pallas_pool``: the branch-3 pool runs through the
+    ``maxpool3d_s1`` kernel pair (every-tie backward) instead of
+    ``F.max_pool3d``.
+    """
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: Sequence[int],
+        fold_bn: bool = True,
+        fuse_1x1: bool = True,
+        use_pallas: bool = False,
+        pallas_pool: bool = False,
+    ):
+        super().__init__()
+        oc = tuple(out_channels)
+        self.out_channels = oc
+        self.fuse_1x1 = fuse_1x1
+        self.use_pallas = use_pallas
+        self.pallas_pool = pallas_pool
+        unit = lambda cin, cout, k, pw: Unit3D(  # noqa: E731
+            cin, cout, k, fold_bn=fold_bn, use_pallas=use_pallas and pw
+        )
+        self.b0 = unit(in_channels, oc[0], (1, 1, 1), True)
+        self.b1a = unit(in_channels, oc[1], (1, 1, 1), True)
+        self.b1b = unit(oc[1], oc[2], (3, 3, 3), False)
+        self.b2a = unit(in_channels, oc[3], (1, 1, 1), True)
+        self.b2b = unit(oc[3], oc[4], (3, 3, 3), False)
+        self.b3b = unit(in_channels, oc[5], (1, 1, 1), True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        oc = self.out_channels
+        heads = (self.b0, self.b1a, self.b2a)
+        if self.fuse_1x1 and all(m.folding for m in heads):
+            parts = [m.folded() for m in heads]
+            kcat = torch.cat([k for k, _ in parts])
+            bcat = torch.cat([b for _, b in parts])
+            if self.use_pallas:
+                cin = x.shape[-1]
+                y = pointwise_conv(
+                    x.contiguous(), kcat.reshape(-1, cin).t().contiguous(), bcat, relu=True
+                )
+            else:
+                y = F.relu(conv3d_same(x, kcat, (1, 1, 1), bcat))
+            b0, b1, b2 = torch.split(y, [oc[0], oc[1], oc[3]], dim=-1)
+        else:
+            b0, b1, b2 = (m(x) for m in heads)
+        b1 = self.b1b(b1)
+        b2 = self.b2b(b2)
+        if self.pallas_pool:
+            b3 = maxpool3d_s1(x.contiguous())
+        else:
+            b3 = max_pool3d_same(x, (3, 3, 3), (1, 1, 1))
+        b3 = self.b3b(b3)
+        return torch.cat([b0, b1, b2, b3], dim=-1)
