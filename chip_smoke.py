@@ -10,7 +10,7 @@ non-zero without the final line:
    per source, in parallel) and report the compiler's register/spill
    summary and the card's ``nvidia-smi`` name and power limit.
 2. kernel_check: each CUDA kernel against its plain PyTorch version on
-   the card, at the main path's shapes and a ragged one, TF32 off; with
+   the card, at the main paths' shapes and a ragged one, TF32 off; with
    the kernel's time, the plain version's, one PyTorch library call's
    (a yardstick only) and the card's lower bound for the same work.
 3. small_reference: I3D at (1, 8, 32, 32, 3) with the kernels on the card
@@ -24,6 +24,17 @@ non-zero without the final line:
 5. step_timing: steady wall time of one search step with the kernels on
    and off, in turns, and a profiled step of each (device time by
    kernel group, top kernels).
+6. clstm_small_reference: the ConvLSTM (torch family with the gate
+   kernel; TF family with hard-sigmoid gates, 'valid' padding, per-layer
+   BN) on the card vs the same model on the CPU: logits, input gradient.
+7. clstm_main_path: ``find_masks`` on the clstm_kth preset at full width
+   (6 classes, 32x120x160 clips, 2 layers x 4 hidden, stride 2) over 16
+   clips, 10 search steps, Grad-CAM on -- a warm-up run, then one with the
+   gate kernel (counters reset just before, read just after) and one
+   without; outputs checked and compared.
+8. clstm_step_timing: as step_timing, for the ConvLSTM search step, in
+   twice the turns, plus 12 pairs of single steps (on and off back to
+   back) and the host's launch rate before and after them.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -56,6 +67,24 @@ MASK_TOL_REASON = (
     "the CPU, tests/test_torch_api.py)"
 )
 
+# the ConvLSTM main path: the clstm_kth preset (configs/config_clstm_kth.py)
+CLSTM_BATCH, CLSTM_T, CLSTM_HW, CLSTM_CLASSES = 16, 32, (120, 160), 6
+# kernels on vs off: the gate kernel and the plain block differ by float32
+# rounding only (~1e-7 relative), so the scores agree to rounding; Adam
+# divides each mask gradient by its running RMS, which can turn a
+# rounding-level change of a near-zero component into a visible step
+CLSTM_MASK_TOL = 1e-3
+CLSTM_MASK_TOL_REASON = (
+    "gate kernel vs plain gate block differ by float32 rounding; Adam's "
+    "update is scale-free, so a near-zero mask-gradient component can move "
+    "by a rounding-level change; 8 steps on the CPU agree to 1e-4 with JAX "
+    "on both routes (tests/test_torch_convlstm.py)"
+)
+# operations counted per (row, channel) of the gate block: the gate sums,
+# three sigmoids, two tanh and the state update (forward); the recompute
+# plus the five gradient formulas (backward)
+GATE_OPS_FWD, GATE_OPS_BWD = 20, 40
+
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
@@ -84,6 +113,43 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 20, warmup: int = 3, cold: bool = False) -> float:
+    """Device time of ``fn`` per call: the kernels' own durations from
+    ``torch.profiler`` (CUPTI), summed over ``reps`` calls. Unlike
+    ``cuda_ms`` it leaves out the host's dispatch gaps between launches,
+    which bound back-to-back calls of a kernel of a few microseconds.
+    ``cold``: overwrite a 256 MB buffer before each call so the inputs come
+    from device memory, not the 50 MB L2; the overwrite's own kernels are
+    left out of the sum by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernel_us(prof, skip=frozenset()):
+        return {
+            ev.key: getattr(ev, "self_device_time_total", 0) or 0
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.key not in skip
+        }
+
+    flush, skip = (lambda: None), frozenset()
+    if cold:
+        buf = torch.empty(64 * 2**20, device="cuda")
+        flush = buf.zero_
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            flush()
+            torch.cuda.synchronize()
+        skip = frozenset(kernel_us(prof))
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    return sum(kernel_us(prof, skip).values()) / reps / 1e3
+
+
 def bound(nbytes: float, ops: float):
     """Least time (ms) the card could take: bytes over HBM bandwidth vs
     operations over the float32 peak, the larger of the two."""
@@ -93,7 +159,7 @@ def bound(nbytes: float, ops: float):
 
 def phase_build(build) -> dict:
     t0 = time.perf_counter()
-    reports = build.build(["pointwise_conv", "maxpool3d"])
+    reports = build.build(["pointwise_conv", "maxpool3d", "fused_gates"])
     seconds = time.perf_counter() - t0
     ptxas = {
         name: [ln.strip() for ln in rep.splitlines() if "registers" in ln or "spill" in ln]
@@ -183,6 +249,101 @@ def phase_kernel_check(pw, pool, failures) -> dict:
     return cases
 
 
+def phase_gate_check(gates, failures) -> dict:
+    """The fused-gates kernels against their plain versions at both
+    layers of the clstm_kth main path (batch 16), the merged-conv route
+    (no ``gates_h``) and a ragged size; ``_thnn_fused_lstm_cell`` (and its
+    backward) on the same inputs as the yardstick, checked to agree.
+
+    Tolerances: h' in (-1, 1) within 1e-6 absolute; c', dz and dc within
+    1e-6 of max(1, their largest magnitude): accurate expf/tanhf in both,
+    but the kernel contracts products into FMAs where PyTorch rounds each
+    elementwise op, a few ulps apart."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4)
+    b, (h1, w1) = CLSTM_BATCH, (CLSTM_HW[0] // 2, CLSTM_HW[1] // 2)
+    sites = [  # (site, leading shape, Ch, with gates_h)
+        ("layer1", (b, h1, w1), 4, True),
+        ("layer2", (b, h1 // 4, w1 // 4), 4, True),
+        ("layer1_merged", (b, h1, w1), 4, False),
+        ("ragged", (3, 7, 9), 5, True),
+        ("ragged_merged", (3, 7, 9), 5, False),
+    ]
+    aten = torch.ops.aten
+    cases = {"lstm_gates_fwd": [], "lstm_gates_bwd": []}
+    for site, lead, ch, with_gh in sites:
+        gx = torch.randn(*lead, 4 * ch, generator=gen).to(dev)
+        gh = torch.randn(*lead, 4 * ch, generator=gen).to(dev) if with_gh else None
+        c, dh, dc_out = (torch.randn(*lead, ch, generator=gen).to(dev) for _ in range(3))
+        h_new, c_new = gates.lstm_gates_fwd_cuda(gx, gh, c)
+        dz, dc = gates.lstm_gates_bwd_cuda(gx, gh, c, dh, dc_out)
+        h_ref, c_ref = gates.gate_math_plain(gx, gh, c)
+        dz_ref, dc_ref = gates.gate_math_bwd_plain(gx, gh, c, dh, dc_out)
+        # the library call: the same function on (rows, 4 Ch) views
+        rows = c.numel() // ch
+        lib_in = (gx.view(rows, 4 * ch), (gh if with_gh else torch.zeros_like(gx)).view(rows, 4 * ch),
+                  c.view(rows, ch))
+        hy, cy, ws = aten._thnn_fused_lstm_cell(*lib_in)
+        dgates, dcx, _ = aten._thnn_fused_lstm_cell_backward_impl(
+            dh.view(rows, ch), dc_out.view(rows, ch), lib_in[2], cy, ws, False)
+        torch.cuda.synchronize()
+
+        def err(a, b_):
+            return (a - b_).abs().max().item()
+
+        def rel_tol(ref):
+            return 1e-6 * max(1.0, ref.abs().max().item())
+
+        fwd_errs = {"h": (err(h_new, h_ref), 1e-6), "c": (err(c_new, c_ref), rel_tol(c_ref))}
+        bwd_errs = {"dz": (err(dz, dz_ref), rel_tol(dz_ref)), "dc": (err(dc, dc_ref), rel_tol(dc_ref))}
+        lib_errs = {
+            "h": (err(hy.view_as(h_new), h_new), 1e-6), "c": (err(cy.view_as(c_new), c_new), rel_tol(c_ref)),
+            "dz": (err(dgates.view_as(dz), dz), rel_tol(dz_ref)), "dc": (err(dcx.view_as(dc), dc), rel_tol(dc_ref)),
+        }
+        numel, znumel = c.numel(), gx.numel()
+        z_in = znumel * (2 if with_gh else 1)
+        for name, errs, fn, plain, lib, nbytes, ops, lib_keys in (
+            ("lstm_gates_fwd", fwd_errs,
+             lambda: gates.lstm_gates_fwd_cuda(gx, gh, c), lambda: gates.gate_math_plain(gx, gh, c),
+             lambda: aten._thnn_fused_lstm_cell(*lib_in),
+             4 * (z_in + 3 * numel), GATE_OPS_FWD * numel, ("h", "c")),
+            ("lstm_gates_bwd", bwd_errs,
+             lambda: gates.lstm_gates_bwd_cuda(gx, gh, c, dh, dc_out),
+             lambda: gates.gate_math_bwd_plain(gx, gh, c, dh, dc_out),
+             lambda: aten._thnn_fused_lstm_cell_backward_impl(
+                 dh.view(rows, ch), dc_out.view(rows, ch), lib_in[2], cy, ws, False),
+             4 * (z_in + znumel + 4 * numel), GATE_OPS_BWD * numel, ("dz", "dc")),
+        ):
+            bms, by = bound(nbytes, ops)
+            lib_err = {k: lib_errs[k][0] for k in lib_keys}
+            cases[name].append({
+                "site": site, "shape": [*lead, 4 * ch], "gates_h": with_gh,
+                "max_abs_err": max(e for e, _ in errs.values()),
+                "errs": {k: {"err": e, "tol": t} for k, (e, t) in errs.items()},
+                "library_errs": lib_err,
+                # device time per call, inputs warm in L2 as the main path
+                # leaves them (the conv has just written the gates); cold_ms:
+                # from device memory; call_ms: back-to-back calls timed with
+                # events, which the host's dispatch bounds at these sizes
+                "ms": device_ms(fn), "plain_ms": device_ms(plain), "library_ms": device_ms(lib),
+                "cold_ms": {"kernel": device_ms(fn, cold=True), "plain": device_ms(plain, cold=True),
+                            "library": device_ms(lib, cold=True)},
+                "call_ms": {"kernel": cuda_ms(fn, reps=50), "plain": cuda_ms(plain),
+                            "library": cuda_ms(lib, reps=50)},
+                "bound_ms": bms, "bound_by": by,
+            })
+            for k, (e, t) in errs.items():
+                if not e <= t:
+                    failures.append(f"{name} {site}: {k} err {e} > {t}")
+            for k in lib_keys:
+                if not lib_errs[k][0] <= lib_errs[k][1]:
+                    failures.append(f"{name} {site}: _thnn_fused_lstm_cell disagrees on {k}: {lib_errs[k]}")
+    for name, rows_ in cases.items():
+        for row in rows_:
+            emit({"phase": "kernel_check", "kernel": name, **row})
+    return cases
+
+
 def phase_small_reference(failures) -> None:
     """The kernel path inside the whole model, on a small input, against
     the same model on the CPU (plain versions, CPU conv)."""
@@ -226,17 +387,13 @@ def _scaled_weights(cfg, api):
     return model.state_dict()
 
 
-def phase_main_path(api, pw, pool, failures, card: str) -> dict:
+def phase_main_path(api, counters, failures, card: str) -> dict:
     import numpy as np
 
     from ivf_tpu_torch.config import Config
     from ivf_tpu_torch.data.synthetic import SyntheticClips
 
-    counters = {
-        "pointwise_conv": pw.pointwise_conv_cuda,
-        "maxpool3d_s1_fwd": pool.maxpool3d_s1_fwd_cuda,
-        "maxpool3d_s1_bwd": pool.maxpool3d_s1_bwd_cuda,
-    }
+    i3d_names = ("pointwise_conv", "maxpool3d_s1_fwd", "maxpool3d_s1_bwd")
     dataset = SyntheticClips(BATCH, CLIP_T, CLIP_HW, CLASSES, seed=1, lazy=False)
     runs = {}
     with tempfile.TemporaryDirectory() as out_dir:
@@ -276,7 +433,7 @@ def phase_main_path(api, pw, pool, failures, card: str) -> dict:
                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
                 "masks": masks.round(4).tolist(), "pickles": pickles,
             })
-            if kernels and not all(n > 0 for n in launches.values()):
+            if kernels and not all(launches[n] > 0 for n in i3d_names):
                 failures.append(f"main path with kernels: a kernel never launched {launches}")
             if not kernels and any(launches.values()):
                 failures.append(f"main path without kernels launched one {launches}")
@@ -300,45 +457,246 @@ def phase_main_path(api, pw, pool, failures, card: str) -> dict:
     return on["launches"]
 
 
+def _clstm_cfg(kernels: bool, out_dir: str = "", run_name: str = ""):
+    """The clstm_kth preset (configs/config_clstm_kth.py) as the port's
+    config, with 10 search steps."""
+    from ivf_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.output_dir, cfg.model_name = out_dir, run_name
+    m = cfg.model
+    m.conv_model, m.num_classes = "clstm_kth", CLSTM_CLASSES
+    m.clstm_hidden, m.clstm_layers, m.conv_stride, m.conv_kernel_size = 4, 2, 2, 5
+    m.batch_norm, m.dropout, m.effective_steps = True, 0.5, (7, 15, 23, 31)
+    m.use_pallas = kernels
+    cfg.data.batch_size, cfg.data.clip_size = CLSTM_BATCH, CLSTM_T
+    cfg.data.input_spatial_size = CLSTM_HW
+    cfg.mask.opt_iter = STEPS
+    return cfg
+
+
+def _clstm_clips():
+    """16 seeded uint8 clips of 32x120x160x3, as (clip, label, id) rows."""
+    import numpy as np
+
+    rng = np.random.RandomState(7)
+    return [
+        (rng.randint(0, 256, (CLSTM_T, *CLSTM_HW, 3)).astype(np.uint8), i % CLSTM_CLASSES, f"kth{i}")
+        for i in range(CLSTM_BATCH)
+    ]
+
+
+def _clstm_scaled_weights(api, clip) -> dict:
+    """Seeded weights with each layer's ``wx`` scaled so its gate
+    pre-activations have unit std on one clip (raw 0-255 frames would
+    otherwise saturate every sigmoid) and the fc head scaled so the 6
+    class scores have std 2, as ``_scaled_weights`` does for I3D."""
+    from ivf_tpu_torch.ops.conv import conv2d_same_torch
+
+    model = api.build_model(_clstm_cfg(True), softmax_override=False, device="cuda")
+    model.requires_grad_(False)
+    x = torch.from_numpy(clip)[None].cuda().float()
+    with torch.no_grad():
+        for cell in model.clstm.cells:
+            seen = []
+            hook = cell.register_forward_pre_hook(lambda mod, args: seen.append(args[0]))
+            model(x)
+            hook.remove()
+            px = (0, 0) if cell.x_padding == "valid" else None
+            gx = conv2d_same_torch(torch.cat(seen), cell.wx, cell.conv_stride, None, px)
+            cell.wx.div_(gx.std())
+        logits = model(x)
+        model.end_fc.weight.mul_(2.0 / logits.std())
+        model.end_fc.bias.zero_()
+    return model.state_dict()
+
+
+def phase_clstm_small_reference(failures) -> None:
+    """The ConvLSTM on the card (gate kernel where the gates are sigmoids)
+    against the same model on the CPU, at (2, 8, 32, 48, 3): logits and
+    input gradient, relative to the CPU's largest magnitude."""
+    from ivf_tpu_torch.models import ConvLSTMClassifier
+
+    families = {
+        "torch": dict(num_classes=6, nb_lstm_units=4, lstm_layers=2, conv_stride=2,
+                      effective_steps=(3, 7)),
+        "tf": dict(num_classes=5, hidden_channels_override=(4, 6), conv_kernel_size=(3, 5),
+                   effective_steps=(2, 5, 7), shared_bn=False, block_order="tf", pooling="avg",
+                   recurrent_activation="hard_sigmoid", unit_forget_bias=True, x_padding="valid"),
+    }
+    x = torch.rand(2, 8, 32, 48, 3, generator=torch.Generator().manual_seed(5))
+    for family, kw in families.items():
+        model = ConvLSTMClassifier(**kw, use_pallas=True, input_size=(32, 48), clip_len=8)
+        model.reset_parameters(torch.Generator().manual_seed(6))
+        model.eval().requires_grad_(False)
+        r = torch.randn(2, kw["num_classes"], generator=torch.Generator().manual_seed(7))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            m = model.to(dev)
+            xd = x.to(dev).requires_grad_(True)
+            logits = m(xd)
+            (grad,) = torch.autograd.grad(logits, xd, r.to(dev))
+            out[dev] = (logits.detach().cpu(), grad.cpu())
+        (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+        logit_err = ((lg - lc).abs().max() / lc.abs().max()).item()
+        grad_err = ((gg - gc).abs().max() / gc.abs().max()).item()
+        emit({"phase": "clstm_small_reference", "family": family, "logits_rel_err": logit_err,
+              "logits_tol": 1e-4, "input_grad_rel_err": grad_err, "input_grad_tol": 1e-3})
+        if not (logit_err <= 1e-4 and grad_err <= 1e-3):
+            failures.append(f"clstm_small_reference {family}: logits {logit_err}, grad {grad_err}")
+
+
+def phase_clstm_main_path(api, counters, failures, card: str, weights: dict) -> dict:
+    import numpy as np
+
+    dataset = _clstm_clips()
+    gate_names = ("lstm_gates_fwd", "lstm_gates_bwd")
+    runs = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        # a run without the kernel first pays cuDNN's algorithm choice
+        for run, kernels in enumerate((False, True, False)):
+            cfg = _clstm_cfg(kernels, out_dir, f"chip_smoke_clstm_{run}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            stats = {}
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            tm, gc = api.find_masks(cfg, weights, dataset, stats=stats)
+            wall = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in counters.items()}
+            masks = np.stack([r["time_mask"] for r in tm])
+            cams = np.stack([r["GCHeatMap"] for r in gc])
+            res = Path(out_dir) / cfg.model_name / "results"
+            pickles = sorted(p.name for p in res.glob("all*Results_*.p"))
+            runs[kernels] = dict(tm=tm, masks=masks, cams=cams, launches=launches)
+            emit({
+                "phase": "clstm_main_path", "run": run, "kernels": kernels, "card": card,
+                "model": "clstm_kth", "clips": CLSTM_BATCH,
+                "clip_shape": [CLSTM_T, *CLSTM_HW, 3], "steps": STEPS,
+                "mask_steps_per_s": stats["searched_rows"] * STEPS / stats["search_seconds"],
+                "search_seconds": stats["search_seconds"], "init_seconds": stats["init_seconds"],
+                "wall_seconds": wall, "launches": launches,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "mask_std_over_clips": float(masks.std(axis=0).mean()),
+                "masks": masks.round(4).tolist()[:4], "pickles": pickles,
+            })
+            gate = [launches[n] for n in gate_names]
+            if kernels and not all(n > 0 for n in gate):
+                failures.append(f"clstm main path with the kernel: a gate kernel never launched {launches}")
+            if not kernels and any(launches.values()):
+                failures.append(f"clstm main path without kernels launched one {launches}")
+            if not (np.isfinite(masks).all() and masks.min() >= 0 and masks.max() <= 1):
+                failures.append("clstm masks not finite in [0, 1]")
+            want = (CLSTM_BATCH, CLSTM_T, *CLSTM_HW)
+            if cams.shape != want or not np.isfinite(cams).all():
+                failures.append(f"clstm CAMs {cams.shape} not finite {want}")
+            if len(pickles) != 2:
+                failures.append(f"clstm pickles missing: {pickles}")
+    on, off = runs[True], runs[False]
+    mask_diff = float(np.abs(on["masks"] - off["masks"]).max())
+    cam_diff = float(np.abs(on["cams"] - off["cams"]).max())
+    score_diff = max(
+        abs(a["original_score_guess"] - b["original_score_guess"]) for a, b in zip(on["tm"], off["tm"])
+    )
+    emit({"phase": "clstm_main_path_compare", "max_mask_diff": mask_diff, "mask_tol": CLSTM_MASK_TOL,
+          "mask_tol_reason": CLSTM_MASK_TOL_REASON, "max_cam_diff": cam_diff, "cam_tol": 1e-3,
+          "max_orig_score_diff": score_diff, "orig_score_tol": 1e-5,
+          "cam_score_tol_reason": "the forward differs by the gate block's float32 rounding "
+          "(~1e-7 relative) carried through 32 steps; scores are softmax "
+          "probabilities, CAMs are normalized to [0, 1]"})
+    if not (mask_diff <= CLSTM_MASK_TOL and cam_diff <= 1e-3 and score_diff <= 1e-5):
+        failures.append(f"clstm kernels on vs off: mask {mask_diff}, cam {cam_diff}, score {score_diff}")
+    return on["launches"]
+
+
 def _group(name: str) -> str:
+    if "lstm_gates" in name:
+        return "fused_gates kernels"
     if "pw_gemm" in name:
         return "pointwise_conv kernel"
     if "pool_fwd" in name or "pool_bwd" in name:
         return "maxpool3d_s1 kernels"
     low = name.lower()
-    if "conv" in low or "xmma" in low or "implicit_gemm" in low or "cudnn" in low:
+    # cuDNN's implicit-GEMM convs carry "xmma" too, as cuBLAS's sm80_xmma_gemm
+    # does: tell them apart by "implicit_gemm"
+    if "conv" in low or "implicit_gemm" in low or "cudnn" in low:
         return "cuDNN convolution"
     if "gemm" in low or "gemv" in low:
         return "cuBLAS matmul"
     if "max_pool" in low:
         return "torch max pool"
+    if "avg_pool" in low:
+        return "torch avg pool"
     return "elementwise and other"
 
 
 def phase_step_timing(api, card: str) -> None:
-    """Steady per-step wall time of the search (kernels on / off, in turns
-    on, off, off, on after a warm-up), then one profiled step of each: device
-    time by kernel group and the top kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Steady per-step wall time of the I3D search (kernels on / off)."""
     from ivf_tpu_torch.config import Config
     from ivf_tpu_torch.data.synthetic import SyntheticClips
-    from ivf_tpu_torch.interpret import mask_opt
 
     ds = SyntheticClips(BATCH, CLIP_T, CLIP_HW, CLASSES, seed=1, lazy=False)
     clips = torch.stack([torch.from_numpy(ds[i][0]) for i in range(BATCH)]).cuda().float()
-    targets = torch.zeros(BATCH, dtype=torch.long, device="cuda")
-    steps = {}
+    models = {}
     for kernels in (True, False):
         cfg = Config()
         cfg.model.use_pallas = cfg.model.pallas_pool = kernels
-        model = api.build_model(cfg, softmax_override=True).requires_grad_(False)
+        models[kernels] = api.build_model(cfg, softmax_override=True).requires_grad_(False)
+    _step_timing("step_timing", models, clips, card)
+
+
+def phase_clstm_step_timing(api, card: str, weights: dict) -> None:
+    """Steady per-step wall time of the ConvLSTM search (kernel on / off)."""
+    import numpy as np
+
+    clips = torch.from_numpy(np.stack([c for c, _, _ in _clstm_clips()])).cuda().float()
+    models = {}
+    for kernels in (True, False):
+        model = api.build_model(_clstm_cfg(kernels), softmax_override=True)
+        model.load_state_dict(weights)
+        models[kernels] = model.requires_grad_(False)
+    # the host bounds this step and shares its cores: twice the turns
+    _step_timing("clstm_step_timing", models, clips, card, turns=(True, False, False, True) * 2,
+                 pairs=12)
+
+
+def _host_us_per_launch(n: int = 2000) -> float:
+    """Host microseconds per eager launch of a one-element add: how fast
+    this host dispatches at the moment (the card needs ~2 us per launch)."""
+    x = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def _step_timing(
+    phase: str, models: dict, clips, card: str, turns=(True, False, False, True), pairs: int = 0
+) -> None:
+    """Steady per-step wall time of the search (kernels on / off, in turns
+    on, off, off, on after a warm-up), then one profiled step of each: device
+    time by kernel group, the device-busy share and the top kernels. With
+    ``pairs``, also that many single steps of each, on and off back to back
+    with the first of each pair alternating, and the host's launch rate
+    before and after: a host-bound step drifts with the host's speed, which
+    pairs of neighbouring steps cancel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ivf_tpu_torch.interpret import mask_opt
+
+    b, t = clips.shape[:2]
+    targets = torch.zeros(b, dtype=torch.long, device="cuda")
+    steps = {}
+    for kernels, model in models.items():
         score = lambda x, m=model: m(x).float()  # noqa: E731
         steps[kernels] = lambda c, score=score: mask_opt.search_step(score, clips, targets, c)
-    carry0 = mask_opt.make_search_carry(torch.zeros(BATCH, CLIP_T, device="cuda"))
+    carry0 = mask_opt.make_search_carry(torch.zeros(b, t, device="cuda"))
     wall = {True: [], False: []}
-    for kernels in (True, False, False, True):
+    for kernels in turns:
         carry = steps[kernels](steps[kernels](carry0))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -346,28 +704,47 @@ def phase_step_timing(api, card: str) -> None:
             carry = steps[kernels](carry)
         torch.cuda.synchronize()
         wall[kernels].append((time.perf_counter() - t0) / 5 * 1e3)
+    if pairs:
+        host_us = [_host_us_per_launch()]
+        single = {True: [], False: []}
+        for k in range(pairs):
+            for kernels in ((True, False) if k % 2 == 0 else (False, True)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                carry = steps[kernels](carry)
+                torch.cuda.synchronize()
+                single[kernels].append((time.perf_counter() - t0) * 1e3)
+        host_us.append(_host_us_per_launch())
+        on, off = single[True], single[False]
+        emit({"phase": phase + "_pairs", "card": card, "batch": b, "pairs": pairs,
+              "on_ms": on, "off_ms": off,
+              "median_on_ms": sorted(on)[len(on) // 2], "median_off_ms": sorted(off)[len(off) // 2],
+              "pairs_on_faster": sum(a < c for a, c in zip(on, off)),
+              "host_us_per_launch_before_after": host_us})
     for kernels in (True, False):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             steps[kernels](carry0)
             torch.cuda.synchronize()
-        groups, top = {}, []
+        groups, top, n_kernels = {}, [], 0
         for ev in prof.key_averages():
             dev_us = getattr(ev, "self_device_time_total", 0) or 0
             if dev_us <= 0 or ev.device_type != DeviceType.CUDA:
                 continue  # CPU-side ops carry their kernels' time too
             groups[_group(ev.key)] = groups.get(_group(ev.key), 0.0) + dev_us / 1e3
             top.append((dev_us / 1e3, ev.count, ev.key[:110]))
+            n_kernels += ev.count
         device_ms = sum(groups.values())
         wall_ms = sum(wall[kernels]) / len(wall[kernels])
-        emit({"phase": "step_timing", "kernels": kernels, "card": card, "batch": BATCH,
+        emit({"phase": phase, "kernels": kernels, "card": card, "batch": b,
               "wall_ms_per_step": wall[kernels], "device_ms_per_step": device_ms,
-              "device_busy_share": device_ms / wall_ms,
+              "device_busy_share": device_ms / wall_ms, "kernels_per_step": n_kernels,
               "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
               "top_kernels": [list(t) for t in sorted(top, reverse=True)[:12]]})
 
 
 def kernels_line(cases: dict, launches: dict) -> dict:
-    """One entry per kernel, timed at its headline main-path shape."""
+    """One entry per kernel, timed at its headline main-path shape;
+    ``launches`` from the main path that runs it."""
     headline = {
         "pointwise_conv": ("Mixed_3b_trio", "ivf_tpu/ops/pallas/pointwise_conv.py:29",
                            "ivf_tpu_torch/csrc/pointwise_conv.cu"),
@@ -375,6 +752,10 @@ def kernels_line(cases: dict, launches: dict) -> dict:
                              "ivf_tpu_torch/csrc/maxpool3d.cu"),
         "maxpool3d_s1_bwd": ("Mixed_3b", "ivf_tpu/ops/pallas/maxpool3d.py:99",
                              "ivf_tpu_torch/csrc/maxpool3d.cu"),
+        "lstm_gates_fwd": ("layer1", "ivf_tpu/ops/pallas/fused_gates.py:33",
+                           "ivf_tpu_torch/csrc/fused_gates.cu"),
+        "lstm_gates_bwd": ("layer1", "ivf_tpu/ops/pallas/fused_gates.py:92",
+                           "ivf_tpu_torch/csrc/fused_gates.cu"),
     }
     out = []
     for name, (site, replaces, source) in headline.items():
@@ -397,6 +778,7 @@ def main() -> int:
     try:
         from ivf_tpu_torch import api
         from ivf_tpu_torch.ops.kernels import build
+        from ivf_tpu_torch.ops.kernels import fused_gates as gates
         from ivf_tpu_torch.ops.kernels import maxpool3d as pool
         from ivf_tpu_torch.ops.kernels import pointwise_conv as pw
     except ImportError as exc:
@@ -405,11 +787,24 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     failures: list = []
+    counters = {
+        "pointwise_conv": pw.pointwise_conv_cuda,
+        "maxpool3d_s1_fwd": pool.maxpool3d_s1_fwd_cuda,
+        "maxpool3d_s1_bwd": pool.maxpool3d_s1_bwd_cuda,
+        "lstm_gates_fwd": gates.lstm_gates_fwd_cuda,
+        "lstm_gates_bwd": gates.lstm_gates_bwd_cuda,
+    }
     info = phase_build(build)
     cases = phase_kernel_check(pw, pool, failures)
+    cases.update(phase_gate_check(gates, failures))
     phase_small_reference(failures)
-    launches = phase_main_path(api, pw, pool, failures, info["smi"])
+    launches = phase_main_path(api, counters, failures, info["smi"])
     phase_step_timing(api, info["smi"])
+    phase_clstm_small_reference(failures)
+    clstm_weights = _clstm_scaled_weights(api, _clstm_clips()[0][0])
+    clstm_launches = phase_clstm_main_path(api, counters, failures, info["smi"], clstm_weights)
+    launches.update({k: clstm_launches[k] for k in ("lstm_gates_fwd", "lstm_gates_bwd")})
+    phase_clstm_step_timing(api, info["smi"], clstm_weights)
     if failures:
         for f in failures:
             print(f"chip_smoke FAILED: {f}", file=sys.stderr)

@@ -1,15 +1,19 @@
 """ivf_tpu_torch — the PyTorch/CUDA port of ``ivf_tpu`` for NVIDIA Hopper.
 
 The JAX package ``ivf_tpu`` stays the reference; this package reproduces
-its I3D temporal-mask search + Grad-CAM path (``api.find_masks``) with
-PyTorch on one H100. Module names mirror ``ivf_tpu``:
+its temporal-mask search + Grad-CAM path (``api.find_masks``) on I3D and
+the ConvLSTM family with PyTorch on one H100. Module names mirror
+``ivf_tpu``:
 
-  ops/          TF-SAME conv/pool semantics; ``ops/kernels/`` holds the
+  ops/          conv/pool semantics (TF-SAME 3D, torch-padded 2D), the
+                ConvLSTM cell step; ``ops/kernels/`` holds the
                 hand-written CUDA kernels (sources in ``csrc/``) that
                 replace the Pallas TPU kernels, each beside its plain
                 PyTorch version
-  models/       I3D (eval mode) with BN folding and the kernel routes
-  interpret/    perturbations, the batched mask search, Grad-CAM
+  models/       I3D and the ConvLSTM classifier (eval mode) with the
+                kernel routes
+  interpret/    perturbations, the batched mask search, Grad-CAM (I3D and
+                ConvLSTM)
   utils/        weight conversion from the JAX package's variable tree
   api.py        ``build_model`` / ``find_masks``
 

@@ -1,17 +1,18 @@
 """Public entry points of the port (port of ``ivf_tpu/api.py``):
-``build_model`` and the monolithic ``find_masks``.
+``build_model`` (I3D and the ConvLSTM family) and the monolithic
+``find_masks``.
 
 Both run on ``cuda`` unless the caller passes ``device="cpu"`` (as the
 tests do); with no GPU and no explicit device they raise rather than run
 on the CPU.
 
-Not ported yet (ROADMAP.md): the chunked search and convergence refill,
-the emission journal and resume, class-of-interest / subset / min_score
-filtering and its compaction, random mask init, viz artifacts and the
-async writer, ``search_stats.json``, ``grad_cam_run``, bfloat16 compute,
-dataset loading from the config, and the ``do_gradcam`` /
-``run_temp_mask`` / ``max_batches`` switches of ``ivf_tpu``'s
-``find_masks`` (every batch runs the search and Grad-CAM).
+Not ported yet (ROADMAP.md): ``cnn_3d``, the chunked search and
+convergence refill, the emission journal and resume, class-of-interest /
+subset / min_score filtering and its compaction, random mask init, viz
+artifacts and the async writer, ``search_stats.json``, ``grad_cam_run``,
+bfloat16 compute, dataset loading from the config, and the
+``do_gradcam`` / ``run_temp_mask`` / ``max_batches`` switches of
+``ivf_tpu``'s ``find_masks`` (every batch runs the search and Grad-CAM).
 """
 
 from __future__ import annotations
@@ -19,18 +20,23 @@ from __future__ import annotations
 import os
 import pickle
 import time
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from ivf_tpu_torch.config import Config
-from ivf_tpu_torch.interpret.gradcam import grad_cam_batched, i3d_grad_cam_fns
+from ivf_tpu_torch.interpret.gradcam import (
+    convlstm_grad_cam,
+    grad_cam_batched,
+    i3d_grad_cam_fns,
+)
 from ivf_tpu_torch.interpret.mask_opt import (
     find_mask_from_carry,
     init_mask_central,
     make_search_carry,
 )
+from ivf_tpu_torch.models.convlstm import ConvLSTMClassifier
 from ivf_tpu_torch.models.i3d import I3D
 from ivf_tpu_torch.models.registry import get_model
 
@@ -48,32 +54,86 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def default_effective_steps(clip_size: int) -> tuple:
+    """Reference defaults: CLSTM_4.py hardcodes [4, 8, 12, 15] for 16-frame
+    clips, the KTH training script passes [7, 15, 23, 31] for 32; quarters
+    minus one otherwise."""
+    if clip_size == 16:
+        return (4, 8, 12, 15)
+    q = clip_size // 4
+    return tuple(q * k - 1 for k in range(1, 5))
+
+
+def _clip_hw(cfg: Config) -> tuple:
+    s = cfg.data.input_spatial_size
+    return tuple(s) if isinstance(s, (tuple, list)) else (s, s)
+
+
+def _build_convlstm(cfg: Config, softmax: bool) -> ConvLSTMClassifier:
+    """The JAX package's ConvLSTM branch of ``build_model``: the kernel from
+    ``conv_kernel_size(_2)``, the padding from ``padding_clstm``, and the TF
+    family's Keras forget bias and per-layer BN from ``block_order``."""
+    m = cfg.model
+    ksize = (
+        (m.conv_kernel_size, m.conv_kernel_size_2) if m.conv_kernel_size_2 else m.conv_kernel_size
+    )
+    return ConvLSTMClassifier(
+        head="gap" if "gap" in m.conv_model.lower() else "fc",
+        num_classes=m.num_classes,
+        nb_lstm_units=m.clstm_hidden,
+        lstm_layers=m.clstm_layers,
+        conv_kernel_size=ksize,
+        conv_stride=m.conv_stride,
+        pool_kernel=tuple(m.pool_kernel),
+        effective_steps=tuple(m.effective_steps) or default_effective_steps(cfg.data.clip_size),
+        batch_norm=m.batch_norm,
+        dropout_rate=m.dropout,
+        use_entire_seq=m.use_entire_seq,
+        add_softmax=softmax,
+        block_order=m.block_order,
+        pooling=m.pooling,
+        recurrent_activation=m.recurrent_activation,
+        unit_forget_bias=m.block_order == "tf",
+        x_padding="valid" if m.padding_clstm == "valid" else "torch",
+        shared_bn=m.block_order != "tf",
+        use_pallas=m.use_pallas,
+        input_size=_clip_hw(cfg),
+        clip_len=cfg.data.clip_size,
+    )
+
+
 def build_model(
     cfg: Config, softmax_override: Optional[bool] = None, device=None
-) -> I3D:
-    """The configured I3D in eval mode on ``device``, its weights drawn
-    from ``cfg.seed``."""
+) -> Union[I3D, ConvLSTMClassifier]:
+    """The configured model in eval mode on ``device``, its weights drawn
+    from ``cfg.seed``. Routed by substring of ``conv_model`` as in the JAX
+    package: 'i3d' builds an I3D, 'clstm' or 'convlstm' (e.g. the
+    ``clstm_kth`` preset, which is no registry key) a ConvLSTMClassifier."""
     m = cfg.model
     if m.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype={m.compute_dtype!r}: only float32 is ported; bfloat16 "
             "needs the argmax-index pool (ROADMAP.md, Queue 1: bf16 compute)"
         )
+    softmax = m.soft_max if softmax_override is None else softmax_override
     name = m.conv_model.lower()
-    if "i3d" not in name:
-        raise NotImplementedError(f"model '{m.conv_model}': only I3D is ported")
-    kwargs = dict(
-        num_classes=m.num_classes,
-        softmax=m.soft_max if softmax_override is None else softmax_override,
-        last_relu=m.last_relu,
-        last_stride=m.last_stride,
-        stride_mod_layers=tuple(m.stride_mod_layers),
-        use_pallas=m.use_pallas,
-        pallas_pool=m.pallas_pool,
-    )
-    if "kth" in name:
-        kwargs["final_time_length"] = m.final_temp_time
-    model = get_model(m.conv_model, **kwargs)
+    if "i3d" in name:
+        kwargs = dict(
+            num_classes=m.num_classes,
+            softmax=softmax,
+            last_relu=m.last_relu,
+            last_stride=m.last_stride,
+            stride_mod_layers=tuple(m.stride_mod_layers),
+            use_pallas=m.use_pallas,
+            pallas_pool=m.pallas_pool,
+        )
+        if "kth" in name:
+            kwargs["final_time_length"] = m.final_temp_time
+        model = get_model(m.conv_model, **kwargs)
+    elif "clstm" in name or "convlstm" in name:
+        model = _build_convlstm(cfg, softmax)
+    else:
+        model = get_model(m.conv_model, num_classes=m.num_classes)
     model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
     return model.to(resolve_device(device)).eval()
 
@@ -104,8 +164,9 @@ def find_masks(
 
     Per batch: the class-score forward, targets (argmax for 'guessed',
     labels for 'true'), central mask init, the full ``opt_iter``-step
-    search (with ``early_stop``/``eta_patience``), finalize, Grad-CAM at
-    ``cfg.mask.top_layer``. ``weights`` is a state dict for the model
+    search (with ``early_stop``/``eta_patience``), finalize, Grad-CAM (I3D:
+    at ``cfg.mask.top_layer``; ConvLSTM: on the last layer's hidden
+    sequence). ``weights`` is a state dict for the model
     (e.g. from ``utils.convert``); None keeps the seeded init.
 
     Returns (time_mask_results, grad_cam_results), lists of per-clip dicts
@@ -123,7 +184,19 @@ def find_masks(
         model.load_state_dict(weights)
     model.requires_grad_(False)
     score_fn = model  # float32 class probabilities, (B, num_classes)
-    ffn, hfn = i3d_grad_cam_fns(model, mk.top_layer)
+    norm_frame = mk.normalization_mode == "frame"
+    if isinstance(model, I3D):
+        ffn, hfn = i3d_grad_cam_fns(model, mk.top_layer)
+        cam_fn = lambda clips, targets: grad_cam_batched(  # noqa: E731
+            ffn, hfn, clips, targets, normalize_per_frame=norm_frame
+        )
+    else:
+        # the torch family's Grad-CAM weighs channels by the mean gradient
+        # over (T, H, W) ('global'); the TF family's per frame
+        wmode = "per_frame" if cfg.model.block_order == "tf" else "global"
+        cam_fn = lambda clips, targets: convlstm_grad_cam(  # noqa: E731
+            model, clips, targets, normalize_per_frame=norm_frame, weight_mode=wmode
+        )
     search_kwargs = dict(
         lam1=mk.lam1,
         lam2=mk.lam2,
@@ -180,11 +253,7 @@ def find_masks(
         freeze = res.freeze_score.cpu().numpy()
         reverse = res.reverse_score.cpu().numpy()
         run_stats["n_steps_run"].extend(res.n_steps_run.cpu().tolist())
-        cams, _ = grad_cam_batched(
-            ffn, hfn, clips, targets,
-            normalize_per_frame=mk.normalization_mode == "frame",
-        )
-        cams = cams.cpu().numpy()
+        cams = cam_fn(clips, targets)[0].cpu().numpy()
         for j in range(len(rows)):
             head = {"true_class": int(labels[j]), "pred_class": int(pred[j]), "video_id": ids[j]}
             time_mask_results.append(

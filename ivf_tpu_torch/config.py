@@ -3,17 +3,21 @@
 
 The one field the JAX package's config lacks is ``ModelConfig.pallas_pool``:
 there the branch-3 pool kernel is a model argument only, here it is set
-from the config like ``use_pallas``.
+from the config like ``use_pallas``. ``DataConfig.input_spatial_size``
+fixes the width of the ConvLSTM's ``fc`` head, which flax infers lazily
+from the first input and ``nn.Linear`` needs when it is built.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 
 @dataclass
 class DataConfig:
+    clip_size: int = 16
+    input_spatial_size: Union[int, Tuple[int, int]] = 224
     batch_size: int = 16
 
 
@@ -26,8 +30,29 @@ class ModelConfig:
     last_stride: int = 1
     stride_mod_layers: Tuple[str, ...] = ()
     final_temp_time: int = 2
+    dropout: float = 0.5  # identity in eval mode
+    # ConvLSTM-specific
+    clstm_hidden: int = 32
+    clstm_layers: int = 4
+    conv_stride: int = 1
+    batch_norm: bool = True
+    use_entire_seq: bool = False
+    conv_kernel_size: int = 5
+    pool_kernel: Tuple[int, int] = (2, 2)
+    effective_steps: Tuple[int, ...] = ()
+    # torch family: drop->bn->pool (CLSTM_4); tf family: pool->bn
+    block_order: str = "torch"  # torch | tf
+    pooling: str = "max"  # max | avg
+    # rectangular ConvLSTM kernels (conv_kernel_size, conv_kernel_size_2);
+    # None means square conv_kernel_size
+    conv_kernel_size_2: Optional[int] = None
+    # Keras ConvLSTM2D input-conv padding: torch (symmetric) | valid
+    padding_clstm: str = "torch"
+    recurrent_activation: str = "sigmoid"  # sigmoid | hard_sigmoid
     compute_dtype: str = "float32"  # float32 (bfloat16: not ported yet)
-    use_pallas: bool = False  # 1x1x1 convs via the pointwise CUDA kernel
+    # 1x1x1 convs via the pointwise CUDA kernel (I3D); the ConvLSTM gate
+    # block via the fused-gates CUDA kernel (sigmoid gates)
+    use_pallas: bool = False
     pallas_pool: bool = False  # branch-3 pools via the max-pool CUDA kernels
 
 

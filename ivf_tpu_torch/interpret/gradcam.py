@@ -1,8 +1,11 @@
 """Grad-CAM for video, batched (port of ``ivf_tpu/interpret/gradcam.py``).
 
-The target activation is the I3D trunk output at ``endpoint``
+For I3D the target activation is the trunk output at ``endpoint``
 (``features_to``); its gradient comes from differentiating the head
-(``head_from``) with respect to it. CAM = ReLU(sum_c w_c * act_c) with
+(``head_from``) with respect to it. For the ConvLSTM it is the last
+layer's hidden sequence ``clstm_output``; its gradient is taken with
+respect to a zero ``feature_offset`` added to it after the recurrence has
+read it (``convlstm_grad_cam``). CAM = ReLU(sum_c w_c * act_c) with
 channel weights the mean gradient over (T', H', W') ('global', the torch
 reference) or over (H', W') per frame ('per_frame', the TF reference),
 upsampled bilinearly to the clip's (H, W), repeated in time to T frames
@@ -76,3 +79,33 @@ def i3d_grad_cam_fns(model, endpoint: str = "Mixed_5c"):
         lambda clips: model.features_to(clips, endpoint),
         lambda act: model.head_from(act, endpoint),
     )
+
+
+def convlstm_grad_cam(
+    model,
+    clips: torch.Tensor,
+    targets: torch.Tensor,
+    normalize_per_frame: bool = False,
+    weight_mode: str = "per_frame",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Grad-CAM of an ``ivf_tpu_torch`` ConvLSTMClassifier for ``targets
+    (B,)``, batched. The features are ``clstm_output`` (B, T, H'', W'', C)
+    and the gradient of the picked class scores is taken with respect to a
+    zero ``feature_offset``; one pass gives both, since adding zeros leaves
+    ``clstm_output`` as it is. Rows are independent in eval mode, so the
+    gradient of the summed picked scores is each clip's own, as under the
+    JAX package's per-clip ``vmap``. Returns (cams (B, T, H, W), class
+    scores (B, num_classes))."""
+    with torch.enable_grad():
+        offset = torch.zeros(
+            model.clstm_output_shape(clips), device=clips.device, dtype=clips.dtype,
+            requires_grad=True,
+        )
+        scores, feats = model.scores_and_features(clips, feature_offset=offset)
+        picked = scores.gather(1, targets[:, None]).sum()
+        (grads,) = torch.autograd.grad(picked, offset)
+    cams = cam_from_activation(
+        feats.detach(), grads, clips.shape[1], (clips.shape[2], clips.shape[3]),
+        normalize_per_frame, weight_mode,
+    )
+    return cams, scores.detach()

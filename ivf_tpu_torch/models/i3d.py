@@ -10,7 +10,6 @@ are not ported. Input and output layouts match the JAX model: clips
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -22,6 +21,7 @@ from ivf_tpu_torch.models.layers import (
     InceptionModule,
     TorchBatchNorm,
     Unit3D,
+    variance_scaling_,
 )
 from ivf_tpu_torch.ops.conv import avg_pool3d_valid, max_pool3d_same
 
@@ -106,23 +106,13 @@ class I3D(nn.Module):
         """Seeded init: conv weights from the JAX model's
         ``variance_scaling(2.0, 'fan_in', 'truncated_normal')``, zero
         biases, identity BatchNorm. Draws on the CPU generator."""
-        with torch.no_grad():
-            for mod in self.modules():
-                if isinstance(mod, Conv3dParams):
-                    w = mod.weight
-                    fan_in = math.prod(w.shape[1:])
-                    # 0.8796 = std of a unit normal truncated at +-2
-                    std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
-                    cpu = torch.empty(w.shape)
-                    nn.init.trunc_normal_(cpu, 0.0, std, -2 * std, 2 * std, generator=generator)
-                    w.copy_(cpu)
-                    if mod.bias is not None:
-                        mod.bias.zero_()
-                elif isinstance(mod, TorchBatchNorm):
-                    mod.weight.fill_(1.0)
-                    mod.bias.zero_()
-                    mod.running_mean.zero_()
-                    mod.running_var.fill_(1.0)
+        for mod in self.modules():
+            if isinstance(mod, Conv3dParams):
+                variance_scaling_(mod.weight, 2.0, generator)
+                if mod.bias is not None:
+                    nn.init.zeros_(mod.bias)
+            elif isinstance(mod, TorchBatchNorm):
+                mod.reset_parameters()
 
     def _layer_stride_t(self, name: str, default: int) -> int:
         return self.last_stride if name in self.stride_mod_layers else default

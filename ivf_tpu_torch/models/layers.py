@@ -13,6 +13,7 @@ package's ``fuse_3x3``, ``fuse_pool_conv``, ``pool_impl`` other than
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -22,6 +23,18 @@ import torch.nn.functional as F
 from ivf_tpu_torch.ops.conv import conv3d_same, max_pool3d_same
 from ivf_tpu_torch.ops.kernels.maxpool3d import maxpool3d_s1
 from ivf_tpu_torch.ops.kernels.pointwise_conv import pointwise_conv
+
+
+def variance_scaling_(w: torch.Tensor, scale: float, generator: torch.Generator) -> None:
+    """flax ``variance_scaling(scale, 'fan_in', 'truncated_normal')`` into
+    ``w`` (PyTorch layout, fan-in = the product of all but the first dim),
+    drawn on the CPU generator."""
+    # 0.8796 = std of a unit normal truncated at +-2
+    std = math.sqrt(scale / math.prod(w.shape[1:])) / 0.87962566103423978
+    cpu = torch.empty(w.shape)
+    nn.init.trunc_normal_(cpu, 0.0, std, -2 * std, 2 * std, generator=generator)
+    with torch.no_grad():
+        w.copy_(cpu)
 
 
 class TorchBatchNorm(nn.Module):
@@ -36,6 +49,14 @@ class TorchBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+
+    @torch.no_grad()
+    def reset_parameters(self) -> None:
+        """Identity: unit scale and variance, zero shift and mean."""
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
 
     def fold(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The eval-mode affine ``(s, t)`` with ``bn(x) = x * s + t``."""

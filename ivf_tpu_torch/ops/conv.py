@@ -1,18 +1,21 @@
-"""3D conv / pool primitives with the reference's TF-SAME semantics.
+"""Conv / pool primitives with the reference's padding semantics.
 
-Port of ``ivf_tpu/ops/conv.py``. Activations stay channels-last
-``(B, T, H, W, C)`` as in the JAX package. A contiguous NDHWC tensor
-permuted with ``permute(0, 4, 1, 2, 3)`` is an NCDHW view in
-``channels_last_3d`` memory format, which cuDNN's conv3d and the pooling
+Port of ``ivf_tpu/ops/conv.py``: the I3D's 3D ops (TF-SAME) and the
+ConvLSTM's 2D ops (torch symmetric padding, VALID pools). Activations stay
+channels-last, ``(B, T, H, W, C)`` or ``(B, H, W, C)``, as in the JAX
+package. A contiguous NDHWC tensor permuted with ``permute(0, 4, 1, 2,
+3)`` is an NCDHW view in ``channels_last_3d`` memory format (NHWC and
+``channels_last`` likewise in 2D), which cuDNN's convs and the pooling
 ops take without a copy; their outputs permute back the same way.
 
-Conv weights use PyTorch's ``(Cout, Cin, kT, kH, kW)`` layout; the JAX
-``(kT, kH, kW, Cin, Cout)`` layout appears only in ``utils/convert.py``.
+Conv weights use PyTorch's ``(Cout, Cin, kT, kH, kW)`` / ``(Cout, Cin,
+kH, kW)`` layouts; the JAX ``(..., Cin, Cout)`` layouts appear only in
+``utils/convert.py``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -75,3 +78,38 @@ def avg_pool3d_valid(
 ) -> torch.Tensor:
     """``nn.AvgPool3d(kernel, stride)`` with no padding, on NDHWC."""
     return _ndhwc(F.avg_pool3d(_ncdhw(x), tuple(window), tuple(strides)))
+
+
+def conv2d_same_torch(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    stride: int = 1,
+    bias: Optional[torch.Tensor] = None,
+    torch_padding: Union[None, int, Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """2D convolution with torch ``nn.Conv2d(padding=p)`` semantics, the
+    ConvLSTM cell's conv: symmetric padding ``(k - 1) // 2`` per axis by
+    default (unlike TF-SAME at stride > 1), or ``torch_padding`` as given
+    (``(0, 0)`` for Keras 'valid').
+
+    x: (B, H, W, Cin); weight: (Cout, Cin, kH, kW), rectangular allowed
+    -> (B, H', W', Cout).
+    """
+    if torch_padding is None:
+        torch_padding = ((weight.shape[2] - 1) // 2, (weight.shape[3] - 1) // 2)
+    elif isinstance(torch_padding, int):
+        torch_padding = (torch_padding, torch_padding)
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, stride=stride, padding=tuple(torch_padding))
+    return y.permute(0, 2, 3, 1)
+
+
+def max_pool2d_valid(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
+    """torch ``nn.MaxPool2d(window)`` on NHWC: stride = window, VALID,
+    floor mode."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), tuple(window)).permute(0, 2, 3, 1)
+
+
+def avg_pool2d_valid(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
+    """Keras ``AveragePooling2D`` / torch ``AvgPool2d(window)`` on NHWC:
+    stride = window, VALID."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), tuple(window)).permute(0, 2, 3, 1)

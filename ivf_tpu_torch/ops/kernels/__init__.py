@@ -3,6 +3,7 @@ version.
 
   pointwise_conv.py  <- ivf_tpu/ops/pallas/pointwise_conv.py
   maxpool3d.py       <- ivf_tpu/ops/pallas/maxpool3d.py
+  fused_gates.py     <- ivf_tpu/ops/pallas/fused_gates.py
   build.py           nvcc build + ctypes binding of ``csrc/*.cu``
 
 A wrapper given a CUDA tensor launches its kernel or raises; a CPU tensor

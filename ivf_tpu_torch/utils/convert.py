@@ -9,6 +9,9 @@ imported): Flax scope ``A/B/kernel`` -> ``A.B.conv3d.weight`` with the
 kW)``; ``bias`` -> ``conv3d.bias`` (or ``bn.bias`` inside a ``bn``
 scope); ``scale`` -> ``bn.weight``; batch stats ``mean``/``var`` ->
 ``bn.running_mean``/``bn.running_var``.
+
+``convlstm_variables_to_state_dict`` does the same for the JAX
+``ConvLSTMClassifier``; see its docstring.
 """
 
 from __future__ import annotations
@@ -52,4 +55,46 @@ def i3d_variables_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch
 
     walk_params(variables["params"], ())
     walk_stats(variables.get("batch_stats", {}), ())
+    return sd
+
+
+def _bn_entries(sd, prefix, params, stats) -> None:
+    sd[prefix + ".weight"] = _t(params["scale"])
+    sd[prefix + ".bias"] = _t(params["bias"])
+    sd[prefix + ".running_mean"] = _t(stats["mean"])
+    sd[prefix + ".running_var"] = _t(stats["var"])
+
+
+def convlstm_variables_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``ConvLSTMClassifier``'s ``{'params', 'batch_stats'}`` tree ->
+    a state dict for ``ivf_tpu_torch.models.ConvLSTMClassifier``:
+
+      * ``clstm/cells_<i>/{wx, bx, wh}`` -> ``clstm.cells.<i>.{wx, bx, wh}``,
+        the ``(k1, k2, Cin, 4 Ch)`` kernels transposed to ``(4 Ch, Cin, k1,
+        k2)``;
+      * ``clstm/bn`` or ``clstm/bns_<i>`` (scale, bias and the batch stats)
+        -> ``clstm.bn`` or ``clstm.bns.<i>``;
+      * ``end_fc`` or ``gap_conv`` Dense ``kernel (in, out)`` -> Linear
+        ``weight (out, in)``.
+
+    No flatten permutation: the port flattens the ``fc`` input in (H', W',
+    C) order, as the JAX model does.
+    """
+    params = variables["params"]
+    stats = variables.get("batch_stats", {}).get("clstm", {})
+    sd: Dict[str, torch.Tensor] = {}
+    for name, node in params["clstm"].items():
+        if name.startswith("cells_"):
+            i = name.split("_")[1]
+            for w in ("wx", "wh"):
+                sd[f"clstm.cells.{i}.{w}"] = _t(np.asarray(node[w]).transpose(3, 2, 0, 1))
+            sd[f"clstm.cells.{i}.bx"] = _t(node["bx"])
+        elif name == "bn":
+            _bn_entries(sd, "clstm.bn", node, stats["bn"])
+        elif name.startswith("bns_"):
+            _bn_entries(sd, f"clstm.bns.{name.split('_')[1]}", node, stats[name])
+    for head in ("end_fc", "gap_conv"):
+        if head in params:
+            sd[head + ".weight"] = _t(np.asarray(params[head]["kernel"]).T)
+            sd[head + ".bias"] = _t(params[head]["bias"])
     return sd

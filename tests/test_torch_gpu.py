@@ -1,7 +1,7 @@
 """ivf_tpu_torch's CUDA kernels on the card (``gpu`` marker).
 
-Each kernel against its plain PyTorch version, and the kernel path of
-``find_masks`` at full width. Skips without a CUDA device. This file
+Each kernel against its plain PyTorch version, the I3D kernel path of
+``find_masks`` at full width and the ConvLSTM's at a small size. Skips without a CUDA device. This file
 imports torch and ivf_tpu_torch only, so it also runs where JAX is not
 installed:
 
@@ -15,6 +15,7 @@ import torch
 from ivf_tpu_torch import api
 from ivf_tpu_torch.config import Config
 from ivf_tpu_torch.data.synthetic import SyntheticClips
+from ivf_tpu_torch.ops.kernels import fused_gates as tgates
 from ivf_tpu_torch.ops.kernels import maxpool3d as tpool
 from ivf_tpu_torch.ops.kernels import pointwise_conv as tpw
 
@@ -81,6 +82,57 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
         tpw.pointwise_conv_cuda(x.t(), w, None, True)  # not contiguous
     with pytest.raises(TypeError):
         tpool.maxpool3d_s1_fwd_cuda(torch.ones(1, 2, 3, 3, 4, device=cuda_device).half())
+    c = torch.zeros(2, 5, 4, device=cuda_device)
+    with pytest.raises(ValueError):
+        tgates.lstm_gates_fwd_cuda(torch.zeros(2, 5, 12, device=cuda_device), None, c)
+    with pytest.raises(ValueError):
+        tgates.lstm_gates_fwd_cuda(torch.zeros(2, 16, 5, device=cuda_device).transpose(1, 2), None, c)
+    with pytest.raises(ValueError):
+        tgates.lstm_gates_fwd_cuda(torch.zeros(2, 5, 16), None, c)  # gates on the CPU
+
+
+@pytest.mark.parametrize("with_gh", [True, False], ids=["split", "merged"])
+@pytest.mark.parametrize("shape,ch", [((3, 7, 9), 5), ((16, 15, 20), 4)])
+def test_gate_kernels_match_plain(cuda_device, shape, ch, with_gh):
+    """Forward: h' within 1e-6, c' within 1e-6 of max|c'|; backward: dz and
+    dc within 1e-6 of max(1, their largest magnitude) (accurate expf/tanhf
+    and FMA contraction against PyTorch's separately rounded ops)."""
+    gen = torch.Generator().manual_seed(2)
+    gx, gh = (torch.randn(*shape, 4 * ch, generator=gen).to(cuda_device) for _ in range(2))
+    c, dh, dc_out = (torch.randn(*shape, ch, generator=gen).to(cuda_device) for _ in range(3))
+    gh = gh if with_gh else None
+    before = (tgates.lstm_gates_fwd_cuda.launches, tgates.lstm_gates_bwd_cuda.launches)
+    h_new, c_new = tgates.lstm_gates_fwd_cuda(gx, gh, c)
+    dz, dc = tgates.lstm_gates_bwd_cuda(gx, gh, c, dh, dc_out)
+    torch.cuda.synchronize()
+    assert (tgates.lstm_gates_fwd_cuda.launches, tgates.lstm_gates_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1
+    )
+    h_ref, c_ref = tgates.gate_math_plain(gx, gh, c)
+    dz_ref, dc_ref = tgates.gate_math_bwd_plain(gx, gh, c, dh, dc_out)
+    assert (h_new - h_ref).abs().max().item() <= 1e-6
+    assert (c_new - c_ref).abs().max().item() <= 1e-6 * c_ref.abs().max().item()
+    for got, ref in ((dz, dz_ref), (dc, dc_ref)):
+        assert (got - ref).abs().max().item() <= 1e-6 * max(1.0, ref.abs().max().item())
+
+
+def test_clstm_find_masks_on_the_card_goes_through_the_gate_kernels(cuda_device, tmp_path):
+    cfg = Config()
+    cfg.output_dir = str(tmp_path)
+    cfg.model.conv_model = "clstm_kth"
+    cfg.model.num_classes = 6
+    cfg.model.clstm_hidden, cfg.model.clstm_layers, cfg.model.conv_stride = 4, 2, 2
+    cfg.model.use_pallas = True
+    cfg.data.clip_size, cfg.data.input_spatial_size, cfg.data.batch_size = 8, (32, 48), 2
+    cfg.mask.opt_iter = 2
+    for fn in (tgates.lstm_gates_fwd_cuda, tgates.lstm_gates_bwd_cuda):
+        fn.launches = 0
+    rng = np.random.RandomState(0)
+    clips = [(rng.randint(0, 255, (8, 32, 48, 3)).astype(np.uint8), i, f"c{i}") for i in range(2)]
+    tm, gc = api.find_masks(cfg, None, clips)
+    assert tgates.lstm_gates_fwd_cuda.launches > 0 and tgates.lstm_gates_bwd_cuda.launches > 0
+    assert all(np.isfinite(r["time_mask"]).all() for r in tm)
+    assert gc[0]["GCHeatMap"].shape == (8, 32, 48)
 
 
 def test_find_masks_on_the_card_goes_through_the_kernels(cuda_device, tmp_path):
