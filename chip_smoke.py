@@ -12,18 +12,22 @@ non-zero without the final line:
 2. kernel_check: each CUDA kernel against its plain PyTorch version on
    the card, at the main paths' shapes and a ragged one, TF32 off; with
    the kernel's time, the plain version's, one PyTorch library call's
-   (a yardstick only) and the card's lower bound for the same work.
-3. small_reference: I3D at (1, 8, 32, 32, 3) with the kernels on the card
-   vs the same model on the CPU (plain versions): logits and input
-   gradient.
+   (a yardstick only) and the card's lower bound for the same work. The
+   four fused branch-3 kernels at all nine branch-3 sites, per-frame
+   against whole-sample too, timed beside the unfused kernel pair.
+3. small_reference: I3D at (1, 8, 32, 32, 3) on the card vs the same
+   model on the CPU (plain versions), for the pool-kernel route and both
+   fused routes: logits and input gradient.
 4. main_path: ``find_masks`` on i3d_smth at full width (174 classes,
    16x224x224 clips, float32, seeded weights) over 4 clips, 10 search
-   steps, Grad-CAM on -- once with the kernels (``use_pallas`` and
-   ``pallas_pool``), with every launch counter reset just before and read
-   just after, then once with them off; outputs checked and compared.
-5. step_timing: steady wall time of one search step with the kernels on
-   and off, in turns, and a profiled step of each (device time by
-   kernel group, top kernels).
+   steps, Grad-CAM on -- without kernels, with the pool kernels
+   (``use_pallas`` and ``pallas_pool``), without again, then with the
+   fused branch 3 (``use_pallas`` and ``fuse_pool_conv`` True, then
+   ``'tblock'``); every launch counter reset just before each run and read
+   just after; outputs checked and compared.
+5. step_timing: steady wall time of one search step on each of the four
+   routes, in turns, and a profiled step of each (device time by kernel
+   group, top kernels).
 6. clstm_small_reference: the ConvLSTM (torch family with the gate
    kernel; TF family with hard-sigmoid gates, 'valid' padding, per-layer
    BN) on the card vs the same model on the CPU: logits, input gradient.
@@ -66,6 +70,35 @@ MASK_TOL_REASON = (
     "masks drift apart over the steps (0.031 after 8 steps at 8x32x32 on "
     "the CPU, tests/test_torch_api.py)"
 )
+
+# fused branch 3 vs the pool-kernel route, and per-frame vs whole-sample:
+# the same tie rule, and the fused kernels give the unfused pair's bits
+# (kernel_check, route_step_bits), but whole find_masks runs on the card
+# are not reproducible: the same route run twice gives other masks
+# (float32 noise, which Adam's scale-free update carries into the masks).
+# That run twice is reported beside the comparisons ("kernels_again").
+FUSED_MASK_TOL = 1e-3
+FUSED_MASK_TOL_REASON = (
+    "the fused kernels keep the pool kernel's every-tie rule and give the "
+    "unfused kernel pair's bits, but find_masks on the card is not "
+    "reproducible run to run (kernels_again vs kernels); the fused routes "
+    "came 1.2e-4 to 2.6e-4 from the pool route in two full runs on an "
+    "H100; equal bits on the CPU (tests/test_torch_api.py)"
+)
+# the nine branch-3 sites of i3d_smth at 16x224x224: (T, H, W, Cin), Cout
+FUSED_SITES = (
+    ("Mixed_3b", (8, 28, 28, 192), 32), ("Mixed_3c", (8, 28, 28, 256), 64),
+    ("Mixed_4b", (4, 14, 14, 480), 64), ("Mixed_4c", (4, 14, 14, 512), 64),
+    ("Mixed_4d", (4, 14, 14, 512), 64), ("Mixed_4e", (4, 14, 14, 512), 64),
+    ("Mixed_4f", (4, 14, 14, 528), 128), ("Mixed_5b", (2, 7, 7, 832), 128),
+    ("Mixed_5c", (2, 7, 7, 832), 128),
+)
+FUSED_ROUTES = {  # the four find_masks routes of the I3D main path
+    "plain": {},
+    "kernels": dict(use_pallas=True, pallas_pool=True),
+    "fused": dict(use_pallas=True, fuse_pool_conv=True),
+    "fused_tblock": dict(use_pallas=True, fuse_pool_conv="tblock"),
+}
 
 # the ConvLSTM main path: the clstm_kth preset (configs/config_clstm_kth.py)
 CLSTM_BATCH, CLSTM_T, CLSTM_HW, CLSTM_CLASSES = 16, 32, (120, 160), 6
@@ -159,7 +192,7 @@ def bound(nbytes: float, ops: float):
 
 def phase_build(build) -> dict:
     t0 = time.perf_counter()
-    reports = build.build(["pointwise_conv", "maxpool3d", "fused_gates"])
+    reports = build.build(["pointwise_conv", "maxpool3d", "fused_gates", "fused_branch3"])
     seconds = time.perf_counter() - t0
     ptxas = {
         name: [ln.strip() for ln in rep.splitlines() if "registers" in ln or "spill" in ln]
@@ -344,32 +377,136 @@ def phase_gate_check(gates, failures) -> dict:
     return cases
 
 
+def phase_fused_check(fb, pool, pw, failures) -> dict:
+    """The four fused branch-3 kernels against their plain versions at the
+    nine branch-3 sites of the main path (batch 4): post-ReLU tie data
+    with the ReLU, signed data without; per-frame against whole-sample.
+    Forward within 1e-5 of the largest |y|, dx within 1e-5 of max(1,
+    largest |dx|). With the ReLU (the main path's setting) also the device
+    time of each kernel (inputs warm in L2, and flushed), of the plain
+    version, of the unfused kernel pair (``maxpool3d_s1`` +
+    ``pointwise_conv``, with the ReLU mask between them in the backward)
+    and, for the forward, of ``F.max_pool3d`` + ``torch.matmul``: no one
+    PyTorch call computes the fused function, so that pair is the
+    library yardstick; the backward has none (the every-tie gather)."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(8)
+    kernels = {
+        "fused_pool_conv": (fb.fused_pool_conv_fwd_cuda, fb.fused_pool_conv_bwd_cuda),
+        "fused_pool_conv_tblock": (fb.fused_pool_conv_tblock_fwd_cuda, fb.fused_pool_conv_tblock_bwd_cuda),
+    }
+    cases = {f"{k}_{d}": [] for k in kernels for d in ("fwd", "bwd")}
+
+    def err(a, b_):
+        return (a - b_).abs().max().item()
+
+    for site, (t, h, w, cin), cout in FUSED_SITES:
+        shape = (BATCH, t, h, w, cin)
+        n, numel, ynumel = BATCH * t * h * w, BATCH * t * h * w * cin, BATCH * t * h * w * cout
+        fwd_bound = bound(4 * (numel + cin * cout + cout + ynumel), 2 * n * cin * cout + 26 * numel + 2 * ynumel)
+        bwd_bound = bound(4 * (2 * numel + 2 * ynumel + cin * cout), 2 * n * cout * cin + ynumel + 80 * numel)
+        for relu in (True, False):
+            x = _ties(shape, gen, dev) if relu else torch.randn(shape, generator=gen).to(dev)
+            wt = (torch.randn(cin, cout, generator=gen) / cin**0.5).to(dev)
+            b = (torch.randn(cout, generator=gen) * 0.1).to(dev)
+            g = torch.randn(*shape[:-1], cout, generator=gen).to(dev)
+            outs = {}
+            for name, (fwd, bwd) in kernels.items():
+                y = fwd(x, wt, b, relu)
+                outs[name] = (y, bwd(x, y, g, wt, relu))
+            y_ref = fb.fused_pool_conv_plain(x, wt, b, relu)
+            torch.cuda.synchronize()
+            y_tol = 1e-5 * y_ref.abs().max().item()
+            (yf, dxf), (yt, dxt) = outs["fused_pool_conv"], outs["fused_pool_conv_tblock"]
+            between = {"fwd_err": err(yf, yt), "bwd_err": err(dxf, dxt),
+                       "bits_equal": bool(torch.equal(yf, yt) and torch.equal(dxf, dxt))}
+            if relu:
+                # the unfused kernel pair on the same inputs: the fused
+                # kernels add in its order, so the bits should agree
+                pooled = pool.maxpool3d_s1_fwd_cuda(x)
+                wT = wt.t().contiguous()
+                y_pair = pw.pointwise_conv_cuda(pooled.view(n, cin), wt, b, True).view(yf.shape)
+                gc_pair = pw.pointwise_conv_cuda(torch.where(y_pair > 0, g, 0.0).view(n, cout), wT, None, False)
+                dx_pair = pool.maxpool3d_s1_bwd_cuda(x, pooled, gc_pair.view(shape))
+                xc = x.permute(0, 4, 1, 2, 3)
+
+                def pair_fwd():
+                    pw.pointwise_conv_cuda(pool.maxpool3d_s1_fwd_cuda(x).view(n, cin), wt, b, True)
+
+                def pair_bwd():
+                    m = torch.where(y_pair > 0, g, 0.0).view(n, cout)
+                    gc = pw.pointwise_conv_cuda(m, wT, None, False)
+                    pool.maxpool3d_s1_bwd_cuda(x, pooled, gc.view(shape))
+
+                def lib_fwd():
+                    torch.matmul(F.max_pool3d(xc, 3, 1, 1).permute(0, 2, 3, 4, 1).reshape(n, cin), wt)
+
+                shared = {
+                    "fwd": {"pair_ms": device_ms(pair_fwd), "library_ms": device_ms(lib_fwd),
+                            "plain_ms": device_ms(lambda: fb.fused_pool_conv_plain(x, wt, b, True), reps=5)},
+                    "bwd": {"pair_ms": device_ms(pair_bwd), "library_ms": None,
+                            "plain_ms": device_ms(lambda: fb.fused_pool_conv_bwd_plain(x, yf, g, wt, True), reps=5)},
+                }
+            for name, (fwd, bwd) in kernels.items():
+                y, dx = outs[name]
+                dx_ref = fb.fused_pool_conv_bwd_plain(x, y, g, wt, relu)
+                torch.cuda.synchronize()
+                dx_tol = 1e-5 * max(1.0, dx_ref.abs().max().item())
+                rows = {
+                    "fwd": {"max_abs_err": err(y, y_ref), "tol": y_tol, "bound": fwd_bound},
+                    "bwd": {"max_abs_err": err(dx, dx_ref), "tol": dx_tol, "bound": bwd_bound},
+                }
+                if relu:
+                    rows["fwd"]["pair_bits_equal"] = bool(torch.equal(y, y_pair))
+                    rows["bwd"]["pair_bits_equal"] = bool(torch.equal(dx, dx_pair))
+                    timed = {"fwd": lambda: fwd(x, wt, b, True), "bwd": lambda: bwd(x, y, g, wt, True)}
+                    for d, fn in timed.items():
+                        rows[d].update({"ms": device_ms(fn), "cold_ms": device_ms(fn, cold=True), **shared[d]})
+                for d, row in rows.items():
+                    bms, by = row.pop("bound")
+                    cases[f"{name}_{d}"].append({
+                        "site": site, "shape": list(shape), "cout": cout, "relu": relu, **row,
+                        "bound_ms": bms, "bound_by": by, "frame_vs_tblock": between,
+                    })
+                    if not row["max_abs_err"] <= row["tol"]:
+                        failures.append(f"{name}_{d} {site} relu={relu}: err {row['max_abs_err']} > {row['tol']}")
+            if not (between["fwd_err"] <= y_tol and between["bwd_err"] <= 1e-5 * max(1.0, dxf.abs().max().item())):
+                failures.append(f"fused per-frame vs tblock {site} relu={relu}: {between}")
+    for name, rows_ in cases.items():
+        for row in rows_:
+            emit({"phase": "kernel_check", "kernel": name, **row})
+    return cases
+
+
 def phase_small_reference(failures) -> None:
-    """The kernel path inside the whole model, on a small input, against
+    """Each kernel route inside the whole model, on a small input, against
     the same model on the CPU (plain versions, CPU conv)."""
     from ivf_tpu_torch.models import i3d_smth
 
-    model = i3d_smth(num_classes=5, pool_shape=(1, 1, 1), use_pallas=True, pallas_pool=True)
-    model.reset_parameters(torch.Generator().manual_seed(1))
-    with torch.no_grad():
-        model.logits.conv3d.weight.mul_(0.005)
-    model.eval().requires_grad_(False)
     x = torch.rand(1, 8, 32, 32, 3, generator=torch.Generator().manual_seed(2)) * 255
     r = torch.randn(1, 5, generator=torch.Generator().manual_seed(3))
-    out = {}
-    for dev in ("cpu", "cuda"):
-        m = model.to(dev)
-        xd = x.to(dev).requires_grad_(True)
-        logits = m(xd)
-        (grad,) = torch.autograd.grad(logits, xd, r.to(dev))
-        out[dev] = (logits.detach().cpu(), grad.cpu())
-    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
-    logit_err = ((lg - lc).abs().max() / lc.abs().max()).item()
-    grad_err = ((gg - gc).abs().max() / gc.abs().max()).item()
-    emit({"phase": "small_reference", "logits_rel_err": logit_err, "logits_tol": 1e-4,
-          "input_grad_rel_err": grad_err, "input_grad_tol": 1e-3})
-    if not (logit_err <= 1e-4 and grad_err <= 1e-3):
-        failures.append(f"small_reference: logits {logit_err}, grad {grad_err}")
+    for route in ("kernels", "fused", "fused_tblock"):
+        model = i3d_smth(num_classes=5, pool_shape=(1, 1, 1), **FUSED_ROUTES[route])
+        model.reset_parameters(torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            model.logits.conv3d.weight.mul_(0.005)
+        model.eval().requires_grad_(False)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            m = model.to(dev)
+            xd = x.to(dev).requires_grad_(True)
+            logits = m(xd)
+            (grad,) = torch.autograd.grad(logits, xd, r.to(dev))
+            out[dev] = (logits.detach().cpu(), grad.cpu())
+        (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+        logit_err = ((lg - lc).abs().max() / lc.abs().max()).item()
+        grad_err = ((gg - gc).abs().max() / gc.abs().max()).item()
+        emit({"phase": "small_reference", "route": route, "logits_rel_err": logit_err, "logits_tol": 1e-4,
+              "input_grad_rel_err": grad_err, "input_grad_tol": 1e-3})
+        if not (logit_err <= 1e-4 and grad_err <= 1e-3):
+            failures.append(f"small_reference {route}: logits {logit_err}, grad {grad_err}")
 
 
 def _scaled_weights(cfg, api):
@@ -387,26 +524,68 @@ def _scaled_weights(cfg, api):
     return model.state_dict()
 
 
+def _diffs(a: dict, b: dict, score_keys=("original_score_guess", "freeze_score", "reverse_score")) -> dict:
+    import numpy as np
+
+    return {
+        "max_mask_diff": float(np.abs(a["masks"] - b["masks"]).max()),
+        "max_cam_diff": float(np.abs(a["cams"] - b["cams"]).max()),
+        "max_score_diff": max(abs(r[k] - q[k]) for r, q in zip(a["tm"], b["tm"]) for k in score_keys),
+        "score_keys": list(score_keys),
+    }
+
+
+# the counters of each fused route's two kernels
+FUSED_COUNTERS = {"fused": ("fused_pool_conv_fwd", "fused_pool_conv_bwd"),
+                  "fused_tblock": ("fused_pool_conv_tblock_fwd", "fused_pool_conv_tblock_bwd")}
+
+
+def _check_route_launches(route: str, launches: dict, runs: dict, failures) -> None:
+    """Which kernels each route must launch: none without kernels; the
+    pointwise and pool kernels on the pool-kernel route; on a fused route
+    its two kernels exactly as often as the pool kernels launched there,
+    the pointwise kernel that many times fewer (b3b's convs), the pool
+    kernels and the other fused variant never."""
+    pool = ("maxpool3d_s1_fwd", "maxpool3d_s1_bwd")
+    fused = FUSED_COUNTERS
+    if route == "plain":
+        ok = not any(launches.values())
+    elif route == "kernels":
+        ok = all(launches[n] > 0 for n in ("pointwise_conv", *pool))
+        ok = ok and not any(launches[n] for names in fused.values() for n in names)
+    else:
+        ref = runs["kernels"]["launches"]
+        want = {n: ref[p] for n, p in zip(fused[route], pool)}
+        want["pointwise_conv"] = ref["pointwise_conv"] - ref[pool[0]] - ref[pool[1]]
+        others = [n for r, names in fused.items() if r != route for n in names] + list(pool)
+        ok = all(launches[n] == v > 0 for n, v in want.items()) and not any(launches[n] for n in others)
+    if not ok:
+        failures.append(f"main path {route}: launches {launches}")
+
+
 def phase_main_path(api, counters, failures, card: str) -> dict:
     import numpy as np
 
     from ivf_tpu_torch.config import Config
     from ivf_tpu_torch.data.synthetic import SyntheticClips
 
-    i3d_names = ("pointwise_conv", "maxpool3d_s1_fwd", "maxpool3d_s1_bwd")
     dataset = SyntheticClips(BATCH, CLIP_T, CLIP_HW, CLASSES, seed=1, lazy=False)
     runs = {}
     with tempfile.TemporaryDirectory() as out_dir:
         # the first run in the process pays cuDNN's per-shape algorithm
         # choice and module loading: a run without the kernels goes first,
-        # then the two runs that are compared
-        for run, kernels in enumerate((False, True, False)):
+        # then the runs that are compared; the pool-kernel route runs again
+        # last, to show how far the search differs from itself
+        order = ("plain", "kernels", "plain", "fused", "fused_tblock", "kernels_again")
+        for run, label in enumerate(order):
+            route = label.replace("_again", "")
             cfg = Config()
             cfg.output_dir = out_dir
-            cfg.model_name = f"chip_smoke_{run}_{'kernels' if kernels else 'plain'}"
+            cfg.model_name = f"chip_smoke_{run}_{label}"
             cfg.data.batch_size = BATCH
             cfg.mask.opt_iter = STEPS
-            cfg.model.use_pallas = cfg.model.pallas_pool = kernels
+            for name, value in FUSED_ROUTES[route].items():
+                setattr(cfg.model, name, value)
             weights = _scaled_weights(cfg, api)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -422,10 +601,10 @@ def phase_main_path(api, counters, failures, card: str) -> dict:
             res = Path(out_dir) / cfg.model_name / "results"
             pickles = sorted(p.name for p in res.glob("all*Results_*.p"))
             rate = stats["searched_rows"] * STEPS / stats["search_seconds"]
-            runs[kernels] = dict(tm=tm, masks=masks, cams=cams, launches=launches)
+            runs[label] = dict(tm=tm, masks=masks, cams=cams, launches=launches)
             emit({
-                "phase": "main_path", "run": run, "kernels": kernels, "card": card,
-                "model": "i3d_smth",
+                "phase": "main_path", "run": run, "route": label, "flags": FUSED_ROUTES[route],
+                "kernels": route != "plain", "card": card, "model": "i3d_smth",
                 "clips": BATCH, "clip_shape": [CLIP_T, CLIP_HW, CLIP_HW, 3],
                 "steps": STEPS, "mask_steps_per_s": rate,
                 "search_seconds": stats["search_seconds"], "init_seconds": stats["init_seconds"],
@@ -433,28 +612,32 @@ def phase_main_path(api, counters, failures, card: str) -> dict:
                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
                 "masks": masks.round(4).tolist(), "pickles": pickles,
             })
-            if kernels and not all(launches[n] > 0 for n in i3d_names):
-                failures.append(f"main path with kernels: a kernel never launched {launches}")
-            if not kernels and any(launches.values()):
-                failures.append(f"main path without kernels launched one {launches}")
+            _check_route_launches(route, launches, runs, failures)
             if not (np.isfinite(masks).all() and masks.min() >= 0 and masks.max() <= 1):
-                failures.append("masks not finite in [0, 1]")
+                failures.append(f"{route}: masks not finite in [0, 1]")
             if cams.shape != (BATCH, CLIP_T, CLIP_HW, CLIP_HW) or not np.isfinite(cams).all():
-                failures.append(f"CAMs {cams.shape} not finite (B, 16, 224, 224)")
+                failures.append(f"{route}: CAMs {cams.shape} not finite (B, 16, 224, 224)")
             if len(pickles) != 2:
-                failures.append(f"pickles missing: {pickles}")
-    on, off = runs[True], runs[False]
-    mask_diff = float(np.abs(on["masks"] - off["masks"]).max())
-    cam_diff = float(np.abs(on["cams"] - off["cams"]).max())
-    score_diff = max(
-        abs(a["original_score_guess"] - b["original_score_guess"]) for a, b in zip(on["tm"], off["tm"])
-    )
-    emit({"phase": "main_path_compare", "max_mask_diff": mask_diff, "mask_tol": MASK_TOL,
-          "mask_tol_reason": MASK_TOL_REASON, "max_cam_diff": cam_diff, "cam_tol": 1e-3,
-          "max_orig_score_diff": score_diff, "orig_score_tol": 1e-4})
-    if not (mask_diff <= MASK_TOL and cam_diff <= 1e-3 and score_diff <= 1e-4):
-        failures.append(f"kernels on vs off: mask {mask_diff}, cam {cam_diff}, score {score_diff}")
-    return on["launches"]
+                failures.append(f"{route}: pickles missing: {pickles}")
+    # the masks differ here (the pool's tie rule), so the freeze and reverse
+    # scores do too: only the original scores are held
+    d = _diffs(runs["kernels"], runs["plain"], ("original_score_guess",))
+    emit({"phase": "main_path_compare", "routes": ["kernels", "plain"], **d, "mask_tol": MASK_TOL,
+          "mask_tol_reason": MASK_TOL_REASON, "cam_tol": 1e-3, "score_tol": 1e-4})
+    if not (d["max_mask_diff"] <= MASK_TOL and d["max_cam_diff"] <= 1e-3 and d["max_score_diff"] <= 1e-4):
+        failures.append(f"kernels on vs off: {d}")
+    for a, b in (("kernels_again", "kernels"), ("fused", "kernels"), ("fused_tblock", "kernels"),
+                 ("fused", "fused_tblock")):
+        d = _diffs(runs[a], runs[b])
+        emit({"phase": "main_path_compare", "routes": [a, b], **d, "mask_tol": FUSED_MASK_TOL,
+              "mask_tol_reason": FUSED_MASK_TOL_REASON, "cam_tol": 1e-3, "score_tol": 1e-4})
+        if not (d["max_mask_diff"] <= FUSED_MASK_TOL and d["max_cam_diff"] <= 1e-3
+                and d["max_score_diff"] <= 1e-4):
+            failures.append(f"{a} vs {b}: {d}")
+    launches = dict(runs["kernels"]["launches"])
+    for route, names in FUSED_COUNTERS.items():
+        launches.update({n: runs[route]["launches"][n] for n in names})
+    return launches
 
 
 def _clstm_cfg(kernels: bool, out_dir: str = "", run_name: str = ""):
@@ -611,6 +794,8 @@ def phase_clstm_main_path(api, counters, failures, card: str, weights: dict) -> 
 
 
 def _group(name: str) -> str:
+    if "fpc_frame" in name or "fpc_tblock" in name:
+        return "fused_branch3 kernels"
     if "lstm_gates" in name:
         return "fused_gates kernels"
     if "pw_gemm" in name:
@@ -631,19 +816,43 @@ def _group(name: str) -> str:
     return "elementwise and other"
 
 
-def phase_step_timing(api, card: str) -> None:
-    """Steady per-step wall time of the I3D search (kernels on / off)."""
+def phase_step_timing(api, card: str, failures) -> None:
+    """Steady per-step wall time of the I3D search on each route."""
     from ivf_tpu_torch.config import Config
     from ivf_tpu_torch.data.synthetic import SyntheticClips
 
     ds = SyntheticClips(BATCH, CLIP_T, CLIP_HW, CLASSES, seed=1, lazy=False)
     clips = torch.stack([torch.from_numpy(ds[i][0]) for i in range(BATCH)]).cuda().float()
+    # the main path's weights (logits scaled): with the raw seeded weights
+    # the softmax saturates and the step's gradient is NaN
+    weights = _scaled_weights(Config(), api)
     models = {}
-    for kernels in (True, False):
+    for route in ("kernels", "plain", "fused", "fused_tblock"):
         cfg = Config()
-        cfg.model.use_pallas = cfg.model.pallas_pool = kernels
-        models[kernels] = api.build_model(cfg, softmax_override=True).requires_grad_(False)
-    _step_timing("step_timing", models, clips, card)
+        for name, value in FUSED_ROUTES[route].items():
+            setattr(cfg.model, name, value)
+        model = api.build_model(cfg, softmax_override=True)
+        model.load_state_dict(weights)
+        models[route] = model.requires_grad_(False)
+    # one search step from the same carry on the three kernel routes (same
+    # seeded weights): the fused kernels should leave every bit as it was
+    from ivf_tpu_torch.interpret import mask_opt
+
+    targets = torch.zeros(BATCH, dtype=torch.long, device="cuda")
+    carry0 = _central_carry(BATCH, CLIP_T)
+    after = {
+        route: mask_opt.search_step(lambda x, m=models[route]: m(x).float(), clips, targets, carry0)
+        for route in ("kernels", "fused", "fused_tblock")
+    }
+    emit({"phase": "route_step_bits", "card": card, "batch": BATCH, **{
+        route: {"logits_equal_bits": bool(torch.equal(after[route].logits, after["kernels"].logits)),
+                "max_logit_diff": (after[route].logits - after["kernels"].logits).abs().max().item(),
+                "max_score_diff": (after[route].aux[2] - after["kernels"].aux[2]).abs().max().item()}
+        for route in ("fused", "fused_tblock")}})
+    if not all(torch.isfinite(c.logits).all() for c in after.values()):
+        failures.append("route_step_bits: a search step gave non-finite logits")
+    turns = ("kernels", "plain", "fused", "fused_tblock", "fused_tblock", "fused", "plain", "kernels")
+    _step_timing("step_timing", models, clips, card, turns=turns)
 
 
 def phase_clstm_step_timing(api, card: str, weights: dict) -> None:
@@ -652,13 +861,24 @@ def phase_clstm_step_timing(api, card: str, weights: dict) -> None:
 
     clips = torch.from_numpy(np.stack([c for c, _, _ in _clstm_clips()])).cuda().float()
     models = {}
-    for kernels in (True, False):
-        model = api.build_model(_clstm_cfg(kernels), softmax_override=True)
+    for route in ("kernels", "plain"):
+        model = api.build_model(_clstm_cfg(route == "kernels"), softmax_override=True)
         model.load_state_dict(weights)
-        models[kernels] = model.requires_grad_(False)
+        models[route] = model.requires_grad_(False)
     # the host bounds this step and shares its cores: twice the turns
-    _step_timing("clstm_step_timing", models, clips, card, turns=(True, False, False, True) * 2,
-                 pairs=12)
+    _step_timing("clstm_step_timing", models, clips, card,
+                 turns=("kernels", "plain", "plain", "kernels") * 2, pairs=12)
+
+
+def _central_carry(b: int, t: int):
+    """A search carry shaped like the central init (logits +5 on the middle
+    half of the frames, -5 outside). Not a constant mask: the TV norm's
+    gradient is NaN where every neighbouring mask value is equal."""
+    from ivf_tpu_torch.interpret import mask_opt
+
+    pos = torch.arange(t, device="cuda")
+    logits = torch.where((pos >= t // 4) & (pos < t - t // 4), 5.0, -5.0)
+    return mask_opt.make_search_carry(logits.expand(b, t).contiguous())
 
 
 def _host_us_per_launch(n: int = 2000) -> float:
@@ -673,16 +893,15 @@ def _host_us_per_launch(n: int = 2000) -> float:
     return (time.perf_counter() - t0) / n * 1e6
 
 
-def _step_timing(
-    phase: str, models: dict, clips, card: str, turns=(True, False, False, True), pairs: int = 0
-) -> None:
-    """Steady per-step wall time of the search (kernels on / off, in turns
-    on, off, off, on after a warm-up), then one profiled step of each: device
-    time by kernel group, the device-busy share and the top kernels. With
-    ``pairs``, also that many single steps of each, on and off back to back
-    with the first of each pair alternating, and the host's launch rate
-    before and after: a host-bound step drifts with the host's speed, which
-    pairs of neighbouring steps cancel."""
+def _step_timing(phase: str, models: dict, clips, card: str, turns, pairs: int = 0) -> None:
+    """Steady per-step wall time of the search for each route of ``models``
+    (route name -> model), five steps after a warm-up in each of ``turns``,
+    then one profiled step of each: device time by kernel group, the
+    device-busy share and the top kernels. With ``pairs``, also that many
+    single steps of the first two routes (kernels on, then off), back to
+    back with the first of each pair alternating, and the host's launch
+    rate before and after: a host-bound step drifts with the host's speed,
+    which pairs of neighbouring steps cancel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -691,39 +910,40 @@ def _step_timing(
     b, t = clips.shape[:2]
     targets = torch.zeros(b, dtype=torch.long, device="cuda")
     steps = {}
-    for kernels, model in models.items():
+    for route, model in models.items():
         score = lambda x, m=model: m(x).float()  # noqa: E731
-        steps[kernels] = lambda c, score=score: mask_opt.search_step(score, clips, targets, c)
-    carry0 = mask_opt.make_search_carry(torch.zeros(b, t, device="cuda"))
-    wall = {True: [], False: []}
-    for kernels in turns:
-        carry = steps[kernels](steps[kernels](carry0))
+        steps[route] = lambda c, score=score: mask_opt.search_step(score, clips, targets, c)
+    carry0 = _central_carry(b, t)
+    wall = {route: [] for route in models}
+    for route in turns:
+        carry = steps[route](steps[route](carry0))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(5):
-            carry = steps[kernels](carry)
+            carry = steps[route](carry)
         torch.cuda.synchronize()
-        wall[kernels].append((time.perf_counter() - t0) / 5 * 1e3)
+        wall[route].append((time.perf_counter() - t0) / 5 * 1e3)
     if pairs:
+        on_route, off_route = list(models)[:2]
         host_us = [_host_us_per_launch()]
-        single = {True: [], False: []}
+        single = {on_route: [], off_route: []}
         for k in range(pairs):
-            for kernels in ((True, False) if k % 2 == 0 else (False, True)):
+            for route in ((on_route, off_route) if k % 2 == 0 else (off_route, on_route)):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                carry = steps[kernels](carry)
+                carry = steps[route](carry)
                 torch.cuda.synchronize()
-                single[kernels].append((time.perf_counter() - t0) * 1e3)
+                single[route].append((time.perf_counter() - t0) * 1e3)
         host_us.append(_host_us_per_launch())
-        on, off = single[True], single[False]
+        on, off = single[on_route], single[off_route]
         emit({"phase": phase + "_pairs", "card": card, "batch": b, "pairs": pairs,
               "on_ms": on, "off_ms": off,
               "median_on_ms": sorted(on)[len(on) // 2], "median_off_ms": sorted(off)[len(off) // 2],
               "pairs_on_faster": sum(a < c for a, c in zip(on, off)),
               "host_us_per_launch_before_after": host_us})
-    for kernels in (True, False):
+    for route in models:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            steps[kernels](carry0)
+            steps[route](carry0)
             torch.cuda.synchronize()
         groups, top, n_kernels = {}, [], 0
         for ev in prof.key_averages():
@@ -734,9 +954,9 @@ def _step_timing(
             top.append((dev_us / 1e3, ev.count, ev.key[:110]))
             n_kernels += ev.count
         device_ms = sum(groups.values())
-        wall_ms = sum(wall[kernels]) / len(wall[kernels])
-        emit({"phase": phase, "kernels": kernels, "card": card, "batch": b,
-              "wall_ms_per_step": wall[kernels], "device_ms_per_step": device_ms,
+        wall_ms = sum(wall[route]) / len(wall[route])
+        emit({"phase": phase, "route": route, "kernels": route != "plain", "card": card, "batch": b,
+              "wall_ms_per_step": wall[route], "device_ms_per_step": device_ms,
               "device_busy_share": device_ms / wall_ms, "kernels_per_step": n_kernels,
               "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
               "top_kernels": [list(t) for t in sorted(top, reverse=True)[:12]]})
@@ -757,17 +977,28 @@ def kernels_line(cases: dict, launches: dict) -> dict:
         "lstm_gates_bwd": ("layer1", "ivf_tpu/ops/pallas/fused_gates.py:92",
                            "ivf_tpu_torch/csrc/fused_gates.cu"),
     }
+    fb_src = "ivf_tpu_torch/csrc/fused_branch3.cu"
+    for name, line in (("fused_pool_conv_fwd", 57), ("fused_pool_conv_bwd", 72),
+                       ("fused_pool_conv_tblock_fwd", 279), ("fused_pool_conv_tblock_bwd", 327)):
+        headline[name] = ("Mixed_3b", f"ivf_tpu/ops/pallas/fused_branch3.py:{line}", fb_src)
     out = []
     for name, (site, replaces, source) in headline.items():
-        row = next(c for c in cases[name] if c["site"] == site)
-        out.append({
+        row = next(c for c in cases[name] if c["site"] == site and c.get("relu", True))
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "at": {"site": site, "shape": row["shape"]},
-        })
+        }
+        if name.startswith("fused_pool_conv"):
+            entry.update({
+                "cold_ms": row["cold_ms"], "unfused_kernel_pair_ms": row["pair_ms"],
+                "library": "F.max_pool3d + torch.matmul: no one PyTorch call computes the fused function"
+                if name.endswith("fwd") else "none: no PyTorch call has the every-tie gather",
+            })
+        out.append(entry)
     return {"kernels": out}
 
 
@@ -778,6 +1009,7 @@ def main() -> int:
     try:
         from ivf_tpu_torch import api
         from ivf_tpu_torch.ops.kernels import build
+        from ivf_tpu_torch.ops.kernels import fused_branch3 as fb
         from ivf_tpu_torch.ops.kernels import fused_gates as gates
         from ivf_tpu_torch.ops.kernels import maxpool3d as pool
         from ivf_tpu_torch.ops.kernels import pointwise_conv as pw
@@ -793,13 +1025,18 @@ def main() -> int:
         "maxpool3d_s1_bwd": pool.maxpool3d_s1_bwd_cuda,
         "lstm_gates_fwd": gates.lstm_gates_fwd_cuda,
         "lstm_gates_bwd": gates.lstm_gates_bwd_cuda,
+        "fused_pool_conv_fwd": fb.fused_pool_conv_fwd_cuda,
+        "fused_pool_conv_bwd": fb.fused_pool_conv_bwd_cuda,
+        "fused_pool_conv_tblock_fwd": fb.fused_pool_conv_tblock_fwd_cuda,
+        "fused_pool_conv_tblock_bwd": fb.fused_pool_conv_tblock_bwd_cuda,
     }
     info = phase_build(build)
     cases = phase_kernel_check(pw, pool, failures)
     cases.update(phase_gate_check(gates, failures))
+    cases.update(phase_fused_check(fb, pool, pw, failures))
     phase_small_reference(failures)
     launches = phase_main_path(api, counters, failures, info["smi"])
-    phase_step_timing(api, info["smi"])
+    phase_step_timing(api, info["smi"], failures)
     phase_clstm_small_reference(failures)
     clstm_weights = _clstm_scaled_weights(api, _clstm_clips()[0][0])
     clstm_launches = phase_clstm_main_path(api, counters, failures, info["smi"], clstm_weights)

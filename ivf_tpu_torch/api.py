@@ -1,6 +1,8 @@
 """Public entry points of the port (port of ``ivf_tpu/api.py``):
 ``build_model`` (I3D and the ConvLSTM family) and the monolithic
-``find_masks``.
+``find_masks``. ``build_model`` passes the I3D kernel routes on from the
+config: ``use_pallas``, ``pallas_pool`` and ``fuse_pool_conv`` (True or
+``'tblock'``), each running hand-written CUDA kernels on the card.
 
 Both run on ``cuda`` unless the caller passes ``device="cpu"`` (as the
 tests do); with no GPU and no explicit device they raise rather than run
@@ -126,6 +128,7 @@ def build_model(
             stride_mod_layers=tuple(m.stride_mod_layers),
             use_pallas=m.use_pallas,
             pallas_pool=m.pallas_pool,
+            fuse_pool_conv=m.fuse_pool_conv,
         )
         if "kth" in name:
             kwargs["final_time_length"] = m.final_temp_time

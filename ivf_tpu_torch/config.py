@@ -54,6 +54,9 @@ class ModelConfig:
     # block via the fused-gates CUDA kernel (sigmoid gates)
     use_pallas: bool = False
     pallas_pool: bool = False  # branch-3 pools via the max-pool CUDA kernels
+    fuse_pool_conv: object = False  # I3D Inception branch-3 pool+1x1conv
+    # as one CUDA kernel per direction (inference/mask search only);
+    # True = per-frame kernels, 'tblock' = whole-sample kernels
 
 
 @dataclass

@@ -3,8 +3,8 @@
 Same trunk table, head and knobs as the JAX model, minus what this slice
 does not run: dropout is the identity (eval), the stem is a plain 7x7x7
 stride-2 conv (the TPU's space-to-depth stem is the same math), and
-``remat``/``guided_relu``/``fuse_3x3``/``fuse_pool_conv``/``pool_impl``
-are not ported. Input and output layouts match the JAX model: clips
+``remat``/``guided_relu``/``fuse_3x3``/``pool_impl`` are not ported.
+Input and output layouts match the JAX model: clips
 ``(B, T, H, W, C)`` -> logits ``(B, num_classes)``.
 """
 
@@ -53,7 +53,9 @@ class I3D(nn.Module):
     """I3D classifier. ``use_pallas`` routes every 1x1x1 conv (the fused
     Inception trio, ``b3b``, ``Conv3d_2b_1x1`` and the logits head) through
     the pointwise kernel; ``pallas_pool`` routes the nine branch-3 pools
-    through the max-pool kernel pair."""
+    through the max-pool kernel pair; ``fuse_pool_conv`` (True: per-frame,
+    ``'tblock'``: whole-sample) runs each whole branch 3 through the fused
+    pool + conv kernels instead."""
 
     def __init__(
         self,
@@ -68,6 +70,7 @@ class I3D(nn.Module):
         fuse_1x1: bool = True,
         use_pallas: bool = False,
         pallas_pool: bool = False,
+        fuse_pool_conv: object = False,
     ):
         super().__init__()
         self.num_classes = num_classes
@@ -91,7 +94,9 @@ class I3D(nn.Module):
                 oc = spec["out"]
                 setattr(
                     self, name,
-                    InceptionModule(c, oc, fold_bn, fuse_1x1, use_pallas, pallas_pool),
+                    InceptionModule(
+                        c, oc, fold_bn, fuse_1x1, use_pallas, pallas_pool, fuse_pool_conv
+                    ),
                 )
                 c = oc[0] + oc[2] + oc[4] + oc[5]
         # the reference's 'leaky' branch is dead code (its checkpoints were

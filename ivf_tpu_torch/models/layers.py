@@ -7,8 +7,8 @@ running_var``), which are also the names ``utils/convert.py`` produces.
 
 Inference only: BatchNorm normalizes with its running statistics and is
 folded into the preceding conv by default (``fold_bn``). The JAX
-package's ``fuse_3x3``, ``fuse_pool_conv``, ``pool_impl`` other than
-``reduce_window`` and training-mode BN are not ported yet (ROADMAP.md).
+package's ``fuse_3x3``, ``pool_impl`` other than ``reduce_window`` and
+training-mode BN are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ivf_tpu_torch.ops.conv import conv3d_same, max_pool3d_same
+from ivf_tpu_torch.ops.kernels.fused_branch3 import fused_pool_conv, fused_pool_conv_tblock
 from ivf_tpu_torch.ops.kernels.maxpool3d import maxpool3d_s1
 from ivf_tpu_torch.ops.kernels.pointwise_conv import pointwise_conv
 
@@ -150,7 +151,12 @@ class InceptionModule(nn.Module):
     (b0, b1a, b2a) run as ONE conv whose output channels split after the
     shared ReLU. ``pallas_pool``: the branch-3 pool runs through the
     ``maxpool3d_s1`` kernel pair (every-tie backward) instead of
-    ``F.max_pool3d``.
+    ``F.max_pool3d``. ``fuse_pool_conv``: with b3b's BN folded, the whole
+    branch 3 (pool, folded 1x1x1 conv, bias, ReLU) is one kernel each way
+    (``ops/kernels/fused_branch3.py``, same tie rule); ``'tblock'`` takes
+    the whole-sample kernels, any other true value the per-frame ones. It
+    takes precedence over ``pallas_pool`` and over ``use_pallas`` for b3b;
+    with BN unfolded the branch runs unfused, as in JAX.
     """
 
     def __init__(
@@ -161,6 +167,7 @@ class InceptionModule(nn.Module):
         fuse_1x1: bool = True,
         use_pallas: bool = False,
         pallas_pool: bool = False,
+        fuse_pool_conv: object = False,
     ):
         super().__init__()
         oc = tuple(out_channels)
@@ -168,6 +175,7 @@ class InceptionModule(nn.Module):
         self.fuse_1x1 = fuse_1x1
         self.use_pallas = use_pallas
         self.pallas_pool = pallas_pool
+        self.fuse_pool_conv = fuse_pool_conv
         unit = lambda cin, cout, k, pw: Unit3D(  # noqa: E731
             cin, cout, k, fold_bn=fold_bn, use_pallas=use_pallas and pw
         )
@@ -197,9 +205,15 @@ class InceptionModule(nn.Module):
             b0, b1, b2 = (m(x) for m in heads)
         b1 = self.b1b(b1)
         b2 = self.b2b(b2)
-        if self.pallas_pool:
-            b3 = maxpool3d_s1(x.contiguous())
+        if self.fuse_pool_conv and self.b3b.folding:
+            fused = fused_pool_conv_tblock if self.fuse_pool_conv == "tblock" else fused_pool_conv
+            w3, c3 = self.b3b.folded()
+            cin = x.shape[-1]
+            b3 = fused(x.contiguous(), w3.reshape(oc[5], cin).t().contiguous(), c3, True)
         else:
-            b3 = max_pool3d_same(x, (3, 3, 3), (1, 1, 1))
-        b3 = self.b3b(b3)
+            if self.pallas_pool:
+                b3 = maxpool3d_s1(x.contiguous())
+            else:
+                b3 = max_pool3d_same(x, (3, 3, 3), (1, 1, 1))
+            b3 = self.b3b(b3)
         return torch.cat([b0, b1, b2, b3], dim=-1)

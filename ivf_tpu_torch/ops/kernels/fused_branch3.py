@@ -1,0 +1,219 @@
+"""Fused Inception branch 3: 3x3x3 stride-1 max pool -> 1x1x1 conv -> bias
+[-> ReLU], forward and backward.
+
+Port of ``ivf_tpu/ops/pallas/fused_branch3.py``: ``fused_pool_conv`` (the
+Pallas grid over (b, t) frames) and ``fused_pool_conv_tblock`` (over whole
+samples). Both compute one function, with the branch-3 pool's every-tie
+rule (``maxpool3d.py``)::
+
+    y  = act(pool(x) @ w + b)
+    gc = (g * [y != 0]) @ w^T          ([y != 0] only with the ReLU)
+    dx = the pool's 27-term gather of gc against pool(x)
+
+On CUDA tensors each direction of each function runs its own kernel in
+``csrc/fused_branch3.cu``, which keeps the pooled tensor and ``gc`` out of
+device memory; on CPU tensors both run the plain versions below, the
+pool's plain versions around a matmul. ``dw`` and ``db`` are plain
+PyTorch outside the kernels, as in JAX, from a recomputed pool, and only
+when autograd asks for them: the mask search freezes the weights.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ivf_tpu_torch.ops.kernels import build
+from ivf_tpu_torch.ops.kernels.maxpool3d import maxpool3d_s1_bwd_plain, maxpool3d_s1_fwd_plain
+from ivf_tpu_torch.ops.kernels.pointwise_conv import pointwise_conv_plain
+
+
+def _relu_mask(y: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``g * [y != 0]``: the ReLU's gradient on its saved output."""
+    return torch.where(y != 0, g, 0.0)
+
+
+def fused_pool_conv_plain(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool
+) -> torch.Tensor:
+    """Plain forward: the pool's plain forward, then the pointwise conv's."""
+    cout = w.shape[1]
+    pooled = maxpool3d_s1_fwd_plain(x)
+    y = pointwise_conv_plain(pooled.reshape(-1, x.shape[-1]), w, b, relu)
+    return y.reshape(*x.shape[:-1], cout)
+
+
+def fused_pool_conv_bwd_plain(
+    x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, w: torch.Tensor, relu: bool
+) -> torch.Tensor:
+    """Plain input gradient: ``gc = (g * [y != 0]) @ w^T``, then the pool's
+    plain gather against the recomputed pool."""
+    m = _relu_mask(y, g) if relu else g
+    gc = (m.reshape(-1, w.shape[1]) @ w.t().contiguous()).reshape(x.shape)
+    return maxpool3d_s1_bwd_plain(x, maxpool3d_s1_fwd_plain(x), gc)
+
+
+def _weight_grads(x, y, g, relu):
+    """(dw, db) from a recomputed pool (the JAX package's ``_vjp_bwd``)."""
+    ge = _relu_mask(y, g) if relu else g
+    dw = torch.einsum("bthwi,bthwo->io", maxpool3d_s1_fwd_plain(x), ge)
+    return dw, ge.sum(dim=(0, 1, 2, 3))
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.library("fused_branch3")
+    dims = [ctypes.c_int] * 7  # b, t, h, w, cin, cout, relu
+    for name in ("fused_pool_conv_fwd_f32", "fused_pool_conv_tblock_fwd_f32"):
+        getattr(lib, name).argtypes = [ctypes.c_void_p] * 4 + dims + [ctypes.c_void_p]
+        getattr(lib, name).restype = ctypes.c_int
+    for name in ("fused_pool_conv_bwd_f32", "fused_pool_conv_tblock_bwd_f32"):
+        getattr(lib, name).argtypes = [ctypes.c_void_p] * 5 + dims + [ctypes.c_void_p]
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _check_cuda_operands(x, w, b=None, *out_like) -> None:
+    if x.dim() != 5 or w.dim() != 2 or w.shape[0] != x.shape[-1]:
+        raise ValueError(
+            f"fused_pool_conv: x {tuple(x.shape)}, w {tuple(w.shape)} are not "
+            "(B, T, H, W, Cin), (Cin, Cout)"
+        )
+    named = [("x", x), ("w", w)] + ([("b", b)] if b is not None else [])
+    named += [(f"y/g{k}", t) for k, t in enumerate(out_like)]
+    for name, t in named:
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"fused_pool_conv: {name} must be on {x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused_pool_conv: {name} is {t.dtype}; the kernel takes float32")
+        if not t.is_contiguous():
+            raise ValueError(f"fused_pool_conv: {name} must be contiguous")
+    if b is not None and tuple(b.shape) != (w.shape[1],):
+        raise ValueError(f"fused_pool_conv: b {tuple(b.shape)} != ({w.shape[1]},)")
+    for t in out_like:
+        if t.shape != (*x.shape[:-1], w.shape[1]):
+            raise ValueError(f"fused_pool_conv: y/g {tuple(t.shape)} is not (B, T, H, W, Cout)")
+
+
+def _launch_fwd(symbol, counter, x, w, b, relu):
+    _check_cuda_operands(x, w, b)
+    y = torch.empty((*x.shape[:-1], w.shape[1]), device=x.device, dtype=torch.float32)
+    if y.numel() == 0:
+        return y
+    rc = getattr(_lib(), symbol)(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), *x.shape, w.shape[1],
+        int(relu), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{symbol} launch failed with CUDA error {rc}")
+    counter.launches += 1
+    return y
+
+
+def _launch_bwd(symbol, counter, x, y, g, w, relu):
+    _check_cuda_operands(x, w, None, y, g)
+    dx = torch.empty_like(x)
+    if x.numel() == 0 or y.numel() == 0:
+        return dx.zero_()
+    rc = getattr(_lib(), symbol)(
+        x.data_ptr(), y.data_ptr(), g.data_ptr(), w.data_ptr(), dx.data_ptr(), *x.shape,
+        w.shape[1], int(relu), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{symbol} launch failed with CUDA error {rc}")
+    counter.launches += 1
+    return dx
+
+
+def fused_pool_conv_fwd_cuda(x, w, b, relu: bool) -> torch.Tensor:
+    """Launch the per-frame forward kernel; counts in ``.launches``."""
+    return _launch_fwd("fused_pool_conv_fwd_f32", fused_pool_conv_fwd_cuda, x, w, b, relu)
+
+
+def fused_pool_conv_bwd_cuda(x, y, g, w, relu: bool) -> torch.Tensor:
+    """Launch the per-frame input-gradient kernel; counts in ``.launches``."""
+    return _launch_bwd("fused_pool_conv_bwd_f32", fused_pool_conv_bwd_cuda, x, y, g, w, relu)
+
+
+def fused_pool_conv_tblock_fwd_cuda(x, w, b, relu: bool) -> torch.Tensor:
+    """Launch the whole-sample forward kernel; counts in ``.launches``."""
+    return _launch_fwd(
+        "fused_pool_conv_tblock_fwd_f32", fused_pool_conv_tblock_fwd_cuda, x, w, b, relu
+    )
+
+
+def fused_pool_conv_tblock_bwd_cuda(x, y, g, w, relu: bool) -> torch.Tensor:
+    """Launch the whole-sample input-gradient kernel; counts in ``.launches``."""
+    return _launch_bwd(
+        "fused_pool_conv_tblock_bwd_f32", fused_pool_conv_tblock_bwd_cuda, x, y, g, w, relu
+    )
+
+
+for _fn in (
+    fused_pool_conv_fwd_cuda,
+    fused_pool_conv_bwd_cuda,
+    fused_pool_conv_tblock_fwd_cuda,
+    fused_pool_conv_tblock_bwd_cuda,
+):
+    _fn.launches = 0
+
+
+def _function(name: str, fwd_cuda, bwd_cuda):
+    """The autograd Function of one variant: its kernels on CUDA tensors,
+    the plain versions on CPU tensors, no other device."""
+
+    def route(x, cuda_fn, plain_fn, *args):
+        if x.is_cuda:
+            return cuda_fn(x, *args)
+        if x.device.type == "cpu":
+            return plain_fn(x, *args)
+        raise RuntimeError(f"{name}: no kernel for device {x.device}")
+
+    class Fn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w, b, relu):
+            y = route(x, fwd_cuda, fused_pool_conv_plain, w, b, relu)
+            ctx.relu = relu
+            ctx.save_for_backward(x, y, w)
+            return y
+
+        @staticmethod
+        def backward(ctx, g):
+            x, y, w = ctx.saved_tensors
+            g = g.contiguous()
+            dx = dw = db = None
+            if ctx.needs_input_grad[0]:
+                dx = route(x, bwd_cuda, fused_pool_conv_bwd_plain, y, g, w, ctx.relu)
+            if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+                dw, db = _weight_grads(x, y, g, ctx.relu)
+                dw = dw if ctx.needs_input_grad[1] else None
+                db = db if ctx.needs_input_grad[2] else None
+            return dx, dw, db, None
+
+    Fn.__name__ = Fn.__qualname__ = name
+    return Fn
+
+
+_FusedPoolConv = _function("fused_pool_conv", fused_pool_conv_fwd_cuda, fused_pool_conv_bwd_cuda)
+_FusedPoolConvTBlock = _function(
+    "fused_pool_conv_tblock", fused_pool_conv_tblock_fwd_cuda, fused_pool_conv_tblock_bwd_cuda
+)
+
+
+def fused_pool_conv(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = True
+) -> torch.Tensor:
+    """maxpool 3x3x3 (stride 1, zero-padded SAME) -> 1x1x1 conv -> bias
+    [-> ReLU], per-frame kernels. x: (B, T, H, W, Cin); w: (Cin, Cout);
+    b: (Cout,). Differentiable in all three (every-tie pool rule)."""
+    return _FusedPoolConv.apply(x.contiguous(), w.contiguous(), b.contiguous(), relu)
+
+
+def fused_pool_conv_tblock(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = True
+) -> torch.Tensor:
+    """The same function as ``fused_pool_conv``, with the whole-sample
+    kernels (each x voxel read about once per direction)."""
+    return _FusedPoolConvTBlock.apply(x.contiguous(), w.contiguous(), b.contiguous(), relu)

@@ -92,9 +92,10 @@ def jax_run(tmp_path_factory):
     return dict(out=out, tm=tm, gc=gc, sd=i3d_variables_to_state_dict(variables))
 
 
-def _port_run(monkeypatch, tmp_path, sd, flags):
-    cfg = _set_small(TConfig(), tmp_path)
-    cfg.model.use_pallas = cfg.model.pallas_pool = flags
+def _port_run(out_dir, sd, **model_flags):
+    cfg = _set_small(TConfig(), out_dir)
+    for name, value in model_flags.items():
+        setattr(cfg.model, name, value)
     orig = tapi.build_model
 
     def small_model(cfg, softmax_override=None, device=None):
@@ -102,17 +103,25 @@ def _port_run(monkeypatch, tmp_path, sd, flags):
         model.pool_shape = (1, 1, 1)  # logits pool for 32x32 inputs
         return model
 
-    monkeypatch.setattr(tapi, "build_model", small_model)
     stats = {}
-    tm, gc = tapi.find_masks(
-        cfg, sd, SyntheticClips(4, t=8, hw=32, num_classes=5, lazy=False),
-        stats=stats, device="cpu",
-    )
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tapi, "build_model", small_model)
+        tm, gc = tapi.find_masks(
+            cfg, sd, SyntheticClips(4, t=8, hw=32, num_classes=5, lazy=False),
+            stats=stats, device="cpu",
+        )
     return tm, gc, stats
 
 
+@pytest.fixture(scope="module")
+def pool_kernel_run(jax_run, tmp_path_factory):
+    """The port's pool-kernel route: pointwise and branch-3 pool kernels."""
+    out = tmp_path_factory.mktemp("pool_kernels")
+    return _port_run(out, jax_run["sd"], use_pallas=True, pallas_pool=True)
+
+
 @pytest.mark.parametrize("flags", [False, True], ids=["xla_path", "kernel_path"])
-def test_find_masks_matches_jax(jax_run, monkeypatch, tmp_path, flags):
+def test_find_masks_matches_jax(jax_run, tmp_path, flags):
     """Per-clip records, key names and pickle names against the JAX find_masks.
 
     Kernel path off: the same math as JAX's default path; masks atol 1e-4
@@ -122,7 +131,7 @@ def test_find_masks_matches_jax(jax_run, monkeypatch, tmp_path, flags):
     (tests/test_torch_model.py shows it equal to the JAX Pallas path's), so
     the masks drift apart: 0.031 measured here after 8 steps; held at 0.05.
     """
-    tm, gc, stats = _port_run(monkeypatch, tmp_path, jax_run["sd"], flags)
+    tm, gc, stats = _port_run(tmp_path, jax_run["sd"], use_pallas=flags, pallas_pool=flags)
     names, (gc_pickled, tm_pickled) = _load_pickles(tmp_path)
     want_names, _ = _load_pickles(jax_run["out"])
     assert names == want_names == ["allGradCamResults_fm_None_.p", "allTimeMaskResults_fm_None_.p"]
@@ -142,6 +151,26 @@ def test_find_masks_matches_jax(jax_run, monkeypatch, tmp_path, flags):
     for got, want, pickled in zip(gc, jax_run["gc"], gc_pickled):
         assert set(got) == set(want) == set(pickled)
         assert got["GCHeatMap"].shape == (8, 32, 32)
+        np.testing.assert_allclose(got["GCHeatMap"], want["GCHeatMap"], atol=1e-4)
+
+
+@pytest.mark.parametrize("variant", [True, "tblock"], ids=["frame", "tblock"])
+def test_fused_branch3_find_masks_matches_the_pool_kernel_path(jax_run, pool_kernel_run, tmp_path, variant):
+    """``fuse_pool_conv`` (with ``use_pallas``) against the pool-kernel
+    route (``use_pallas`` + ``pallas_pool``): the same tie rule, and on the
+    CPU the same plain ops in the same order, so the records agree to
+    rounding (equal bits measured here). Masks atol 1e-4, scores 1e-5,
+    CAMs 1e-4."""
+    tm, gc, stats = _port_run(tmp_path, jax_run["sd"], use_pallas=True, fuse_pool_conv=variant)
+    want_tm, want_gc, _ = pool_kernel_run
+    assert stats["searched_rows"] == 4 and stats["n_steps_run"] == [8] * 4
+    for got, want in zip(tm, want_tm):
+        assert set(got) == set(want) == RECORD_KEYS
+        assert got["pred_class"] == want["pred_class"]
+        for key in ("original_score_guess", "original_score_true", "freeze_score", "reverse_score"):
+            np.testing.assert_allclose(got[key], want[key], atol=1e-5)
+        np.testing.assert_allclose(got["time_mask"], want["time_mask"], atol=1e-4)
+    for got, want in zip(gc, want_gc):
         np.testing.assert_allclose(got["GCHeatMap"], want["GCHeatMap"], atol=1e-4)
 
 

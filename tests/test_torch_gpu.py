@@ -1,7 +1,8 @@
 """ivf_tpu_torch's CUDA kernels on the card (``gpu`` marker).
 
-Each kernel against its plain PyTorch version, the I3D kernel path of
-``find_masks`` at full width and the ConvLSTM's at a small size. Skips without a CUDA device. This file
+Each kernel against its plain PyTorch version, the I3D kernel paths of
+``find_masks`` (the pool kernels, the fused branch 3) at full width and
+the ConvLSTM's at a small size. Skips without a CUDA device. This file
 imports torch and ivf_tpu_torch only, so it also runs where JAX is not
 installed:
 
@@ -15,6 +16,7 @@ import torch
 from ivf_tpu_torch import api
 from ivf_tpu_torch.config import Config
 from ivf_tpu_torch.data.synthetic import SyntheticClips
+from ivf_tpu_torch.ops.kernels import fused_branch3 as tfb
 from ivf_tpu_torch.ops.kernels import fused_gates as tgates
 from ivf_tpu_torch.ops.kernels import maxpool3d as tpool
 from ivf_tpu_torch.ops.kernels import pointwise_conv as tpw
@@ -71,6 +73,39 @@ def test_maxpool_kernels_match_plain(cuda_device, shape):
     torch.cuda.synchronize()
     assert torch.equal(y, tpool.maxpool3d_s1_fwd_plain(x))
     assert (dx - tpool.maxpool3d_s1_bwd_plain(x, y, g)).abs().max().item() <= 1e-6
+
+
+FUSED = {
+    "frame": (tfb.fused_pool_conv_fwd_cuda, tfb.fused_pool_conv_bwd_cuda),
+    "tblock": (tfb.fused_pool_conv_tblock_fwd_cuda, tfb.fused_pool_conv_tblock_bwd_cuda),
+}
+
+
+@pytest.mark.parametrize("shape,cout", [((2, 8, 28, 28, 192), 32), ((2, 2, 7, 7, 832), 128)],
+                         ids=["Mixed_3b", "Mixed_5b"])
+@pytest.mark.parametrize("variant", sorted(FUSED))
+def test_fused_branch3_kernels_match_plain(cuda_device, variant, shape, cout):
+    """Forward within 1e-5 of the largest |y|, dx within 1e-5 of
+    max(1, largest |dx|): the pool and the gather are exact, the GEMMs sum
+    in another order than the plain matmul. Post-ReLU tie data with the
+    ReLU, signed data without."""
+    fwd, bwd = FUSED[variant]
+    gen = torch.Generator().manual_seed(3)
+    for relu in (True, False):
+        x = _ties(shape, 4) if relu else torch.randn(shape, generator=gen)
+        x = x.to(cuda_device)
+        w = (torch.randn(shape[-1], cout, generator=gen) / shape[-1] ** 0.5).to(cuda_device)
+        b = (torch.randn(cout, generator=gen) * 0.1).to(cuda_device)
+        g = torch.randn(*shape[:-1], cout, generator=gen).to(cuda_device)
+        before = (fwd.launches, bwd.launches)
+        y = fwd(x, w, b, relu)
+        dx = bwd(x, y, g, w, relu)
+        torch.cuda.synchronize()
+        assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+        y_ref = tfb.fused_pool_conv_plain(x, w, b, relu)
+        dx_ref = tfb.fused_pool_conv_bwd_plain(x, y, g, w, relu)
+        assert (y - y_ref).abs().max().item() <= 1e-5 * y_ref.abs().max().item()
+        assert (dx - dx_ref).abs().max().item() <= 1e-5 * max(1.0, dx_ref.abs().max().item())
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
@@ -133,6 +168,25 @@ def test_clstm_find_masks_on_the_card_goes_through_the_gate_kernels(cuda_device,
     assert tgates.lstm_gates_fwd_cuda.launches > 0 and tgates.lstm_gates_bwd_cuda.launches > 0
     assert all(np.isfinite(r["time_mask"]).all() for r in tm)
     assert gc[0]["GCHeatMap"].shape == (8, 32, 48)
+
+
+@pytest.mark.parametrize("variant", [True, "tblock"], ids=["frame", "tblock"])
+def test_find_masks_on_the_card_goes_through_the_fused_kernels(cuda_device, tmp_path, variant):
+    cfg = Config()
+    cfg.output_dir = str(tmp_path)
+    cfg.model.num_classes = 5
+    cfg.model.use_pallas, cfg.model.fuse_pool_conv = True, variant
+    cfg.mask.opt_iter = 2
+    cfg.data.batch_size = 2
+    fused = FUSED["tblock" if variant == "tblock" else "frame"]
+    pools = (tpool.maxpool3d_s1_fwd_cuda, tpool.maxpool3d_s1_bwd_cuda)
+    for fn in (*fused, *pools):
+        fn.launches = 0
+    tm, gc = api.find_masks(cfg, None, SyntheticClips(2, t=16, hw=224, num_classes=5))
+    assert all(fn.launches > 0 for fn in fused)
+    assert all(fn.launches == 0 for fn in pools)
+    assert all(np.isfinite(r["time_mask"]).all() for r in tm)
+    assert gc[0]["GCHeatMap"].shape == (16, 224, 224)
 
 
 def test_find_masks_on_the_card_goes_through_the_kernels(cuda_device, tmp_path):

@@ -64,17 +64,21 @@ def ref():
     r = np.random.RandomState(2).randn(5).astype(np.float32)
     out = {"variables": variables, "x": x, "r": r, "sd": i3d_variables_to_state_dict(variables)}
     for key, flags in (("xla", {}), ("pallas", dict(use_pallas=True, pallas_pool=True))):
-        model = j_i3d_smth(**SMALL, dropout_rate=0.0, **flags)
-
-        def score(v, a, model=model):
-            logits = model.apply(v, a)
-            return (logits[0] * r).sum(), logits
-
-        (_, logits), grad = jax.jit(jax.value_and_grad(score, argnums=1, has_aux=True))(
-            variables, jnp.asarray(x)
-        )
-        out[key] = (np.asarray(logits), np.asarray(grad))
+        out[key] = _jax_logits_and_grad(flags, variables, x, r)
     return out
+
+
+def _jax_logits_and_grad(flags, variables, x, r):
+    model = j_i3d_smth(**SMALL, dropout_rate=0.0, **flags)
+
+    def score(v, a):
+        logits = model.apply(v, a)
+        return (logits[0] * r).sum(), logits
+
+    (_, logits), grad = jax.jit(jax.value_and_grad(score, argnums=1, has_aux=True))(
+        variables, jnp.asarray(x)
+    )
+    return np.asarray(logits), np.asarray(grad)
 
 
 def _port_logits_and_grad(model, x, r):
@@ -116,6 +120,23 @@ def test_i3d_logits_and_input_grad_match_jax(ref, flags):
     np.testing.assert_allclose(logits, want_logits, rtol=1e-3, atol=1e-4)
     scale = np.abs(want_grad).max()
     np.testing.assert_allclose(grad / scale, want_grad / scale, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("variant", [True, "tblock"], ids=["frame", "tblock"])
+def test_fused_branch3_logits_and_input_grad_match_jax(ref, variant):
+    """``fuse_pool_conv``: against JAX ``I3D(fuse_pool_conv=...)``, whose
+    fused Pallas kernels run in interpret mode. The converted state dict
+    loads unchanged (b3b keeps its conv3d/bn names and is folded at run
+    time). The fused branch has the pool kernel's every-tie rule, so the
+    gradient also matches the JAX Pallas pool path."""
+    flags = dict(fuse_pool_conv=variant)
+    want_logits, want_grad = _jax_logits_and_grad(flags, ref["variables"], ref["x"], ref["r"])
+    logits, grad = _port_logits_and_grad(_port(ref["sd"], **flags), ref["x"], ref["r"])
+    np.testing.assert_allclose(logits, want_logits, rtol=1e-3, atol=1e-4)
+    scale = np.abs(want_grad).max()
+    np.testing.assert_allclose(grad / scale, want_grad / scale, rtol=1e-3, atol=1e-4)
+    _, pool_grad = ref["pallas"]
+    np.testing.assert_allclose(grad / scale, pool_grad / scale, rtol=1e-3, atol=1e-4)
 
 
 def test_pool_kernel_tie_rule_moves_the_input_gradient_in_both_packages(ref):
