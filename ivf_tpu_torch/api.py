@@ -6,19 +6,25 @@ config: ``use_pallas``, ``pallas_pool`` and ``fuse_pool_conv`` (True or
 
 Both run on ``cuda`` unless the caller passes ``device="cpu"`` (as the
 tests do); with no GPU and no explicit device they raise rather than run
-on the CPU.
+on the CPU. Float32 runs are exact float32 whatever the caller's TF32
+flags (``precision.reference_numerics``). ``compute_dtype="bfloat16"`` runs
+I3D in bfloat16, with the argmax-index pool on the branch-3 pools unless
+``pool_impl`` was set (``_bf16_argmax_upgrade``), as the JAX package does.
 
 Not ported yet (ROADMAP.md): ``cnn_3d``, the chunked search and
 convergence refill, the emission journal and resume, class-of-interest /
 subset / min_score filtering and its compaction, random mask init, viz
 artifacts and the async writer, ``search_stats.json``, ``grad_cam_run``,
-bfloat16 compute, dataset loading from the config, and the
-``do_gradcam`` / ``run_temp_mask`` / ``max_batches`` switches of
-``ivf_tpu``'s ``find_masks`` (every batch runs the search and Grad-CAM).
+bfloat16 on the ConvLSTM family and on the fused branch 3, the pool impls
+``shift``, ``eqbwd``, ``argmax_full`` and ``argmax_shift``, dataset
+loading from the config, and the ``do_gradcam`` / ``run_temp_mask`` /
+``max_batches`` switches of ``ivf_tpu``'s ``find_masks`` (every batch
+runs the search and Grad-CAM).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
 import time
@@ -27,7 +33,7 @@ from typing import Mapping, Optional, Union
 import numpy as np
 import torch
 
-from ivf_tpu_torch.config import Config
+from ivf_tpu_torch.config import COMPUTE_DTYPES, POOL_IMPLS, Config
 from ivf_tpu_torch.interpret.gradcam import (
     convlstm_grad_cam,
     grad_cam_batched,
@@ -41,6 +47,7 @@ from ivf_tpu_torch.interpret.mask_opt import (
 from ivf_tpu_torch.models.convlstm import ConvLSTMClassifier
 from ivf_tpu_torch.models.i3d import I3D
 from ivf_tpu_torch.models.registry import get_model
+from ivf_tpu_torch.precision import reference_numerics_fn
 
 
 def resolve_device(device=None) -> torch.device:
@@ -104,19 +111,52 @@ def _build_convlstm(cfg: Config, softmax: bool) -> ConvLSTMClassifier:
     )
 
 
+def _bf16_argmax_upgrade(cfg: Config) -> Config:
+    """The argmax-index pool on the bfloat16 path, as the JAX package's
+    ``_bf16_argmax_upgrade``: engaged only where the caller left
+    ``pool_impl`` at its default, on a copy, so the caller's config is
+    untouched. Float32 runs never change."""
+    if cfg.model.compute_dtype == "bfloat16" and cfg.model.pool_impl == "reduce_window":
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, pool_impl="argmax"))
+    return cfg
+
+
+def _model_dtype(cfg: Config) -> torch.dtype:
+    m = cfg.model
+    if m.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype={m.compute_dtype!r}: one of {COMPUTE_DTYPES}")
+    if m.pool_impl not in POOL_IMPLS:
+        raise NotImplementedError(
+            f"pool_impl={m.pool_impl!r}: the port has {POOL_IMPLS} (ROADMAP.md, Queue 2)"
+        )
+    if m.compute_dtype == "float32":
+        return torch.float32
+    name = m.conv_model.lower()
+    if "i3d" not in name:
+        raise NotImplementedError(
+            f"compute_dtype='bfloat16' on {m.conv_model!r}: bfloat16 is ported for I3D "
+            "only; the ConvLSTM's gate kernel has no bfloat16 version (ROADMAP.md, Queue 2)"
+        )
+    if m.fuse_pool_conv:
+        raise TypeError(
+            "compute_dtype='bfloat16' with fuse_pool_conv: the fused branch-3 kernels "
+            "take float32 (ROADMAP.md, Queue 2)"
+        )
+    return torch.bfloat16
+
+
 def build_model(
     cfg: Config, softmax_override: Optional[bool] = None, device=None
 ) -> Union[I3D, ConvLSTMClassifier]:
     """The configured model in eval mode on ``device``, its weights drawn
     from ``cfg.seed``. Routed by substring of ``conv_model`` as in the JAX
     package: 'i3d' builds an I3D, 'clstm' or 'convlstm' (e.g. the
-    ``clstm_kth`` preset, which is no registry key) a ConvLSTMClassifier."""
+    ``clstm_kth`` preset, which is no registry key) a ConvLSTMClassifier.
+    With ``compute_dtype='bfloat16'`` (I3D only) the float32 init is cast
+    to bfloat16, every parameter and buffer, BN statistics included; the
+    I3D takes ``pool_impl`` as given (``find_masks`` upgrades it first)."""
     m = cfg.model
-    if m.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={m.compute_dtype!r}: only float32 is ported; bfloat16 "
-            "needs the argmax-index pool (ROADMAP.md, Queue 1: bf16 compute)"
-        )
+    dtype = _model_dtype(cfg)
     softmax = m.soft_max if softmax_override is None else softmax_override
     name = m.conv_model.lower()
     if "i3d" in name:
@@ -129,6 +169,7 @@ def build_model(
             use_pallas=m.use_pallas,
             pallas_pool=m.pallas_pool,
             fuse_pool_conv=m.fuse_pool_conv,
+            pool_impl=m.pool_impl,
         )
         if "kth" in name:
             kwargs["final_time_length"] = m.final_temp_time
@@ -138,7 +179,7 @@ def build_model(
     else:
         model = get_model(m.conv_model, num_classes=m.num_classes)
     model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
-    return model.to(resolve_device(device)).eval()
+    return model.to(resolve_device(device), dtype).eval()
 
 
 def _check_supported(cfg: Config) -> None:
@@ -154,6 +195,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@reference_numerics_fn
 def find_masks(
     cfg: Config,
     weights: Optional[Mapping[str, torch.Tensor]],
@@ -170,7 +212,11 @@ def find_masks(
     search (with ``early_stop``/``eta_patience``), finalize, Grad-CAM (I3D:
     at ``cfg.mask.top_layer``; ConvLSTM: on the last layer's hidden
     sequence). ``weights`` is a state dict for the model
-    (e.g. from ``utils.convert``); None keeps the seeded init.
+    (e.g. from ``utils.convert``); None keeps the seeded init. With
+    ``compute_dtype='bfloat16'`` the weights are rounded to bfloat16 as they
+    load, the clips stay float32 up to the first conv, the class scores are
+    upcast to float32, and the mask logits and Adam state are float32, as
+    in the JAX package; the CAMs are bfloat16 values returned as float32.
 
     Returns (time_mask_results, grad_cam_results), lists of per-clip dicts
     with the reference's key names, also pickled to
@@ -180,13 +226,17 @@ def find_masks(
     mask init and of the search (device-synchronized).
     """
     _check_supported(cfg)
+    cfg = _bf16_argmax_upgrade(cfg)
     mk = cfg.mask
     dev = resolve_device(device)
     model = build_model(cfg, softmax_override=True, device=dev)
     if weights is not None:
-        model.load_state_dict(weights)
+        model.load_state_dict(weights)  # copy_ rounds to the model's dtype
     model.requires_grad_(False)
-    score_fn = model  # float32 class probabilities, (B, num_classes)
+
+    def score_fn(clips):  # float32 class probabilities, (B, num_classes)
+        return model(clips).float()
+
     norm_frame = mk.normalization_mode == "frame"
     if isinstance(model, I3D):
         ffn, hfn = i3d_grad_cam_fns(model, mk.top_layer)
@@ -256,7 +306,7 @@ def find_masks(
         freeze = res.freeze_score.cpu().numpy()
         reverse = res.reverse_score.cpu().numpy()
         run_stats["n_steps_run"].extend(res.n_steps_run.cpu().tolist())
-        cams = cam_fn(clips, targets)[0].cpu().numpy()
+        cams = cam_fn(clips, targets)[0].float().cpu().numpy()
         for j in range(len(rows)):
             head = {"true_class": int(labels[j]), "pred_class": int(pred[j]), "video_id": ids[j]}
             time_mask_results.append(

@@ -1,6 +1,10 @@
 """Configuration for the ported path (copy of the fields of
 ``ivf_tpu/config.py`` that ``find_masks`` reads, same names and defaults).
 
+``ModelConfig.pool_impl`` takes the JAX package's ``'reduce_window'`` and
+``'argmax'`` (``POOL_IMPLS``); its other pool impls are not ported, and
+``compute_dtype`` is ``'float32'`` or ``'bfloat16'``.
+
 The one field the JAX package's config lacks is ``ModelConfig.pallas_pool``:
 there the branch-3 pool kernel is a model argument only, here it is set
 from the config like ``use_pallas``. ``DataConfig.input_spatial_size``
@@ -12,6 +16,11 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Optional, Tuple, Union
+
+
+COMPUTE_DTYPES = ("float32", "bfloat16")
+# the JAX package's others (shift, eqbwd, argmax_full, argmax_shift) raise
+POOL_IMPLS = ("reduce_window", "argmax")
 
 
 @dataclass
@@ -49,7 +58,11 @@ class ModelConfig:
     # Keras ConvLSTM2D input-conv padding: torch (symmetric) | valid
     padding_clstm: str = "torch"
     recurrent_activation: str = "sigmoid"  # sigmoid | hard_sigmoid
-    compute_dtype: str = "float32"  # float32 (bfloat16: not ported yet)
+    compute_dtype: str = "float32"  # float32 | bfloat16 (I3D only)
+    # max pools: 'reduce_window' (F.max_pool3d) | 'argmax' (bf16 stride-1
+    # pools via the argmax-index pool); bfloat16 runs with 'reduce_window'
+    # become 'argmax' in find_masks, as in the JAX package
+    pool_impl: str = "reduce_window"
     # 1x1x1 convs via the pointwise CUDA kernel (I3D); the ConvLSTM gate
     # block via the fused-gates CUDA kernel (sigmoid gates)
     use_pallas: bool = False

@@ -19,6 +19,8 @@ from typing import Callable, Tuple
 import torch
 import torch.nn.functional as F
 
+from ivf_tpu_torch.precision import reference_numerics_fn
+
 
 def cam_from_activation(
     activation: torch.Tensor,
@@ -49,6 +51,7 @@ def cam_from_activation(
     return torch.where(mx > 0, (cam - mn) / mx, 0.0)
 
 
+@reference_numerics_fn
 def grad_cam_batched(
     features_fn: Callable[[torch.Tensor], torch.Tensor],
     head_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -81,6 +84,7 @@ def i3d_grad_cam_fns(model, endpoint: str = "Mixed_5c"):
     )
 
 
+@reference_numerics_fn
 def convlstm_grad_cam(
     model,
     clips: torch.Tensor,

@@ -27,6 +27,7 @@ from typing import Callable, NamedTuple, Tuple
 import torch
 
 from ivf_tpu_torch.interpret.perturb import perturb_sequence, tv_norm
+from ivf_tpu_torch.precision import reference_numerics_fn
 
 ScoreFn = Callable[[torch.Tensor], torch.Tensor]
 # ScoreFn: clips (B, T, H, W, C) -> class probabilities (B, num_classes)
@@ -65,6 +66,7 @@ def _pick(scores: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
+@reference_numerics_fn
 def init_mask_central(
     score_fn: ScoreFn,
     seqs: torch.Tensor,
@@ -136,6 +138,7 @@ def mask_loss(
     return l1 + tv + class_score, (l1, tv, class_score)
 
 
+@reference_numerics_fn
 def search_step(
     score_fn: ScoreFn,
     seqs: torch.Tensor,
@@ -185,6 +188,7 @@ def search_step(
 
 
 @torch.no_grad()
+@reference_numerics_fn
 def finalize_search(
     score_fn: ScoreFn, seqs: torch.Tensor, targets: torch.Tensor, carry: SearchCarry
 ) -> MaskSearchResult:

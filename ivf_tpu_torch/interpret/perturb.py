@@ -12,6 +12,10 @@ and are vmapped; here the batch dimension is written out: ``seq`` is
   of the earlier of the two.
 * ``tv_norm``: the reference's TV norm with its interior differences
   counted twice on purpose.
+
+The mask is cast to the sequence's dtype. In a bfloat16 ``find_masks`` the
+clips stay float32 up to the model's first conv, so the perturbation runs
+in float32, as in the JAX package.
 """
 
 from __future__ import annotations

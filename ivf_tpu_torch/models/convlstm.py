@@ -28,6 +28,7 @@ import torch.nn as nn
 from ivf_tpu_torch.models.layers import TorchBatchNorm, variance_scaling_
 from ivf_tpu_torch.ops.conv import avg_pool2d_valid, max_pool2d_valid
 from ivf_tpu_torch.ops.convlstm_cell import convlstm_cell_step
+from ivf_tpu_torch.precision import reference_numerics_fn
 
 KernelSize = Union[int, Tuple[int, int]]
 
@@ -294,6 +295,7 @@ class ConvLSTMClassifier(nn.Module):
             elif isinstance(mod, TorchBatchNorm):
                 mod.reset_parameters()
 
+    @reference_numerics_fn
     def scores_and_features(
         self, clip: torch.Tensor, feature_offset: Optional[torch.Tensor] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -316,6 +318,7 @@ class ConvLSTMClassifier(nn.Module):
         """clip (B, T, H, W, C) -> class scores (B, num_classes)."""
         return self.scores_and_features(clip, feature_offset)[0]
 
+    @reference_numerics_fn
     def features(self, clip: torch.Tensor) -> torch.Tensor:
         """The Grad-CAM target: the last layer's pre-pool hidden sequence."""
         return self.clstm(clip)[1]

@@ -3,7 +3,10 @@
 Same trunk table, head and knobs as the JAX model, minus what this slice
 does not run: dropout is the identity (eval), the stem is a plain 7x7x7
 stride-2 conv (the TPU's space-to-depth stem is the same math), and
-``remat``/``guided_relu``/``fuse_3x3``/``pool_impl`` are not ported.
+``remat``/``guided_relu``/``fuse_3x3`` are not ported. ``pool_impl``
+reaches every max pool (``ops/conv.py::max_pool3d_same``). A model cast to
+bfloat16 runs in bfloat16 from its first conv, which casts the clips, to
+the softmax, as the JAX model does.
 Input and output layouts match the JAX model: clips
 ``(B, T, H, W, C)`` -> logits ``(B, num_classes)``.
 """
@@ -24,6 +27,7 @@ from ivf_tpu_torch.models.layers import (
     variance_scaling_,
 )
 from ivf_tpu_torch.ops.conv import avg_pool3d_valid, max_pool3d_same
+from ivf_tpu_torch.precision import reference_numerics_fn
 
 # (endpoint name, kind, spec) in trunk order; 'spool' endpoints honor
 # stride_mod_layers
@@ -71,9 +75,11 @@ class I3D(nn.Module):
         use_pallas: bool = False,
         pallas_pool: bool = False,
         fuse_pool_conv: object = False,
+        pool_impl: str = "reduce_window",
     ):
         super().__init__()
         self.num_classes = num_classes
+        self.pool_impl = pool_impl
         self.last_stride = last_stride
         self.stride_mod_layers = tuple(stride_mod_layers)
         self.softmax = softmax
@@ -95,7 +101,8 @@ class I3D(nn.Module):
                 setattr(
                     self, name,
                     InceptionModule(
-                        c, oc, fold_bn, fuse_1x1, use_pallas, pallas_pool, fuse_pool_conv
+                        c, oc, fold_bn, fuse_1x1, use_pallas, pallas_pool, fuse_pool_conv,
+                        pool_impl,
                     ),
                 )
                 c = oc[0] + oc[2] + oc[4] + oc[5]
@@ -135,10 +142,10 @@ class I3D(nn.Module):
         if kind in ("conv", "mixed"):
             return getattr(self, name)(x)
         if kind == "pool":
-            return max_pool3d_same(x, spec["window"], spec["stride"])
+            return max_pool3d_same(x, spec["window"], spec["stride"], self.pool_impl)
         st = self._layer_stride_t(name, spec["stride_t"])
         hw = spec["stride_hw"]
-        return max_pool3d_same(x, spec["window"], (st, hw, hw))
+        return max_pool3d_same(x, spec["window"], (st, hw, hw), self.pool_impl)
 
     def _walk_trunk(self, x, start_after: Optional[str] = None, stop_at: Optional[str] = None):
         started = start_after is None
@@ -151,16 +158,19 @@ class I3D(nn.Module):
                 break
         return x
 
+    @reference_numerics_fn
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, T, H, W, C) -> class scores (B, num_classes)."""
         return self.head_from(self._walk_trunk(x), "Mixed_5c")
 
+    @reference_numerics_fn
     def features_to(self, x: torch.Tensor, endpoint: str = "Mixed_5c") -> torch.Tensor:
         """The trunk up to and including ``endpoint`` (the Grad-CAM target)."""
         if endpoint not in TRUNK_ENDPOINTS:
             raise ValueError(f"unknown endpoint {endpoint}")
         return self._walk_trunk(x, stop_at=endpoint)
 
+    @reference_numerics_fn
     def head_from(self, features: torch.Tensor, endpoint: str = "Mixed_5c") -> torch.Tensor:
         """The rest of the trunk after ``endpoint``, then the Logits head:
         avg-pool -> (dropout = identity) -> 1x1x1 conv -> squeeze ->

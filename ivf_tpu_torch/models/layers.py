@@ -6,9 +6,12 @@ torch modules (``conv3d.weight|bias``, ``bn.weight|bias|running_mean|
 running_var``), which are also the names ``utils/convert.py`` produces.
 
 Inference only: BatchNorm normalizes with its running statistics and is
-folded into the preceding conv by default (``fold_bn``). The JAX
-package's ``fuse_3x3``, ``pool_impl`` other than ``reduce_window`` and
-training-mode BN are not ported yet (ROADMAP.md).
+folded into the preceding conv by default (``fold_bn``), on every forward
+from the module's own parameters, so a module cast to bfloat16 folds in
+bfloat16, as the JAX package does after casting its variables. Each conv
+casts its input to the weight's dtype (``ivf_tpu/ops/conv.py:53``). The
+JAX package's ``fuse_3x3``, ``pool_impl`` other than ``reduce_window`` and
+``argmax``, and training-mode BN are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -132,7 +135,8 @@ class Unit3D(nn.Module):
             relu_fused = self.activation is F.relu and (self.folding or self.bn is None)
             cout, cin = w.shape[:2]
             x = pointwise_conv(
-                x.contiguous(), w.reshape(cout, cin).t().contiguous(), b, relu=relu_fused
+                x.to(w.dtype).contiguous(), w.reshape(cout, cin).t().contiguous(), b,
+                relu=relu_fused,
             )
         else:
             x = conv3d_same(x, w, self.stride, b)
@@ -156,7 +160,9 @@ class InceptionModule(nn.Module):
     (``ops/kernels/fused_branch3.py``, same tie rule); ``'tblock'`` takes
     the whole-sample kernels, any other true value the per-frame ones. It
     takes precedence over ``pallas_pool`` and over ``use_pallas`` for b3b;
-    with BN unfolded the branch runs unfused, as in JAX.
+    with BN unfolded the branch runs unfused, as in JAX. Its kernels take
+    float32 only: a bfloat16 input raises ``TypeError`` on any device.
+    ``pool_impl`` is the unfused branch-3 pool's (``max_pool3d_same``).
     """
 
     def __init__(
@@ -168,9 +174,11 @@ class InceptionModule(nn.Module):
         use_pallas: bool = False,
         pallas_pool: bool = False,
         fuse_pool_conv: object = False,
+        pool_impl: str = "reduce_window",
     ):
         super().__init__()
         oc = tuple(out_channels)
+        self.pool_impl = pool_impl
         self.out_channels = oc
         self.fuse_1x1 = fuse_1x1
         self.use_pallas = use_pallas
@@ -196,7 +204,8 @@ class InceptionModule(nn.Module):
             if self.use_pallas:
                 cin = x.shape[-1]
                 y = pointwise_conv(
-                    x.contiguous(), kcat.reshape(-1, cin).t().contiguous(), bcat, relu=True
+                    x.to(kcat.dtype).contiguous(), kcat.reshape(-1, cin).t().contiguous(),
+                    bcat, relu=True,
                 )
             else:
                 y = F.relu(conv3d_same(x, kcat, (1, 1, 1), bcat))
@@ -206,6 +215,11 @@ class InceptionModule(nn.Module):
         b1 = self.b1b(b1)
         b2 = self.b2b(b2)
         if self.fuse_pool_conv and self.b3b.folding:
+            if x.dtype != torch.float32:
+                raise TypeError(
+                    f"fuse_pool_conv: {x.dtype} activations; the fused branch-3 "
+                    "kernels take float32 (bfloat16: ROADMAP.md, Queue 2)"
+                )
             fused = fused_pool_conv_tblock if self.fuse_pool_conv == "tblock" else fused_pool_conv
             w3, c3 = self.b3b.folded()
             cin = x.shape[-1]
@@ -214,6 +228,6 @@ class InceptionModule(nn.Module):
             if self.pallas_pool:
                 b3 = maxpool3d_s1(x.contiguous())
             else:
-                b3 = max_pool3d_same(x, (3, 3, 3), (1, 1, 1))
+                b3 = max_pool3d_same(x, (3, 3, 3), (1, 1, 1), impl=self.pool_impl)
             b3 = self.b3b(b3)
         return torch.cat([b0, b1, b2, b3], dim=-1)

@@ -15,6 +15,12 @@ stride-2 trunk pools copy each maximum into neighbouring voxels, so the
 branch-3 pools after them meet such plateaus and this backward gives a
 larger input gradient than ``F.max_pool3d``'s. It is the Pallas kernel's
 rule, kept as it is (tests/test_torch_ops.py holds the two equal).
+
+bfloat16 has its own kernel pair. The forward is exact. The backward
+follows the Pallas kernel's bfloat16 arithmetic: the tie test on the exact
+float32 upcast, and bfloat16 sums in its order -- per frame the centre
+term, then the 8 spatial neighbours; frame t, plus frame t-1, plus frame
+t+1 -- rounded after every add (``maxpool3d_s1_bwd_bf16_plain``).
 """
 
 from __future__ import annotations
@@ -54,43 +60,82 @@ def maxpool3d_s1_bwd_plain(
     return dx
 
 
+# the Pallas kernel's bfloat16 frame order: the centre, then the others
+_FRAME_ORDER = ((0, 0),) + tuple(
+    (dh, dw) for dh in (-1, 0, 1) for dw in (-1, 0, 1) if (dh, dw) != (0, 0)
+)
+
+
+def maxpool3d_s1_bwd_bf16_plain(
+    x: torch.Tensor, y: torch.Tensor, g: torch.Tensor
+) -> torch.Tensor:
+    """Plain bfloat16 backward in the Pallas kernel's order and rounding
+    (see the module docstring). A neighbour outside the volume adds +0, as
+    the kernel's zero fill does."""
+    _, t, h, w, _ = x.shape
+    x32 = x.float()
+    yp = F.pad(y, _PAD)
+    gp = F.pad(g, _PAD)
+    frames = []
+    for dt in (0, -1, 1):
+        acc = None
+        for dh, dw in _FRAME_ORDER:
+            sl = (slice(None), slice(1 + dt, 1 + dt + t), slice(1 + dh, 1 + dh + h),
+                  slice(1 + dw, 1 + dw + w))
+            term = torch.where(x32 == yp[sl].float(), gp[sl], 0.0)
+            acc = term if acc is None else acc + term
+        frames.append(acc)
+    centre, prev, nxt = frames
+    return centre + prev + nxt
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.library("maxpool3d")
     dims = [ctypes.c_int] * 5
-    lib.maxpool3d_s1_fwd_f32.argtypes = [ctypes.c_void_p] * 2 + dims + [ctypes.c_void_p]
-    lib.maxpool3d_s1_fwd_f32.restype = ctypes.c_int
-    lib.maxpool3d_s1_bwd_f32.argtypes = [ctypes.c_void_p] * 4 + dims + [ctypes.c_void_p]
-    lib.maxpool3d_s1_bwd_f32.restype = ctypes.c_int
+    for dtype in ("f32", "bf16"):
+        fwd = getattr(lib, f"maxpool3d_s1_fwd_{dtype}")
+        fwd.argtypes = [ctypes.c_void_p] * 2 + dims + [ctypes.c_void_p]
+        fwd.restype = ctypes.c_int
+        bwd = getattr(lib, f"maxpool3d_s1_bwd_{dtype}")
+        bwd.argtypes = [ctypes.c_void_p] * 4 + dims + [ctypes.c_void_p]
+        bwd.restype = ctypes.c_int
     return lib
 
 
-def _check_cuda_operands(x: torch.Tensor, *others: torch.Tensor) -> None:
+def _check_cuda_operands(x: torch.Tensor, *others: torch.Tensor, dtype=torch.float32) -> None:
     if x.dim() != 5:
         raise ValueError(f"maxpool3d_s1: expected (B, T, H, W, C), got {tuple(x.shape)}")
     for t in (x, *others):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"maxpool3d_s1: operands must be on {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"maxpool3d_s1: {t.dtype} input; the kernel takes float32")
+        if t.dtype != dtype:
+            raise TypeError(f"maxpool3d_s1: {t.dtype} input; the kernel takes {dtype}")
         if t.shape != x.shape:
             raise ValueError(f"maxpool3d_s1: shape {tuple(t.shape)} != {tuple(x.shape)}")
         if not t.is_contiguous():
             raise ValueError("maxpool3d_s1: operands must be contiguous (B, T, H, W, C)")
 
 
-def maxpool3d_s1_fwd_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Launch the forward kernel; counts in ``maxpool3d_s1_fwd_cuda.launches``."""
-    _check_cuda_operands(x)
-    y = torch.empty_like(x)
-    if x.numel() == 0:
-        return y
-    rc = _lib().maxpool3d_s1_fwd_f32(
-        x.data_ptr(), y.data_ptr(), *x.shape,
-        torch.cuda.current_stream(x.device).cuda_stream,
+def _launch(symbol: str, dtype, out_like: torch.Tensor, *operands: torch.Tensor) -> torch.Tensor:
+    """Check the operands, launch ``symbol`` on them into a new tensor
+    shaped like ``out_like`` and return it; raises on a launch error."""
+    _check_cuda_operands(*operands, dtype=dtype)
+    out = torch.empty_like(out_like)
+    if out.numel() == 0:
+        return out
+    rc = getattr(_lib(), symbol)(
+        *(t.data_ptr() for t in operands), out.data_ptr(), *out.shape,
+        torch.cuda.current_stream(out.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"maxpool3d_s1_fwd_f32 launch failed with CUDA error {rc}")
+        raise RuntimeError(f"{symbol} launch failed with CUDA error {rc}")
+    return out
+
+
+def maxpool3d_s1_fwd_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Launch the forward kernel; counts in ``maxpool3d_s1_fwd_cuda.launches``."""
+    y = _launch("maxpool3d_s1_fwd_f32", torch.float32, x, x)
     maxpool3d_s1_fwd_cuda.launches += 1
     return y
 
@@ -99,37 +144,50 @@ def maxpool3d_s1_bwd_cuda(
     x: torch.Tensor, y: torch.Tensor, g: torch.Tensor
 ) -> torch.Tensor:
     """Launch the backward kernel; counts in ``maxpool3d_s1_bwd_cuda.launches``."""
-    _check_cuda_operands(x, y, g)
-    dx = torch.empty_like(x)
-    if x.numel() == 0:
-        return dx
-    rc = _lib().maxpool3d_s1_bwd_f32(
-        x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr(), *x.shape,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"maxpool3d_s1_bwd_f32 launch failed with CUDA error {rc}")
+    dx = _launch("maxpool3d_s1_bwd_f32", torch.float32, x, x, y, g)
     maxpool3d_s1_bwd_cuda.launches += 1
+    return dx
+
+
+def maxpool3d_s1_fwd_bf16_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Launch the bfloat16 forward kernel; counts in
+    ``maxpool3d_s1_fwd_bf16_cuda.launches``."""
+    y = _launch("maxpool3d_s1_fwd_bf16", torch.bfloat16, x, x)
+    maxpool3d_s1_fwd_bf16_cuda.launches += 1
+    return y
+
+
+def maxpool3d_s1_bwd_bf16_cuda(
+    x: torch.Tensor, y: torch.Tensor, g: torch.Tensor
+) -> torch.Tensor:
+    """Launch the bfloat16 backward kernel; counts in
+    ``maxpool3d_s1_bwd_bf16_cuda.launches``."""
+    dx = _launch("maxpool3d_s1_bwd_bf16", torch.bfloat16, x, x, y, g)
+    maxpool3d_s1_bwd_bf16_cuda.launches += 1
     return dx
 
 
 maxpool3d_s1_fwd_cuda.launches = 0
 maxpool3d_s1_bwd_cuda.launches = 0
+maxpool3d_s1_fwd_bf16_cuda.launches = 0
+maxpool3d_s1_bwd_bf16_cuda.launches = 0
 
 
 def _forward(x):
     if x.is_cuda:
-        return maxpool3d_s1_fwd_cuda(x)
+        bf16 = x.dtype == torch.bfloat16
+        return (maxpool3d_s1_fwd_bf16_cuda if bf16 else maxpool3d_s1_fwd_cuda)(x)
     if x.device.type == "cpu":
         return maxpool3d_s1_fwd_plain(x)
     raise RuntimeError(f"maxpool3d_s1: no kernel for device {x.device}")
 
 
 def _backward(x, y, g):
+    bf16 = x.dtype == torch.bfloat16
     if x.is_cuda:
-        return maxpool3d_s1_bwd_cuda(x, y, g)
+        return (maxpool3d_s1_bwd_bf16_cuda if bf16 else maxpool3d_s1_bwd_cuda)(x, y, g)
     if x.device.type == "cpu":
-        return maxpool3d_s1_bwd_plain(x, y, g)
+        return (maxpool3d_s1_bwd_bf16_plain if bf16 else maxpool3d_s1_bwd_plain)(x, y, g)
     raise RuntimeError(f"maxpool3d_s1: no kernel for device {x.device}")
 
 
@@ -148,5 +206,8 @@ class _MaxPool3dS1(torch.autograd.Function):
 
 def maxpool3d_s1(x: torch.Tensor) -> torch.Tensor:
     """3x3x3 stride-1 zero-padded SAME max pool over contiguous
-    (B, T, H, W, C); differentiable with the every-tie gather backward."""
+    (B, T, H, W, C), float32 or bfloat16; differentiable with the every-tie
+    gather backward."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"maxpool3d_s1: {x.dtype} input; the pool takes float32 or bfloat16")
     return _MaxPool3dS1.apply(x)

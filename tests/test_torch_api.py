@@ -187,7 +187,7 @@ def test_find_masks_without_device_raises_when_cuda_is_absent(monkeypatch, tmp_p
 @pytest.mark.parametrize(
     "field,value",
     [
-        ("model.compute_dtype", "bfloat16"),
+        ("model.pool_impl", "shift"),
         ("model.conv_model", "cnn_3d"),
         ("mask.mask_init_type", "random"),
         ("mask.class_oi", 3),

@@ -1,8 +1,11 @@
 """ivf_tpu_torch's CUDA kernels on the card (``gpu`` marker).
 
-Each kernel against its plain PyTorch version, the I3D kernel paths of
-``find_masks`` (the pool kernels, the fused branch 3) at full width and
-the ConvLSTM's at a small size. Skips without a CUDA device. This file
+Each kernel against its plain PyTorch version (float32 and the bfloat16
+entries, the argmax-index pool), the I3D kernel paths of ``find_masks``
+(the pool kernels, the fused branch 3, both bfloat16 routes) at full
+width and the ConvLSTM's at a small size, float32 results that do not
+depend on the global TF32 flags, and two runs with equal bits. Skips
+without a CUDA device. This file
 imports torch and ivf_tpu_torch only, so it also runs where JAX is not
 installed:
 
@@ -16,6 +19,7 @@ import torch
 from ivf_tpu_torch import api
 from ivf_tpu_torch.config import Config
 from ivf_tpu_torch.data.synthetic import SyntheticClips
+from ivf_tpu_torch.ops.kernels import argmax_pool as tap
 from ivf_tpu_torch.ops.kernels import fused_branch3 as tfb
 from ivf_tpu_torch.ops.kernels import fused_gates as tgates
 from ivf_tpu_torch.ops.kernels import maxpool3d as tpool
@@ -28,8 +32,6 @@ pytestmark = pytest.mark.gpu
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernels run only on the card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -203,3 +205,134 @@ def test_find_masks_on_the_card_goes_through_the_kernels(cuda_device, tmp_path):
     assert all(fn.launches > 0 for fn in counters)
     assert all(np.isfinite(r["time_mask"]).all() for r in tm)
     assert gc[0]["GCHeatMap"].shape == (16, 224, 224)
+
+
+BF16_ULP = 2.0**-7  # one bfloat16 ulp relative to a value's leading power of two
+
+
+@pytest.mark.parametrize(
+    "n,cin,cout,relu,use_bias",
+    [
+        (150, 112, 48, True, True),
+        (150, 112, 48, False, False),
+        (4, 1024, 174, False, True),
+        (8 * 28 * 28, 192, 176, True, True),
+    ],
+    ids=["ragged", "ragged_linear", "logits_head", "Mixed_3b_trio"],
+)
+def test_bf16_pointwise_kernel_matches_plain(cuda_device, n, cin, cout, relu, use_bias):
+    """Tensor-core sums in another order than the plain float32 matmul,
+    then one rounding each: within one bfloat16 ulp of the largest
+    output."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.relu(torch.randn(n, cin, generator=gen)).bfloat16().to(cuda_device)
+    w = (torch.randn(cin, cout, generator=gen) * 0.1).bfloat16().to(cuda_device)
+    b = torch.randn(cout, generator=gen).bfloat16().to(cuda_device) if use_bias else None
+    before = tpw.pointwise_conv_bf16_cuda.launches
+    y = tpw.pointwise_conv_bf16_cuda(x, w, b, relu)
+    torch.cuda.synchronize()
+    assert tpw.pointwise_conv_bf16_cuda.launches == before + 1 and y.dtype == torch.bfloat16
+    ref = tpw.pointwise_conv_plain(x, w, b, relu).float()
+    assert (y.float() - ref).abs().max().item() <= BF16_ULP * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 4, 5, 6), (4, 8, 28, 28, 192)])
+def test_bf16_maxpool_kernels_match_plain_bits(cuda_device, shape):
+    """bfloat16 forward and backward (the Pallas kernel's order and
+    rounding): equal bits, the sign of zero included."""
+    x = _ties(shape, 6).bfloat16().to(cuda_device)
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(1)).bfloat16().to(cuda_device)
+    y = tpool.maxpool3d_s1_fwd_bf16_cuda(x)
+    dx = tpool.maxpool3d_s1_bwd_bf16_cuda(x, y, g)
+    torch.cuda.synchronize()
+    assert torch.equal(y.view(torch.int16), tpool.maxpool3d_s1_fwd_plain(x).view(torch.int16))
+    assert torch.equal(dx.view(torch.int16), tpool.maxpool3d_s1_bwd_bf16_plain(x, y, g).view(torch.int16))
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 5, 7, 3), (4, 8, 28, 28, 192)])
+def test_argmax_pool_kernels_match_plain_bits(cuda_device, shape):
+    """Forward (y and the index plane) and backward: equal bits, on tied
+    halves with a negative plateau where the zero pad wins."""
+    gen = torch.Generator().manual_seed(2)
+    x = torch.round(torch.randn(shape, generator=gen) * 2).clamp(-4, 4) / 2
+    x[..., 1] = -1.5
+    x = x.bfloat16().to(cuda_device)
+    g = torch.randn(shape, generator=gen).bfloat16().to(cuda_device)
+    y, idx = tap.argmax_pool_fwd_cuda(x)
+    dx = tap.argmax_pool_bwd_cuda(idx, g)
+    torch.cuda.synchronize()
+    y_ref, idx_ref = tap.argmax_pool_fwd_plain(x)
+    assert torch.equal(y.view(torch.int16), y_ref.view(torch.int16))
+    assert torch.equal(idx, idx_ref)
+    assert torch.equal(dx.view(torch.int16), tap.argmax_pool_bwd_plain(idx_ref, g).view(torch.int16))
+
+
+def test_bf16_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    x = torch.zeros(1, 2, 3, 3, 4, device=cuda_device)
+    with pytest.raises(TypeError):
+        tap.argmax_pool_fwd_cuda(x)  # float32
+    with pytest.raises(TypeError):
+        tpool.maxpool3d_s1_fwd_bf16_cuda(x)
+    with pytest.raises(TypeError):
+        tpw.pointwise_conv_bf16_cuda(x.view(-1, 4), torch.zeros(4, 3, device=cuda_device), None, True)
+    with pytest.raises(TypeError):
+        tfb.fused_pool_conv_fwd_cuda(x.bfloat16(), torch.zeros(4, 3, device=cuda_device).bfloat16(),
+                                     None, True)
+
+
+def _small_find_masks(tmp_path, name, **model):
+    cfg = Config()
+    cfg.output_dir, cfg.model_name = str(tmp_path), name
+    cfg.model.num_classes = 5
+    for key, value in model.items():
+        setattr(cfg.model, key, value)
+    cfg.mask.opt_iter = 3
+    cfg.data.batch_size = 2
+    tm, gc = api.find_masks(cfg, None, SyntheticClips(2, t=16, hw=224, num_classes=5))
+    return np.stack([r["time_mask"] for r in tm]), np.stack([r["GCHeatMap"] for r in gc])
+
+
+def test_float32_find_masks_does_not_depend_on_the_global_tf32_flags(cuda_device, tmp_path):
+    """With cuDNN's and cuBLAS's global TF32 flags on, and off, the same
+    float32 run gives the same bits, and the flags read as set after it."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    runs = []
+    try:
+        for flag in (True, False):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = flag
+            runs.append(_small_find_masks(tmp_path, f"tf32_{flag}"))
+            assert torch.backends.cudnn.allow_tf32 is flag
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert np.array_equal(runs[0][0], runs[1][0]) and np.array_equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize(
+    "model",
+    [dict(use_pallas=True, pallas_pool=True), dict(compute_dtype="bfloat16"),
+     dict(compute_dtype="bfloat16", use_pallas=True, pallas_pool=True)],
+    ids=["f32_kernels", "bf16_default", "bf16_kernels"],
+)
+def test_find_masks_twice_gives_equal_bits(cuda_device, tmp_path, model):
+    """The same route run twice in one process: equal masks and CAMs."""
+    first = _small_find_masks(tmp_path, "first", **model)
+    second = _small_find_masks(tmp_path, "second", **model)
+    assert np.array_equal(first[0], second[0]) and np.array_equal(first[1], second[1])
+
+
+def test_bf16_find_masks_routes_go_through_their_kernels(cuda_device, tmp_path):
+    """The bfloat16 default route runs the argmax pair on the nine branch-3
+    pools and no other kernel; the kernel route runs the bfloat16 pointwise
+    and pool kernels and no argmax kernel."""
+    argmax = (tap.argmax_pool_fwd_cuda, tap.argmax_pool_bwd_cuda)
+    bf16 = (tpw.pointwise_conv_bf16_cuda, tpool.maxpool3d_s1_fwd_bf16_cuda, tpool.maxpool3d_s1_bwd_bf16_cuda)
+    f32 = (tpw.pointwise_conv_cuda, tpool.maxpool3d_s1_fwd_cuda, tpool.maxpool3d_s1_bwd_cuda)
+    for flags, on, off in (
+        ({}, argmax, bf16 + f32),
+        (dict(use_pallas=True, pallas_pool=True), bf16, argmax + f32),
+    ):
+        for fn in on + off:
+            fn.launches = 0
+        masks, cams = _small_find_masks(tmp_path, "route", compute_dtype="bfloat16", **flags)
+        assert all(fn.launches > 0 for fn in on) and not any(fn.launches for fn in off)
+        assert np.isfinite(masks).all() and cams.shape == (2, 16, 224, 224)

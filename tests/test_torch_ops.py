@@ -70,6 +70,44 @@ def test_conv3d_same_matches_jax(shape, kernel, stride, bias):
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "shape,kernel,stride,bias",
+    [
+        ((1, 8, 12, 12, 3), (7, 7, 7), (2, 2, 2), False),  # stem
+        ((2, 7, 9, 10, 3), (7, 7, 7), (2, 2, 2), True),  # odd sizes
+        ((2, 5, 7, 6, 4), (3, 3, 3), (2, 2, 2), False),  # short residue classes
+    ],
+)
+def test_strided_conv3d_polyphase_input_grad_matches_jax(shape, kernel, stride, bias, dtype):
+    """A strided conv's input gradient through the polyphase form, in both
+    dtypes, against JAX's float32 gradient on the same (rounded) inputs.
+    Tolerance: float32 sums in two orders (f32: 1e-5, measured <= 4.8e-6);
+    one bfloat16 rounding of the result (bf16: 2**-8 of the largest
+    gradient, measured <= 0.72 of that)."""
+    rng = np.random.RandomState(3)
+    cin, cout = shape[-1], 8
+    x = _t(rng.randn(*shape).astype(np.float32)).to(dtype)
+    k = _t((rng.randn(cout, cin, *kernel) * 0.1).astype(np.float32)).to(dtype)
+    b = _t(rng.randn(cout).astype(np.float32)).to(dtype) if bias else None
+    xt = x.clone().requires_grad_(True)
+    y = tconv.conv3d_same(xt, k, stride, b)
+    assert type(y.grad_fn.next_functions[0][0]).__name__ == "_StridedConv3dPolyphaseBackward"
+    g = _t(rng.randn(*y.shape).astype(np.float32)).to(dtype)
+    (dx,) = torch.autograd.grad(y, xt, g)
+    assert dx.dtype == dtype
+
+    def jfn(a):
+        kj = jnp.asarray(k.float().numpy().transpose(2, 3, 4, 1, 0))
+        return jconv.conv3d_same(a, kj, stride, None)
+
+    _, vjp = jax.vjp(jfn, jnp.asarray(x.float().numpy()))
+    (ref,) = vjp(jnp.asarray(g.float().numpy()))
+    ref = np.asarray(ref)
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-8 * np.abs(ref).max()
+    np.testing.assert_allclose(dx.float().numpy(), ref, rtol=0, atol=tol)
+
+
 @pytest.mark.parametrize(
     "window,stride,shape",
     [
