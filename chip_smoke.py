@@ -36,27 +36,37 @@ non-zero without the final line:
    clips, 10 search steps, Grad-CAM on -- a warm-up run, then one with the
    gate kernel (counters reset just before, read just after) and one
    without; outputs checked and compared.
-8. clstm_step_timing: as step_timing, for the ConvLSTM search step, in
-   twice the turns, plus 12 pairs of single steps (on and off back to
-   back) and the host's launch rate before and after them.
-9. determinism: in a child process with ``CUBLAS_WORKSPACE_CONFIG`` set
+8. clstm_bf16_main_path: the same in bfloat16 (bf16 weights and gates,
+   float32 state), with the gate kernel's bf16 entries and without, each
+   twice: launches, equal bits run to run, against each other and against
+   the float32 kernel run, and the search from one carry.
+9. clstm_step_timing: as step_timing, for the ConvLSTM search step in
+   float32 and bfloat16, kernel on and off, plus 12 pairs of float32
+   single steps (on and off back to back) and the host's launch rate
+   before and after them.
+10. determinism: in a child process with ``CUBLAS_WORKSPACE_CONFIG`` set
    before CUDA starts, the float32 pool-kernel route under
    ``torch.use_deterministic_algorithms``: the ops PyTorch flags with the
    port's repairs switched off and on (warn mode), then two runs with the
    repairs in raise mode, and the bfloat16 default route twice; equal bits
    required. In this process: each repair switched off in turn, two runs
    each (do they still give equal bits?) and its cost per search step.
-10. bf16_kernel_check: the bfloat16 kernels (pointwise GEMM at the
+11. bf16_kernel_check: the bfloat16 kernels (pointwise GEMM at the
    Mixed_3b trio and the logits head; the bf16 pool pair and the argmax
-   pair at all nine branch-3 sites) against their plain versions, timed
-   beside ``torch.matmul`` / ``F.max_pool3d`` in bfloat16.
-11. bf16_main_path: ``find_masks`` at full width in bfloat16 on the default
-   route (argmax pool) and the kernel route (``use_pallas`` +
-   ``pallas_pool``), each twice; launches, peak memory, equal bits run to
-   run, and both routes against the float32 pool-kernel route.
-12. bf16_step_timing: device time by group per step on both bf16 routes
-   beside the float32 ones at batch 4, then the bf16 default route at
-   batch 32 and 128; at 4 and 128 also with the stem's input gradient
+   pair at all nine branch-3 sites; the four bf16 fused branch-3 entries
+   at all nine sites, beside the bf16 unfused pair; the bf16 gate entries
+   at both ConvLSTM layers, beside the float32 gate kernel) against their
+   plain versions, timed beside ``torch.matmul`` / ``F.max_pool3d`` in
+   bfloat16.
+12. bf16_main_path: ``find_masks`` at full width in bfloat16 on the default
+   route (argmax pool), the kernel route (``use_pallas`` +
+   ``pallas_pool``) and both fused routes (``use_pallas`` +
+   ``fuse_pool_conv`` True / ``'tblock'``), each twice; launches, peak
+   memory, equal bits run to run, each route against the float32
+   pool-kernel route and the others against the kernel route.
+13. bf16_step_timing: device time by group per step on the four bf16
+   routes beside the float32 ones at batch 4, then the bf16 default route
+   at batch 32 and 128; at 4 and 128 also with the stem's input gradient
    through cuDNN instead of the polyphase form.
 
 The float32 phases set no global TF32 flag: the port's entry points pin
@@ -135,6 +145,17 @@ BF16_TOL_REASON = (
 # so scores and CAMs may differ by one bfloat16 rounding (both came out
 # equal in five runs); the masks by the backward's tie rule, as BF16_MASK_TOL
 BF16_ROUTES_TOL = 2.0**-8
+# the fused bf16 routes against the bf16 kernel route: b3b's 1x1x1 conv
+# sums in float32 on the CUDA cores there and on the tensor cores here, so
+# single branch-3 outputs round to neighbouring bf16 values, which the
+# later blocks carry to Mixed_5c: the CAMs (normalized bf16 maps) moved by
+# 0.027 and the scores by 2**-10 on an H100 at 700 W, where one rounding
+# (BF16_ROUTES_TOL) had been predicted; the CAMs are held at BF16_CAM_TOL
+BF16_FUSED_CAM_REASON = (
+    "b3b's conv sums in another order (CUDA-core float32 vs tensor cores), "
+    "so some branch-3 outputs round to the neighbouring bf16 value and the "
+    "later blocks carry that to Mixed_5c; measured 0.027 on an H100"
+)
 # the nine branch-3 sites of i3d_smth at 16x224x224: (T, H, W, Cin), Cout
 FUSED_SITES = (
     ("Mixed_3b", (8, 28, 28, 192), 32), ("Mixed_3c", (8, 28, 28, 256), 64),
@@ -162,6 +183,17 @@ CLSTM_MASK_TOL_REASON = (
     "update is scale-free, so a near-zero mask-gradient component can move "
     "by a rounding-level change; 8 steps on the CPU agree to 1e-4 with JAX "
     "on both routes (tests/test_torch_convlstm.py)"
+)
+# bfloat16 ConvLSTM against float32, and with the gate kernel against
+# without: the limits of the I3D bfloat16 comparisons (BF16_*), registered
+# before the first run on the card
+CLSTM_BF16_TOL_REASON = (
+    "bf16 weights and gates with a float32 state: gate pre-activations "
+    "rounded to bf16 (logits 2.3e-3 and input gradients 0.8% from JAX's "
+    "bf16 model at 8x32x48, JAX's own bf16 vs float32 logits 5.5e-3, "
+    "tests/test_torch_convlstm.py); kernel vs plain: the same forward "
+    "roundings, another backward (per-op bf16 rounding against autograd "
+    "through the plain version's casts)"
 )
 # operations counted per (row, channel) of the gate block: the gate sums,
 # three sigmoids, two tanh and the state update (forward); the recompute
@@ -597,6 +629,14 @@ FUSED_COUNTERS = {"fused": ("fused_pool_conv_fwd", "fused_pool_conv_bwd"),
 BF16_KERNEL_COUNTERS = ("pointwise_conv_bf16", "maxpool3d_s1_fwd_bf16", "maxpool3d_s1_bwd_bf16")
 ARGMAX_COUNTERS = ("argmax_pool_fwd", "argmax_pool_bwd")
 BF16_COUNTERS = BF16_KERNEL_COUNTERS + ARGMAX_COUNTERS
+# the bfloat16 entries of the fused branch 3 (per route) and of the gates
+BF16_FUSED_COUNTERS = {
+    "bf16_fused": ("fused_pool_conv_fwd_bf16", "fused_pool_conv_bwd_bf16"),
+    "bf16_fused_tblock": ("fused_pool_conv_tblock_fwd_bf16", "fused_pool_conv_tblock_bwd_bf16"),
+}
+BF16_GATE_COUNTERS = ("lstm_gates_fwd_bf16", "lstm_gates_bwd_bf16")
+ALL_BF16_COUNTERS = (BF16_COUNTERS + BF16_GATE_COUNTERS
+                     + tuple(n for names in BF16_FUSED_COUNTERS.values() for n in names))
 
 
 def _check_route_launches(route: str, launches: dict, runs: dict, failures) -> None:
@@ -607,7 +647,7 @@ def _check_route_launches(route: str, launches: dict, runs: dict, failures) -> N
     kernels and the other fused variant never."""
     pool = ("maxpool3d_s1_fwd", "maxpool3d_s1_bwd")
     fused = FUSED_COUNTERS
-    if any(launches[n] for n in BF16_COUNTERS):
+    if any(launches[n] for n in ALL_BF16_COUNTERS):
         failures.append(f"main path {route}: a bfloat16 kernel launched in float32 {launches}")
     if route == "plain":
         ok = not any(launches.values())
@@ -625,23 +665,26 @@ def _check_route_launches(route: str, launches: dict, runs: dict, failures) -> N
 
 
 def _find_masks_run(api, counters, out_dir: str, name: str, flags: dict, weights, dataset,
-                    batch: int = BATCH, steps: int = STEPS) -> dict:
+                    batch: int = BATCH, steps: int = STEPS, cfg=None) -> dict:
     """One ``find_masks`` run of i3d_smth at full width with the model
-    flags ``flags``, every launch counter set to 0 just before it and read
-    just after; its records, masks, CAMs, central-init logits (read back
-    from find_masks's own call), launches, rate and peak memory."""
+    flags ``flags`` (or of ``cfg`` as given, whose ``opt_iter`` must be
+    ``steps``), every launch counter set to 0 just before it and read just
+    after; its records, masks, CAMs, central-init logits (read back from
+    find_masks's own call), launches, rate and peak memory."""
     from unittest import mock
 
     import numpy as np
 
     from ivf_tpu_torch.config import Config
 
-    cfg = Config()
-    cfg.output_dir, cfg.model_name = out_dir, name
-    cfg.data.batch_size = batch
-    cfg.mask.opt_iter = steps
-    for key, value in flags.items():
-        setattr(cfg.model, key, value)
+    if cfg is None:
+        cfg = Config()
+        cfg.output_dir, cfg.model_name = out_dir, name
+        cfg.data.batch_size = batch
+        cfg.mask.opt_iter = steps
+        for key, value in flags.items():
+            setattr(cfg.model, key, value)
+    res = Path(cfg.output_dir) / cfg.model_name / "results"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stats = {}
@@ -659,7 +702,6 @@ def _find_masks_run(api, counters, out_dir: str, name: str, flags: dict, weights
         tm, gc = api.find_masks(cfg, weights, dataset, stats=stats)
     wall = time.perf_counter() - t0
     launches = {key: fn.launches for key, fn in counters.items()}
-    res = Path(out_dir) / name / "results"
     return dict(
         tm=tm, masks=np.stack([r["time_mask"] for r in tm]), cams=np.stack([r["GCHeatMap"] for r in gc]),
         inits=torch.cat(inits).numpy(), launches=launches, wall=wall, stats=stats,
@@ -748,9 +790,9 @@ def _equal_bits(a: dict, b: dict) -> bool:
                 and all(r[k] == q[k] for r, q in zip(a["tm"], b["tm"]) for k in scores))
 
 
-def _clstm_cfg(kernels: bool, out_dir: str = "", run_name: str = ""):
+def _clstm_cfg(kernels: bool, out_dir: str = "", run_name: str = "", dtype: str = "float32"):
     """The clstm_kth preset (configs/config_clstm_kth.py) as the port's
-    config, with 10 search steps."""
+    config, with 10 search steps, in ``dtype``."""
     from ivf_tpu_torch.config import Config
 
     cfg = Config()
@@ -759,7 +801,7 @@ def _clstm_cfg(kernels: bool, out_dir: str = "", run_name: str = ""):
     m.conv_model, m.num_classes = "clstm_kth", CLSTM_CLASSES
     m.clstm_hidden, m.clstm_layers, m.conv_stride, m.conv_kernel_size = 4, 2, 2, 5
     m.batch_norm, m.dropout, m.effective_steps = True, 0.5, (7, 15, 23, 31)
-    m.use_pallas = kernels
+    m.use_pallas, m.compute_dtype = kernels, dtype
     cfg.data.batch_size, cfg.data.clip_size = CLSTM_BATCH, CLSTM_T
     cfg.data.input_spatial_size = CLSTM_HW
     cfg.mask.opt_iter = STEPS
@@ -839,6 +881,30 @@ def phase_clstm_small_reference(failures) -> None:
             failures.append(f"clstm_small_reference {family}: logits {logit_err}, grad {grad_err}")
 
 
+def _check_clstm_outputs(label: str, r: dict, failures) -> None:
+    import numpy as np
+
+    masks, cams = r["masks"], r["cams"]
+    if not (np.isfinite(masks).all() and masks.min() >= 0 and masks.max() <= 1):
+        failures.append(f"{label}: masks not finite in [0, 1]")
+    want = (CLSTM_BATCH, CLSTM_T, *CLSTM_HW)
+    if cams.shape != want or not np.isfinite(cams).all():
+        failures.append(f"{label}: CAMs {cams.shape} not finite {want}")
+    if len(r["pickles"]) != 2:
+        failures.append(f"{label}: pickles missing: {r['pickles']}")
+
+
+def _emit_clstm_run(phase: str, run: int, label: str, kernels: bool, r: dict, card: str) -> None:
+    emit({
+        "phase": phase, "run": run, "route": label, "kernels": kernels, "card": card,
+        "model": "clstm_kth", "clips": CLSTM_BATCH, "clip_shape": [CLSTM_T, *CLSTM_HW, 3], "steps": STEPS,
+        "mask_steps_per_s": r["rate"], "search_seconds": r["stats"]["search_seconds"],
+        "init_seconds": r["stats"]["init_seconds"], "wall_seconds": r["wall"], "launches": r["launches"],
+        "peak_mem_gib": r["peak_gib"], "mask_std_over_clips": float(r["masks"].std(axis=0).mean()),
+        "masks": r["masks"].round(4).tolist()[:4], "pickles": r["pickles"],
+    })
+
+
 def phase_clstm_main_path(api, counters, failures, card: str, weights: dict) -> dict:
     import numpy as np
 
@@ -849,43 +915,16 @@ def phase_clstm_main_path(api, counters, failures, card: str, weights: dict) -> 
         # a run without the kernel first pays cuDNN's algorithm choice
         for run, kernels in enumerate((False, True, False)):
             cfg = _clstm_cfg(kernels, out_dir, f"chip_smoke_clstm_{run}")
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            stats = {}
-            for fn in counters.values():
-                fn.launches = 0
-            t0 = time.perf_counter()
-            tm, gc = api.find_masks(cfg, weights, dataset, stats=stats)
-            wall = time.perf_counter() - t0
-            launches = {name: fn.launches for name, fn in counters.items()}
-            masks = np.stack([r["time_mask"] for r in tm])
-            cams = np.stack([r["GCHeatMap"] for r in gc])
-            res = Path(out_dir) / cfg.model_name / "results"
-            pickles = sorted(p.name for p in res.glob("all*Results_*.p"))
-            runs[kernels] = dict(tm=tm, masks=masks, cams=cams, launches=launches)
-            emit({
-                "phase": "clstm_main_path", "run": run, "kernels": kernels, "card": card,
-                "model": "clstm_kth", "clips": CLSTM_BATCH,
-                "clip_shape": [CLSTM_T, *CLSTM_HW, 3], "steps": STEPS,
-                "mask_steps_per_s": stats["searched_rows"] * STEPS / stats["search_seconds"],
-                "search_seconds": stats["search_seconds"], "init_seconds": stats["init_seconds"],
-                "wall_seconds": wall, "launches": launches,
-                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-                "mask_std_over_clips": float(masks.std(axis=0).mean()),
-                "masks": masks.round(4).tolist()[:4], "pickles": pickles,
-            })
-            gate = [launches[n] for n in gate_names]
-            if kernels and not all(n > 0 for n in gate):
-                failures.append(f"clstm main path with the kernel: a gate kernel never launched {launches}")
+            r = _find_masks_run(api, counters, out_dir, "", {}, weights, dataset, cfg=cfg)
+            runs[kernels] = r
+            _emit_clstm_run("clstm_main_path", run, "kernels" if kernels else "plain", kernels, r, card)
+            launches = r["launches"]
+            if kernels and not (all(launches[n] > 0 for n in gate_names)
+                                and not any(launches[n] for n in launches if n not in gate_names)):
+                failures.append(f"clstm main path with the kernel: launches {launches}")
             if not kernels and any(launches.values()):
                 failures.append(f"clstm main path without kernels launched one {launches}")
-            if not (np.isfinite(masks).all() and masks.min() >= 0 and masks.max() <= 1):
-                failures.append("clstm masks not finite in [0, 1]")
-            want = (CLSTM_BATCH, CLSTM_T, *CLSTM_HW)
-            if cams.shape != want or not np.isfinite(cams).all():
-                failures.append(f"clstm CAMs {cams.shape} not finite {want}")
-            if len(pickles) != 2:
-                failures.append(f"clstm pickles missing: {pickles}")
+            _check_clstm_outputs("clstm", r, failures)
     on, off = runs[True], runs[False]
     mask_diff = float(np.abs(on["masks"] - off["masks"]).max())
     cam_diff = float(np.abs(on["cams"] - off["cams"]).max())
@@ -900,7 +939,84 @@ def phase_clstm_main_path(api, counters, failures, card: str, weights: dict) -> 
           "probabilities, CAMs are normalized to [0, 1]"})
     if not (mask_diff <= CLSTM_MASK_TOL and cam_diff <= 1e-3 and score_diff <= 1e-5):
         failures.append(f"clstm kernels on vs off: mask {mask_diff}, cam {cam_diff}, score {score_diff}")
-    return on["launches"]
+    return on
+
+
+def phase_clstm_bf16_main_path(api, counters, failures, card: str, weights: dict, f32_run: dict) -> dict:
+    """``find_masks`` on clstm_kth at full width in bfloat16 (bf16 weights
+    and gates, float32 state), with the gate kernel and without, each
+    twice: launches, equal bits run to run, the two routes against each
+    other and against the float32 kernel run (on the clips whose central
+    init chose the same candidate, at least one), and the search from one
+    carry on every clip."""
+    from ivf_tpu_torch.interpret import mask_opt
+
+    dataset = _clstm_clips()
+    runs = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        for run, label in enumerate(("bf16_kernels", "bf16_plain", "bf16_kernels_again", "bf16_plain_again")):
+            kernels = label.startswith("bf16_kernels")
+            cfg = _clstm_cfg(kernels, out_dir, f"chip_smoke_clstm_{label}", "bfloat16")
+            r = _find_masks_run(api, counters, out_dir, "", {}, weights, dataset, cfg=cfg)
+            runs[label] = r
+            _emit_clstm_run("clstm_bf16_main_path", run, label, kernels, r, card)
+            launches = r["launches"]
+            mine = BF16_GATE_COUNTERS if kernels else ()
+            if not (all(launches[n] > 0 for n in mine) and not any(launches[n] for n in launches if n not in mine)):
+                failures.append(f"clstm bf16 main path {label}: launches {launches}")
+            if kernels and any(launches[b] != f32_run["launches"][f] for b, f in
+                               zip(BF16_GATE_COUNTERS, ("lstm_gates_fwd", "lstm_gates_bwd"))):
+                failures.append(f"clstm bf16 {label}: gate launches {launches} differ from float32's")
+            _check_clstm_outputs(f"clstm {label}", r, failures)
+    for a, b in (("bf16_kernels_again", "bf16_kernels"), ("bf16_plain_again", "bf16_plain")):
+        bits = _equal_bits(runs[a], runs[b])
+        emit({"phase": "clstm_bf16_main_path_compare", "routes": [a, b], **_diffs(runs[a], runs[b]),
+              "equal_bits": bits, "required": "equal bits"})
+        if not bits:
+            failures.append(f"clstm {a} vs {b}: the same route run twice gave other bits")
+    for a, b, score_tol, cam_tol in (
+            ("bf16_kernels", "float32_kernels", BF16_SCORE_TOL, BF16_CAM_TOL),
+            ("bf16_plain", "float32_kernels", BF16_SCORE_TOL, BF16_CAM_TOL),
+            ("bf16_kernels", "bf16_plain", BF16_ROUTES_TOL, BF16_ROUTES_TOL)):
+        d = _bf16_vs(runs[a], f32_run if b == "float32_kernels" else runs[b])
+        emit({"phase": "clstm_bf16_main_path_compare", "routes": [a, b], **d,
+              "mask_tol_same_init": BF16_MASK_TOL, "score_tol": score_tol, "cam_tol": cam_tol,
+              "tol_reason": CLSTM_BF16_TOL_REASON})
+        m = d["max_mask_diff_same_init"]
+        if m is None:
+            failures.append(f"clstm {a} vs {b}: the central init chose another candidate on every clip")
+        elif m > BF16_MASK_TOL or d["max_score_diff"] > score_tol or d["max_cam_diff"] > cam_tol:
+            failures.append(f"clstm {a} vs {b}: {d}")
+    # the search from one central carry, the same targets, on every clip
+    import numpy as np
+
+    clips = torch.from_numpy(np.stack([c for c, _, _ in dataset])).cuda().float()
+    results, targets = {}, None
+    for label, kernels, dtype in (("float32_kernels", True, "float32"), ("bf16_kernels", True, "bfloat16"),
+                                  ("bf16_plain", False, "bfloat16")):
+        model = api.build_model(_clstm_cfg(kernels, dtype=dtype), softmax_override=True)
+        model.load_state_dict(weights)
+        model.requires_grad_(False)
+
+        def score(x, m=model):
+            return m(x).float()
+
+        if targets is None:
+            with torch.no_grad():
+                targets = score(clips).argmax(dim=-1)
+        results[label] = mask_opt.find_mask_from_carry(
+            score, clips, targets, _central_carry(CLSTM_BATCH, CLSTM_T), n_steps=STEPS)
+    ref = results["float32_kernels"]
+    for label in ("bf16_kernels", "bf16_plain"):
+        r = results[label]
+        d = {"max_mask_diff": (r.mask - ref.mask).abs().max().item(),
+             "max_score_diff": max((getattr(r, k) - getattr(ref, k)).abs().max().item()
+                                   for k in ("freeze_score", "reverse_score", "orig_score"))}
+        emit({"phase": "clstm_bf16_search_from_carry", "routes": [label, "float32_kernels"], "steps": STEPS,
+              **d, "mask_tol": BF16_MASK_TOL, "score_tol": BF16_SCORE_TOL})
+        if not (d["max_mask_diff"] <= BF16_MASK_TOL and d["max_score_diff"] <= BF16_SCORE_TOL):
+            failures.append(f"clstm bf16 search from one carry, {label} vs float32: {d}")
+    return {n: runs["bf16_kernels"]["launches"][n] for n in BF16_GATE_COUNTERS}
 
 
 def _group(name: str) -> str:
@@ -968,18 +1084,21 @@ def phase_step_timing(api, card: str, failures) -> None:
 
 
 def phase_clstm_step_timing(api, card: str, weights: dict) -> None:
-    """Steady per-step wall time of the ConvLSTM search (kernel on / off)."""
+    """Steady per-step wall time of the ConvLSTM search (kernel on / off),
+    in float32 and in bfloat16."""
     import numpy as np
 
     clips = torch.from_numpy(np.stack([c for c, _, _ in _clstm_clips()])).cuda().float()
     models = {}
-    for route in ("kernels", "plain"):
-        model = api.build_model(_clstm_cfg(route == "kernels"), softmax_override=True)
+    for route in ("kernels", "plain", "bf16_kernels", "bf16_plain"):
+        dtype = "bfloat16" if route.startswith("bf16") else "float32"
+        model = api.build_model(_clstm_cfg(route.endswith("kernels"), dtype=dtype), softmax_override=True)
         model.load_state_dict(weights)
         models[route] = model.requires_grad_(False)
     # the host bounds this step and shares its cores: twice the turns
     _step_timing("clstm_step_timing", models, clips, card,
-                 turns=("kernels", "plain", "plain", "kernels") * 2, pairs=12)
+                 turns=("kernels", "plain", "bf16_kernels", "bf16_plain",
+                        "bf16_plain", "bf16_kernels", "plain", "kernels") * 2, pairs=12)
 
 
 def _central_carry(b: int, t: int):
@@ -1287,8 +1406,182 @@ def phase_bf16_kernel_check(pw, pool, ap, failures) -> dict:
     return cases
 
 
+def phase_bf16_fused_gate_check(fb, gates, pool, pw, failures) -> dict:
+    """The bfloat16 entries of the fused branch 3 and of the gate block
+    against their plain versions on the card.
+
+    Fused branch 3: all four entries at the nine branch-3 sites (batch 4),
+    post-ReLU tie data with the ReLU, signed data without; y and dx within
+    one bf16 ulp of their largest magnitude (float32 sums in another order
+    than the plain matmul, one rounding each); per-frame against
+    whole-sample. With the ReLU also the device time of each entry (warm
+    and flushed), of its plain version, of the bf16 unfused kernel pair
+    (``maxpool3d_s1`` + ``pointwise_conv`` bf16 entries) and, forward, of
+    ``F.max_pool3d`` + ``torch.matmul`` in bf16 (the library yardstick;
+    the backward has none).
+
+    Gates: bf16 gates and a float32 state at both layers of the clstm_kth
+    main path (batch 16), the merged route and a ragged size; h', c' and
+    dc within 1e-6 of max(1, their largest magnitude), dz within one bf16
+    ulp of its largest (the kernels repeat the plain versions' roundings
+    and float32 operations); timed beside the float32 gate kernel on the
+    same values in float32. No PyTorch call takes bf16 gates with a
+    float32 state, so ``library_ms`` is null.
+
+    Bounds: bytes at 3.35 TB/s against bf16 operations at 989 TFLOP/s."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(13)
+    kernels = {
+        "fused_pool_conv": (fb.fused_pool_conv_fwd_bf16_cuda, fb.fused_pool_conv_bwd_bf16_cuda),
+        "fused_pool_conv_tblock": (fb.fused_pool_conv_tblock_fwd_bf16_cuda,
+                                   fb.fused_pool_conv_tblock_bwd_bf16_cuda),
+    }
+    cases = {f"{k}_{d}_bf16": [] for k in kernels for d in ("fwd", "bwd")}
+    cases.update({n: [] for n in BF16_GATE_COUNTERS})
+
+    def err(a, b_):
+        return (a.float() - b_.float()).abs().max().item()
+
+    def ulp_tol(ref):
+        return 2.0**-7 * ref.float().abs().max().item()
+
+    for site, (t, h, w, cin), cout in FUSED_SITES:
+        shape = (BATCH, t, h, w, cin)
+        n, numel, ynumel = BATCH * t * h * w, BATCH * t * h * w * cin, BATCH * t * h * w * cout
+        fwd_bound = bound(2 * (numel + cin * cout + cout + ynumel),
+                          2 * n * cin * cout + 26 * numel + 2 * ynumel, PEAK_BF16_FLOPS)
+        bwd_bound = bound(2 * (2 * numel + 2 * ynumel + cin * cout),
+                          2 * n * cout * cin + ynumel + 80 * numel, PEAK_BF16_FLOPS)
+        for relu in (True, False):
+            x = _ties(shape, gen, dev) if relu else torch.randn(shape, generator=gen).to(dev)
+            x = x.bfloat16()
+            wt = (torch.randn(cin, cout, generator=gen) / cin**0.5).bfloat16().to(dev)
+            b = (torch.randn(cout, generator=gen) * 0.1).bfloat16().to(dev)
+            g = torch.randn(*shape[:-1], cout, generator=gen).bfloat16().to(dev)
+            outs = {name: None for name in kernels}
+            for name, (fwd, bwd) in kernels.items():
+                y = fwd(x, wt, b, relu)
+                outs[name] = (y, bwd(x, y, g, wt, relu))
+            y_ref = fb.fused_pool_conv_plain(x, wt, b, relu)
+            torch.cuda.synchronize()
+            (yf, dxf), (yt, dxt) = outs["fused_pool_conv"], outs["fused_pool_conv_tblock"]
+            between = {"fwd_err": err(yf, yt), "bwd_err": err(dxf, dxt),
+                       "bits_equal": bool(torch.equal(yf.view(torch.int16), yt.view(torch.int16))
+                                          and torch.equal(dxf.view(torch.int16), dxt.view(torch.int16)))}
+            if relu:
+                xc = x.permute(0, 4, 1, 2, 3)
+                pooled = pool.maxpool3d_s1_fwd_bf16_cuda(x)
+                wT = wt.t().contiguous()
+                y_pair = pw.pointwise_conv_bf16_cuda(pooled.view(n, cin), wt, b, True)
+
+                def pair_fwd():
+                    pw.pointwise_conv_bf16_cuda(pool.maxpool3d_s1_fwd_bf16_cuda(x).view(n, cin), wt, b, True)
+
+                def pair_bwd():
+                    m = torch.where(y_pair > 0, g.view(n, cout), 0.0)
+                    gc = pw.pointwise_conv_bf16_cuda(m, wT, None, False)
+                    pool.maxpool3d_s1_bwd_bf16_cuda(x, pooled, gc.view(shape))
+
+                def lib_fwd():
+                    torch.matmul(F.max_pool3d(xc, 3, 1, 1).permute(0, 2, 3, 4, 1).reshape(n, cin), wt)
+
+                shared = {
+                    "fwd": {"pair_ms": device_ms(pair_fwd), "library_ms": device_ms(lib_fwd),
+                            "plain_ms": device_ms(lambda: fb.fused_pool_conv_plain(x, wt, b, True), reps=5)},
+                    "bwd": {"pair_ms": device_ms(pair_bwd), "library_ms": None,
+                            "plain_ms": device_ms(lambda: fb.fused_pool_conv_bwd_plain(x, yf, g, wt, True),
+                                                  reps=5)},
+                }
+            for name, (fwd, bwd) in kernels.items():
+                y, dx = outs[name]
+                dx_ref = fb.fused_pool_conv_bwd_plain(x, y, g, wt, relu)
+                torch.cuda.synchronize()
+                rows = {
+                    "fwd": {"max_abs_err": err(y, y_ref), "tol": ulp_tol(y_ref), "bound": fwd_bound},
+                    "bwd": {"max_abs_err": err(dx, dx_ref), "tol": ulp_tol(dx_ref), "bound": bwd_bound},
+                }
+                if relu:
+                    timed = {"fwd": lambda: fwd(x, wt, b, True), "bwd": lambda: bwd(x, y, g, wt, True)}
+                    for d, fn in timed.items():
+                        rows[d].update({"ms": device_ms(fn), "cold_ms": device_ms(fn, cold=True), **shared[d]})
+                for d, row in rows.items():
+                    bms, by = row.pop("bound")
+                    cases[f"{name}_{d}_bf16"].append({
+                        "site": site, "shape": list(shape), "cout": cout, "relu": relu, **row,
+                        "tol_reason": "one bf16 ulp of the largest magnitude",
+                        "bound_ms": bms, "bound_by": by, "frame_vs_tblock": between,
+                    })
+                    if not row["max_abs_err"] <= row["tol"]:
+                        failures.append(f"{name}_{d}_bf16 {site} relu={relu}: err {row['max_abs_err']} > {row['tol']}")
+            if not (between["fwd_err"] <= ulp_tol(yf) and between["bwd_err"] <= ulp_tol(dxf)):
+                failures.append(f"bf16 fused per-frame vs tblock {site} relu={relu}: {between}")
+
+    b_, (h1, w1) = CLSTM_BATCH, (CLSTM_HW[0] // 2, CLSTM_HW[1] // 2)
+    for site, lead, ch, with_gh in (("layer1", (b_, h1, w1), 4, True), ("layer2", (b_, h1 // 4, w1 // 4), 4, True),
+                                    ("layer1_merged", (b_, h1, w1), 4, False), ("ragged", (3, 7, 9), 5, True)):
+        gx = (torch.randn(*lead, 4 * ch, generator=gen) * 3).bfloat16().to(dev)
+        gh = (torch.randn(*lead, 4 * ch, generator=gen) * 2).bfloat16().to(dev) if with_gh else None
+        c, dh, dc_out = (torch.randn(*lead, ch, generator=gen).to(dev) for _ in range(3))
+        h_new, c_new = gates.lstm_gates_fwd_bf16_cuda(gx, gh, c)
+        dz, dc = gates.lstm_gates_bwd_bf16_cuda(gx, gh, c, dh, dc_out)
+        h_ref, c_ref = gates.gate_math_plain(gx, gh, c)
+        dz_ref, dc_ref = gates.gate_math_bwd_plain(gx, gh, c, dh, dc_out)
+        torch.cuda.synchronize()
+
+        def rel_tol(ref):
+            return 1e-6 * max(1.0, ref.abs().max().item())
+
+        errs = {
+            "lstm_gates_fwd_bf16": {"h": (err(h_new, h_ref), rel_tol(h_ref)), "c": (err(c_new, c_ref), rel_tol(c_ref))},
+            "lstm_gates_bwd_bf16": {"dz": (err(dz, dz_ref), ulp_tol(dz_ref)), "dc": (err(dc, dc_ref), rel_tol(dc_ref))},
+        }
+        gxf, ghf = gx.float(), (gh.float() if with_gh else None)
+        numel = c.numel()
+        z_in = gx.numel() * (2 if with_gh else 1)
+        timed = {
+            "lstm_gates_fwd_bf16": (lambda: gates.lstm_gates_fwd_bf16_cuda(gx, gh, c),
+                                    lambda: gates.gate_math_plain(gx, gh, c),
+                                    lambda: gates.lstm_gates_fwd_cuda(gxf, ghf, c),
+                                    2 * z_in + 12 * numel, GATE_OPS_FWD * numel),
+            "lstm_gates_bwd_bf16": (lambda: gates.lstm_gates_bwd_bf16_cuda(gx, gh, c, dh, dc_out),
+                                    lambda: gates.gate_math_bwd_plain(gx, gh, c, dh, dc_out),
+                                    lambda: gates.lstm_gates_bwd_cuda(gxf, ghf, c, dh, dc_out),
+                                    2 * (z_in + gx.numel()) + 16 * numel, GATE_OPS_BWD * numel),
+        }
+        for name, (fn, plain, f32_fn, nbytes, ops) in timed.items():
+            bms, by = bound(nbytes, ops, PEAK_BF16_FLOPS)
+            cases[name].append({
+                "site": site, "shape": [*lead, 4 * ch], "gates_h": with_gh,
+                "max_abs_err": max(e for e, _ in errs[name].values()),
+                "errs": {k: {"err": e, "tol": tl} for k, (e, tl) in errs[name].items()},
+                "tol_reason": "float32 outputs 1e-6 of max(1, largest); dz one bf16 ulp of its largest",
+                "ms": device_ms(fn), "plain_ms": device_ms(plain), "library_ms": None,
+                "library_note": "no PyTorch call takes bf16 gates with a float32 state",
+                "f32_kernel_ms": device_ms(f32_fn), "cold_ms": device_ms(fn, cold=True),
+                "bound_ms": bms, "bound_by": by,
+            })
+            for k, (e, tl) in errs[name].items():
+                if not e <= tl:
+                    failures.append(f"{name} {site}: {k} err {e} > {tl}")
+    for name, rows_ in cases.items():
+        for row in rows_:
+            emit({"phase": "bf16_kernel_check", "kernel": name, **row})
+    return cases
+
+
 BF16_ROUTES = {"bf16_default": {"compute_dtype": "bfloat16"},
-               "bf16_kernels": {"compute_dtype": "bfloat16", "use_pallas": True, "pallas_pool": True}}
+               "bf16_kernels": {"compute_dtype": "bfloat16", "use_pallas": True, "pallas_pool": True},
+               "bf16_fused": {"compute_dtype": "bfloat16", "use_pallas": True, "fuse_pool_conv": True},
+               "bf16_fused_tblock": {"compute_dtype": "bfloat16", "use_pallas": True,
+                                     "fuse_pool_conv": "tblock"}}
+# the kernels each bf16 route must launch (and no other)
+BF16_ROUTE_KERNELS = {
+    "bf16_default": ARGMAX_COUNTERS,
+    "bf16_kernels": BF16_KERNEL_COUNTERS,
+    **{route: (*names, "pointwise_conv_bf16") for route, names in BF16_FUSED_COUNTERS.items()},
+}
 
 
 def _bf16_vs(a: dict, b: dict) -> dict:
@@ -1342,13 +1635,15 @@ def _bf16_search_from_carry(api, weights: dict, dataset, failures) -> None:
 
 
 def phase_bf16_main_path(api, counters, failures, card: str, f32_run: dict) -> dict:
-    """``find_masks`` at full width in bfloat16, both routes, each twice."""
+    """``find_masks`` at full width in bfloat16, all four routes, each
+    twice."""
     from ivf_tpu_torch.data.synthetic import SyntheticClips
 
     dataset = SyntheticClips(BATCH, CLIP_T, CLIP_HW, CLASSES, seed=1, lazy=False)
     runs = {}
     with tempfile.TemporaryDirectory() as out_dir:
-        for run, label in enumerate(("bf16_default", "bf16_kernels", "bf16_default_again", "bf16_kernels_again")):
+        order = tuple(BF16_ROUTES) + tuple(f"{r}_again" for r in BF16_ROUTES)
+        for run, label in enumerate(order):
             route = label.replace("_again", "")
             r = _find_masks_run(api, counters, out_dir, f"chip_smoke_{label}", BF16_ROUTES[route],
                                 f32_run["weights"], dataset)
@@ -1362,34 +1657,50 @@ def phase_bf16_main_path(api, counters, failures, card: str, f32_run: dict) -> d
                 "masks": r["masks"].round(4).tolist(), "pickles": r["pickles"],
             })
             _check_outputs(label, r, failures)
-            launches = r["launches"]
-            others = [n for n in launches if n not in (ARGMAX_COUNTERS if route == "bf16_default" else BF16_KERNEL_COUNTERS)]
-            mine = ARGMAX_COUNTERS if route == "bf16_default" else BF16_KERNEL_COUNTERS
+            launches, mine = r["launches"], BF16_ROUTE_KERNELS[route]
+            others = [n for n in launches if n not in mine]
             if not (all(launches[n] > 0 for n in mine) and not any(launches[n] for n in others)):
                 failures.append(f"bf16 main path {label}: launches {launches}")
+            if route in BF16_FUSED_COUNTERS:
+                # the fused pair launches where the kernel route's bf16 pool
+                # pair did, and b3b's GEMMs leave the pointwise count
+                ref = runs["bf16_kernels"]["launches"]
+                fwd, bwd = BF16_FUSED_COUNTERS[route]
+                want = {fwd: ref["maxpool3d_s1_fwd_bf16"], bwd: ref["maxpool3d_s1_bwd_bf16"],
+                        "pointwise_conv_bf16": ref["pointwise_conv_bf16"] - ref["maxpool3d_s1_fwd_bf16"]
+                        - ref["maxpool3d_s1_bwd_bf16"]}
+                if any(launches[k] != v for k, v in want.items()):
+                    failures.append(f"bf16 main path {label}: launches {launches}, want {want}")
         if runs["bf16_default"]["launches"]["argmax_pool_fwd"] != f32_run["launches"]["maxpool3d_s1_fwd"]:
             failures.append("bf16 default: argmax launches differ from the nine branch-3 pools per forward")
-    for a, b in (("bf16_default_again", "bf16_default"), ("bf16_kernels_again", "bf16_kernels")):
+    for route in BF16_ROUTES:
+        a, b = f"{route}_again", route
         bits = _equal_bits(runs[a], runs[b])
         emit({"phase": "bf16_main_path_compare", "routes": [a, b], **_diffs(runs[a], runs[b]),
               "equal_bits": bits, "required": "equal bits"})
         if not bits:
             failures.append(f"{a} vs {b}: the same route run twice gave other bits")
-    for a, b, score_tol, cam_tol in (
-            ("bf16_default", "float32_kernels", BF16_SCORE_TOL, BF16_CAM_TOL),
-            ("bf16_kernels", "float32_kernels", BF16_SCORE_TOL, BF16_CAM_TOL),
-            ("bf16_default", "bf16_kernels", BF16_ROUTES_TOL, BF16_ROUTES_TOL)):
+    for a, b, score_tol, cam_tol, mask_tol in (
+            *((r, "float32_kernels", BF16_SCORE_TOL, BF16_CAM_TOL, BF16_MASK_TOL) for r in BF16_ROUTES),
+            ("bf16_default", "bf16_kernels", BF16_ROUTES_TOL, BF16_ROUTES_TOL, BF16_MASK_TOL),
+            ("bf16_fused", "bf16_kernels", BF16_ROUTES_TOL, BF16_CAM_TOL, BF16_MASK_TOL),
+            ("bf16_fused_tblock", "bf16_kernels", BF16_ROUTES_TOL, BF16_CAM_TOL, BF16_MASK_TOL),
+            ("bf16_fused", "bf16_fused_tblock", BF16_ROUTES_TOL, BF16_ROUTES_TOL, FUSED_MASK_TOL)):
         d = _bf16_vs(runs[a], f32_run if b == "float32_kernels" else runs[b])
-        emit({"phase": "bf16_main_path_compare", "routes": [a, b], **d, "mask_tol_same_init": BF16_MASK_TOL,
-              "score_tol": score_tol, "cam_tol": cam_tol, "tol_reason": BF16_TOL_REASON})
+        d["equal_bits"] = _equal_bits(runs[a], f32_run if b == "float32_kernels" else runs[b])
+        reason = BF16_FUSED_CAM_REASON if b == "bf16_kernels" and a != "bf16_default" else BF16_TOL_REASON
+        emit({"phase": "bf16_main_path_compare", "routes": [a, b], **d, "mask_tol_same_init": mask_tol,
+              "score_tol": score_tol, "cam_tol": cam_tol, "tol_reason": reason})
         m = d["max_mask_diff_same_init"]
         if m is None:
             failures.append(f"{a} vs {b}: the central init chose another candidate on every clip")
-        elif m > BF16_MASK_TOL or d["max_score_diff"] > score_tol or d["max_cam_diff"] > cam_tol:
+        elif m > mask_tol or d["max_score_diff"] > score_tol or d["max_cam_diff"] > cam_tol:
             failures.append(f"{a} vs {b}: {d}")
     _bf16_search_from_carry(api, f32_run["weights"], dataset, failures)
     launches = {n: runs["bf16_kernels"]["launches"][n] for n in BF16_KERNEL_COUNTERS}
     launches.update({n: runs["bf16_default"]["launches"][n] for n in ARGMAX_COUNTERS})
+    for route, names in BF16_FUSED_COUNTERS.items():
+        launches.update({n: runs[route]["launches"][n] for n in names})
     return launches
 
 
@@ -1417,7 +1728,8 @@ def phase_bf16_step_timing(api, card: str, weights: dict) -> None:
     models["bf16_cudnn_dgrad"] = models["bf16_default"]
     contexts = {"bf16_cudnn_dgrad": dict(polyphase=True)}
     _step_timing("bf16_step_timing", models, clips, card,
-                 turns=("bf16_default", "bf16_kernels", "f32_kernels", "f32_plain", "bf16_cudnn_dgrad") * 2,
+                 turns=("bf16_default", "bf16_kernels", "bf16_fused", "bf16_fused_tblock", "f32_kernels",
+                        "f32_plain", "bf16_cudnn_dgrad") * 2,
                  contexts=contexts)
     gen = torch.Generator(device="cuda").manual_seed(12)
     for batch in (32, 128):
@@ -1465,6 +1777,9 @@ def kernels_line(cases: dict, launches: dict) -> dict:
     for name, line in (("fused_pool_conv_fwd", 57), ("fused_pool_conv_bwd", 72),
                        ("fused_pool_conv_tblock_fwd", 279), ("fused_pool_conv_tblock_bwd", 327)):
         headline[name] = ("Mixed_3b", f"ivf_tpu/ops/pallas/fused_branch3.py:{line}", fb_src)
+        headline[f"{name}_bf16"] = headline[name]
+    headline["lstm_gates_fwd_bf16"] = headline["lstm_gates_fwd"]
+    headline["lstm_gates_bwd_bf16"] = headline["lstm_gates_bwd"]
     out = []
     for name, (site, replaces, source) in headline.items():
         row = next(c for c in cases[name] if c["site"] == site and c.get("relu", True))
@@ -1480,8 +1795,10 @@ def kernels_line(cases: dict, launches: dict) -> dict:
             entry.update({
                 "cold_ms": row["cold_ms"], "unfused_kernel_pair_ms": row["pair_ms"],
                 "library": "F.max_pool3d + torch.matmul: no one PyTorch call computes the fused function"
-                if name.endswith("fwd") else "none: no PyTorch call has the every-tie gather",
+                if "fwd" in name else "none: no PyTorch call has the every-tie gather",
             })
+        elif name in BF16_GATE_COUNTERS:
+            entry.update({"f32_kernel_ms": row["f32_kernel_ms"], "library": row["library_note"]})
         out.append(entry)
     return {"kernels": out}
 
@@ -1517,12 +1834,19 @@ def main() -> int:
         "maxpool3d_s1_bwd_bf16": pool.maxpool3d_s1_bwd_bf16_cuda,
         "argmax_pool_fwd": ap.argmax_pool_fwd_cuda,
         "argmax_pool_bwd": ap.argmax_pool_bwd_cuda,
+        "fused_pool_conv_fwd_bf16": fb.fused_pool_conv_fwd_bf16_cuda,
+        "fused_pool_conv_bwd_bf16": fb.fused_pool_conv_bwd_bf16_cuda,
+        "fused_pool_conv_tblock_fwd_bf16": fb.fused_pool_conv_tblock_fwd_bf16_cuda,
+        "fused_pool_conv_tblock_bwd_bf16": fb.fused_pool_conv_tblock_bwd_bf16_cuda,
+        "lstm_gates_fwd_bf16": gates.lstm_gates_fwd_bf16_cuda,
+        "lstm_gates_bwd_bf16": gates.lstm_gates_bwd_bf16_cuda,
     }
     info = phase_build(build)
     cases = phase_kernel_check(pw, pool, failures)
     cases.update(phase_gate_check(gates, failures))
     cases.update(phase_fused_check(fb, pool, pw, failures))
     cases.update(phase_bf16_kernel_check(pw, pool, ap, failures))
+    cases.update(phase_bf16_fused_gate_check(fb, gates, pool, pw, failures))
     phase_small_reference(failures)
     launches, f32_run = phase_main_path(api, counters, failures, info["smi"])
     phase_step_timing(api, info["smi"], failures)
@@ -1531,8 +1855,9 @@ def main() -> int:
     phase_bf16_step_timing(api, info["smi"], f32_run["weights"])
     phase_clstm_small_reference(failures)
     clstm_weights = _clstm_scaled_weights(api, _clstm_clips()[0][0])
-    clstm_launches = phase_clstm_main_path(api, counters, failures, info["smi"], clstm_weights)
-    launches.update({k: clstm_launches[k] for k in ("lstm_gates_fwd", "lstm_gates_bwd")})
+    clstm_run = phase_clstm_main_path(api, counters, failures, info["smi"], clstm_weights)
+    launches.update({k: clstm_run["launches"][k] for k in ("lstm_gates_fwd", "lstm_gates_bwd")})
+    launches.update(phase_clstm_bf16_main_path(api, counters, failures, info["smi"], clstm_weights, clstm_run))
     phase_clstm_step_timing(api, info["smi"], clstm_weights)
     if failures:
         for f in failures:

@@ -8,15 +8,17 @@ Both run on ``cuda`` unless the caller passes ``device="cpu"`` (as the
 tests do); with no GPU and no explicit device they raise rather than run
 on the CPU. Float32 runs are exact float32 whatever the caller's TF32
 flags (``precision.reference_numerics``). ``compute_dtype="bfloat16"`` runs
-I3D in bfloat16, with the argmax-index pool on the branch-3 pools unless
-``pool_impl`` was set (``_bf16_argmax_upgrade``), as the JAX package does.
+I3D (every kernel route, the fused branch 3 included) and the ConvLSTM
+family in bfloat16 as the JAX package does: I3D with the argmax-index
+pool on the branch-3 pools unless ``pool_impl`` was set or the branch is
+fused (``_bf16_argmax_upgrade``); the ConvLSTM with bfloat16 weights and
+gates and a float32 state and head.
 
 Not ported yet (ROADMAP.md): ``cnn_3d``, the chunked search and
 convergence refill, the emission journal and resume, class-of-interest /
 subset / min_score filtering and its compaction, random mask init, viz
 artifacts and the async writer, ``search_stats.json``, ``grad_cam_run``,
-bfloat16 on the ConvLSTM family and on the fused branch 3, the pool impls
-``shift``, ``eqbwd``, ``argmax_full`` and ``argmax_shift``, dataset
+the pool impls ``shift``, ``eqbwd``, ``argmax_full`` and ``argmax_shift``, dataset
 loading from the config, and the ``do_gradcam`` / ``run_temp_mask`` /
 ``max_batches`` switches of ``ivf_tpu``'s ``find_masks`` (every batch
 runs the search and Grad-CAM).
@@ -127,22 +129,9 @@ def _model_dtype(cfg: Config) -> torch.dtype:
         raise ValueError(f"compute_dtype={m.compute_dtype!r}: one of {COMPUTE_DTYPES}")
     if m.pool_impl not in POOL_IMPLS:
         raise NotImplementedError(
-            f"pool_impl={m.pool_impl!r}: the port has {POOL_IMPLS} (ROADMAP.md, Queue 2)"
+            f"pool_impl={m.pool_impl!r}: the port has {POOL_IMPLS} (ROADMAP.md, Queue 1)"
         )
-    if m.compute_dtype == "float32":
-        return torch.float32
-    name = m.conv_model.lower()
-    if "i3d" not in name:
-        raise NotImplementedError(
-            f"compute_dtype='bfloat16' on {m.conv_model!r}: bfloat16 is ported for I3D "
-            "only; the ConvLSTM's gate kernel has no bfloat16 version (ROADMAP.md, Queue 2)"
-        )
-    if m.fuse_pool_conv:
-        raise TypeError(
-            "compute_dtype='bfloat16' with fuse_pool_conv: the fused branch-3 kernels "
-            "take float32 (ROADMAP.md, Queue 2)"
-        )
-    return torch.bfloat16
+    return torch.float32 if m.compute_dtype == "float32" else torch.bfloat16
 
 
 def build_model(
@@ -152,8 +141,8 @@ def build_model(
     from ``cfg.seed``. Routed by substring of ``conv_model`` as in the JAX
     package: 'i3d' builds an I3D, 'clstm' or 'convlstm' (e.g. the
     ``clstm_kth`` preset, which is no registry key) a ConvLSTMClassifier.
-    With ``compute_dtype='bfloat16'`` (I3D only) the float32 init is cast
-    to bfloat16, every parameter and buffer, BN statistics included; the
+    With ``compute_dtype='bfloat16'`` the float32 init is cast to
+    bfloat16, every parameter and buffer, BN statistics included; the
     I3D takes ``pool_impl`` as given (``find_masks`` upgrades it first)."""
     m = cfg.model
     dtype = _model_dtype(cfg)
@@ -216,7 +205,8 @@ def find_masks(
     ``compute_dtype='bfloat16'`` the weights are rounded to bfloat16 as they
     load, the clips stay float32 up to the first conv, the class scores are
     upcast to float32, and the mask logits and Adam state are float32, as
-    in the JAX package; the CAMs are bfloat16 values returned as float32.
+    in the JAX package; I3D's CAMs are bfloat16 values returned as float32,
+    the ConvLSTM's are float32 (its state and features are).
 
     Returns (time_mask_results, grad_cam_results), lists of per-clip dicts
     with the reference's key names, also pickled to

@@ -1,6 +1,6 @@
 // Fused Inception branch 3 of I3D: 3x3x3 stride-1 zero-padded SAME max pool
-// -> 1x1x1 conv -> bias [-> ReLU], forward and input gradient, float32,
-// channels-last: x (B, T, H, W, Cin), w (Cin, Cout), b (Cout,).
+// -> 1x1x1 conv -> bias [-> ReLU], forward and input gradient, float32 and
+// bfloat16, channels-last: x (B, T, H, W, Cin), w (Cin, Cout), b (Cout,).
 //
 // Replaces the Pallas TPU kernels of ivf_tpu/ops/pallas/fused_branch3.py:
 //   fused_pool_conv (grid over (b, t) frames): forward _fwd_kernel, backward
@@ -64,7 +64,22 @@
 //   t alone: one block per (b, t, spatial tile, channel slab) computes gc
 //   and the pool at t-1, t and t+1, as the Pallas kernel does, so each
 //   frame's gc is computed three times.
+//
+// bfloat16 (the *_bf16 entries): every kernel is a template over the
+// element type of x, w, b, y, g and dx. A bf16 element is widened to
+// float32 as it is loaded, shared memory holds float32 as in the float32
+// kernels (the same 50,752 and 144,000 bytes), and each output is rounded
+// to bf16 once as it is stored. This is the Pallas kernels' bf16 path
+// (ivf_tpu/ops/pallas/fused_branch3.py:57-69, :72-118, :279-290,
+// :327-386): the pool is exact in bf16, a bf16 x bf16 product is exact in
+// float32, so the forward is the float32 GEMM on the widened operands, plus
+// the bias in float32, the ReLU and one rounding; the backward takes
+// [y != 0] on the bf16 y and runs in float32 to one rounding of dx. Against
+// the float32 kernels it halves the bytes, so its bounds halve: 0.0034 ms
+// forward and 0.0067 ms backward at Mixed_3b (batch 4). Tensor cores
+// (wgmma) and TMA are left for a later redesign.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -92,6 +107,16 @@ __device__ __forceinline__ float max3(float a, float b, float c) {
   return max_nan(max_nan(a, b), c);
 }
 
+// element loads widen to float32; stores round to the element type
+__device__ __forceinline__ float ld(const float* __restrict__ p, long long i) { return p[i]; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* __restrict__ p, long long i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void st(float* __restrict__ p, long long i, float v) { p[i] = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* __restrict__ p, long long i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+
 // ---------------------------------------------------------------------------
 // fpc_frame_fwd
 // ---------------------------------------------------------------------------
@@ -101,23 +126,25 @@ constexpr int kTileN = 64;  // output channels per block
 constexpr int kTileK = 16;  // input channels per shared-memory slab
 
 // zero-padded SAME 3x3x3 max at (b, t, h, w, k), read from device memory
-__device__ __forceinline__ float pool27(const float* __restrict__ x, const Geom& g,
+template <typename T>
+__device__ __forceinline__ float pool27(const T* __restrict__ x, const Geom& g,
                                         int b, int t, int h, int w, int k) {
-  float m = x[voxel(g, b, t, h, w) * g.cin + k];
+  float m = ld(x, voxel(g, b, t, h, w) * g.cin + k);
   for (int dt = -1; dt <= 1; ++dt) {
     for (int dh = -1; dh <= 1; ++dh) {
       for (int dw = -1; dw <= 1; ++dw) {
         const int tt = t + dt, hh = h + dh, ww = w + dw;
-        m = max_nan(m, inside(g, tt, hh, ww) ? x[voxel(g, b, tt, hh, ww) * g.cin + k] : 0.f);
+        m = max_nan(m, inside(g, tt, hh, ww) ? ld(x, voxel(g, b, tt, hh, ww) * g.cin + k) : 0.f);
       }
     }
   }
   return m;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-fpc_frame_fwd(const float* __restrict__ x, const float* __restrict__ wgt,
-              const float* __restrict__ bias, float* __restrict__ y, Geom g, int relu) {
+fpc_frame_fwd(const T* __restrict__ x, const T* __restrict__ wgt,
+              const T* __restrict__ bias, T* __restrict__ y, Geom g, int relu) {
   __shared__ float ps[kTileK][kTileM + 1];
   __shared__ float ws[kTileK][kTileN];
 
@@ -150,7 +177,7 @@ fpc_frame_fwd(const float* __restrict__ x, const float* __restrict__ wgt,
       const int c = e % kTileN;
       const int k = k0 + r;
       const int n = col0 + c;
-      ws[r][c] = (k < g.cin && n < g.cout) ? wgt[static_cast<long long>(k) * g.cout + n] : 0.f;
+      ws[r][c] = (k < g.cin && n < g.cout) ? ld(wgt, static_cast<long long>(k) * g.cout + n) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -179,9 +206,9 @@ fpc_frame_fwd(const float* __restrict__ x, const float* __restrict__ wgt,
     for (int j = 0; j < 4; ++j) {
       const int n = col0 + tx + 16 * j;
       if (n >= g.cout) continue;
-      float v = acc[i][j] + bias[n];
+      float v = acc[i][j] + ld(bias, n);
       if (relu && v < 0.f) v = 0.f;
-      y[out + n] = v;
+      st(y, out + n, v);
     }
   }
 }
@@ -201,9 +228,10 @@ constexpr int kTbHm = (kTbT + 2) * kTbS * (kTbS + 2) * kTbK;        // H-max
 constexpr int kTbSmemFloats = kTbXs + kTbHm + kTbK * kTbPsLd + kTbK * kTbN;
 constexpr int kTbSmemBytes = kTbSmemFloats * 4;
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-fpc_tblock_fwd(const float* __restrict__ x, const float* __restrict__ wgt,
-               const float* __restrict__ bias, float* __restrict__ y, Geom g, int relu,
+fpc_tblock_fwd(const T* __restrict__ x, const T* __restrict__ wgt,
+               const T* __restrict__ bias, T* __restrict__ y, Geom g, int relu,
                int tiles_w, int tchunks) {
   extern __shared__ float smem[];
   float* xs = smem;        // [T+2][6][6][K]; then the W-max [T+2][4][4][K]
@@ -235,12 +263,12 @@ fpc_tblock_fwd(const float* __restrict__ x, const float* __restrict__ wgt,
       const int h = h0 - 1 + (p / 6) % 6;
       const int w = w0 - 1 + p % 6;
       const int k = k0 + c;
-      xs[e] = (inside(g, t, h, w) && k < g.cin) ? x[voxel(g, b, t, h, w) * g.cin + k] : 0.f;
+      xs[e] = (inside(g, t, h, w) && k < g.cin) ? ld(x, voxel(g, b, t, h, w) * g.cin + k) : 0.f;
     }
     for (int e = threadIdx.x; e < kTbK * kTbN; e += kThreads) {
       const int k = k0 + e / kTbN;
       const int n = col0 + e % kTbN;
-      ws[e] = (k < g.cin && n < g.cout) ? wgt[static_cast<long long>(k) * g.cout + n] : 0.f;
+      ws[e] = (k < g.cin && n < g.cout) ? ld(wgt, static_cast<long long>(k) * g.cout + n) : 0.f;
     }
     __syncthreads();
     // max over H: hm[a][hh][v] = max of xs[a][hh .. hh + 2][v]
@@ -302,9 +330,9 @@ fpc_tblock_fwd(const float* __restrict__ x, const float* __restrict__ wgt,
     for (int j = 0; j < 4; ++j) {
       const int n = col0 + tx + 16 * j;
       if (n >= g.cout) continue;
-      float v = acc[i][j] + bias[n];
+      float v = acc[i][j] + ld(bias, n);
       if (relu && v < 0.f) v = 0.f;
-      y[out + n] = v;
+      st(y, out + n, v);
     }
   }
 }
@@ -327,12 +355,13 @@ constexpr int kBSmemFloats =
     kBX * kBX * kBK + 9 * kBPlane + kBJ * kBGsLd + kBJ * kBWtLd;
 constexpr int kBSmemBytes = kBSmemFloats * 4;
 
+template <typename T>
 struct BwdArgs {
-  const float* x;
-  const float* y;
-  const float* g;
-  const float* w;
-  float* dx;
+  const T* x;
+  const T* y;
+  const T* g;
+  const T* w;
+  T* dx;
   Geom geo;
   int relu;
 };
@@ -341,7 +370,8 @@ __device__ __forceinline__ int ring(int i) { return ((i % 3) + 3) % 3; }
 
 // dx over frames [f0, f1) of one (b, 8 x 8 tile at (h0, w0), channels k0..)
 // block, walking frames f0-2 .. f1+1: see the note at the top of the file.
-__device__ void bwd_walk(const BwdArgs& a, float* smem, int b, int h0, int w0, int k0,
+template <typename T>
+__device__ void bwd_walk(const BwdArgs<T>& a, float* smem, int b, int h0, int w0, int k0,
                          int f0, int f1) {
   const Geom& g = a.geo;
   float* xst = smem;                     // [12 * 12][K]  x of one frame
@@ -362,7 +392,7 @@ __device__ void bwd_walk(const BwdArgs& a, float* smem, int b, int h0, int w0, i
         const int h = h0 - 2 + p / kBX;
         const int w = w0 - 2 + p % kBX;
         const int k = k0 + c;
-        xst[e] = (inside(g, i, h, w) && k < g.cin) ? a.x[voxel(g, b, i, h, w) * g.cin + k] : 0.f;
+        xst[e] = (inside(g, i, h, w) && k < g.cin) ? ld(a.x, voxel(g, b, i, h, w) * g.cin + k) : 0.f;
       }
     }
     __syncthreads();
@@ -413,8 +443,8 @@ __device__ void bwd_walk(const BwdArgs& a, float* smem, int b, int h0, int w0, i
           float v = 0.f;
           if (p < kBP && j < g.cout && inside(g, f, h, w)) {
             const long long o = voxel(g, b, f, h, w) * g.cout + j;
-            v = a.g[o];
-            if (a.relu && a.y[o] == 0.f) v = 0.f;
+            v = ld(a.g, o);
+            if (a.relu && ld(a.y, o) == 0.f) v = 0.f;
           }
           gs[jj * kBGsLd + p] = v;
         }
@@ -424,7 +454,7 @@ __device__ void bwd_walk(const BwdArgs& a, float* smem, int b, int h0, int w0, i
           const int j = j0 + jj;
           const int k = k0 + c;
           wt[jj * kBWtLd + c] =
-              (j < g.cout && k < g.cin) ? a.w[static_cast<long long>(k) * g.cout + j] : 0.f;
+              (j < g.cout && k < g.cin) ? ld(a.w, static_cast<long long>(k) * g.cout + j) : 0.f;
         }
         __syncthreads();
 #pragma unroll
@@ -465,7 +495,7 @@ __device__ void bwd_walk(const BwdArgs& a, float* smem, int b, int h0, int w0, i
         const int h = h0 + hl;
         if (k >= g.cin || h >= g.h || w >= g.w) continue;
         const long long o = voxel(g, b, fg, h, w) * g.cin + k;
-        const float xv = a.x[o];
+        const float xv = ld(a.x, o);
         float acc = 0.f;
         for (int dt = -1; dt <= 1; ++dt) {
           const int tt = fg + dt;
@@ -481,22 +511,24 @@ __device__ void bwd_walk(const BwdArgs& a, float* smem, int b, int h0, int w0, i
             }
           }
         }
-        a.dx[o] = acc;
+        st(a.dx, o, acc);
       }
     }
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-fpc_frame_bwd(BwdArgs a, int tiles_w) {
+fpc_frame_bwd(BwdArgs<T> a, int tiles_w) {
   extern __shared__ float smem[];
   const int t = blockIdx.z % a.geo.t;
   bwd_walk(a, smem, blockIdx.z / a.geo.t, (blockIdx.x / tiles_w) * kBS,
            (blockIdx.x % tiles_w) * kBS, blockIdx.y * kBK, t, t + 1);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-fpc_tblock_bwd(BwdArgs a, int tiles_w) {
+fpc_tblock_bwd(BwdArgs<T> a, int tiles_w) {
   extern __shared__ float smem[];
   bwd_walk(a, smem, blockIdx.z, (blockIdx.x / tiles_w) * kBS, (blockIdx.x % tiles_w) * kBS,
            blockIdx.y * kBK, 0, a.geo.t);
@@ -512,81 +544,109 @@ int check_geometry(const Geom& g) {
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-}  // namespace
-
-// y (b, t, h, w, cout) = act(pool(x) @ w + bias), per-frame kernel. x (b, t,
-// h, w, cin), w (cin, cout), bias (cout,): contiguous float32 on the current
-// device. Launches on `stream`; returns cudaGetLastError() (0 on success).
-extern "C" int fused_pool_conv_fwd_f32(const float* x, const float* w, const float* bias,
-                                       float* y, int b, int t, int h, int wd, int cin,
-                                       int cout, int relu, void* stream) {
+template <typename T>
+int launch_fwd(bool tblock, const T* x, const T* w, const T* bias, T* y, int b, int t, int h,
+               int wd, int cin, int cout, int relu, void* stream) {
   const Geom g{b, t, h, wd, cin, cout};
   int rc = check_geometry(g);
-  if (rc != 0 || static_cast<long long>(b) * t > 65535) {
-    return rc != 0 ? rc : static_cast<int>(cudaErrorInvalidValue);
+  if (rc != 0) return rc;
+  const auto cs = static_cast<cudaStream_t>(stream);
+  if (!tblock) {
+    if (static_cast<long long>(b) * t > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid(ceil_div(h * wd, kTileM), ceil_div(cout, kTileN), b * t);
+    fpc_frame_fwd<T><<<grid, kThreads, 0, cs>>>(x, w, bias, y, g, relu);
+    return static_cast<int>(cudaGetLastError());
   }
-  const dim3 grid(ceil_div(h * wd, kTileM), ceil_div(cout, kTileN), b * t);
-  fpc_frame_fwd<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(x, w, bias, y, g,
-                                                                          relu);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// As fused_pool_conv_fwd_f32, with the whole-sample kernel.
-extern "C" int fused_pool_conv_tblock_fwd_f32(const float* x, const float* w,
-                                              const float* bias, float* y, int b, int t,
-                                              int h, int wd, int cin, int cout, int relu,
-                                              void* stream) {
-  const Geom g{b, t, h, wd, cin, cout};
   const int tchunks = ceil_div(t, kTbT);
-  int rc = check_geometry(g);
-  if (rc != 0 || static_cast<long long>(b) * tchunks > 65535) {
-    return rc != 0 ? rc : static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (static_cast<long long>(b) * tchunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
   rc = static_cast<int>(cudaFuncSetAttribute(
-      fpc_tblock_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, kTbSmemBytes));
+      fpc_tblock_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kTbSmemBytes));
   if (rc != 0) return rc;
   const int tiles_w = ceil_div(wd, kTbS);
   const dim3 grid(ceil_div(h, kTbS) * tiles_w, ceil_div(cout, kTbN), b * tchunks);
-  fpc_tblock_fwd<<<grid, kThreads, kTbSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      x, w, bias, y, g, relu, tiles_w, tchunks);
+  fpc_tblock_fwd<T><<<grid, kThreads, kTbSmemBytes, cs>>>(x, w, bias, y, g, relu, tiles_w,
+                                                          tchunks);
   return static_cast<int>(cudaGetLastError());
 }
 
-namespace {
-
-int launch_bwd(bool tblock, const float* x, const float* y, const float* gy, const float* w,
-               float* dx, int b, int t, int h, int wd, int cin, int cout, int relu,
-               void* stream) {
+template <typename T>
+int launch_bwd(bool tblock, const T* x, const T* y, const T* gy, const T* w, T* dx, int b,
+               int t, int h, int wd, int cin, int cout, int relu, void* stream) {
   const Geom g{b, t, h, wd, cin, cout};
   const long long planes = tblock ? b : static_cast<long long>(b) * t;
   int rc = check_geometry(g);
   if (rc != 0 || planes > 65535) return rc != 0 ? rc : static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = tblock ? fpc_tblock_bwd : fpc_frame_bwd;
+  auto kernel = tblock ? fpc_tblock_bwd<T> : fpc_frame_bwd<T>;
   rc = static_cast<int>(
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBSmemBytes));
   if (rc != 0) return rc;
   const int tiles_w = ceil_div(wd, kBS);
   const dim3 grid(ceil_div(h, kBS) * tiles_w, ceil_div(cin, kBK), static_cast<unsigned>(planes));
-  const BwdArgs args{x, y, gy, w, dx, g, relu};
+  const BwdArgs<T> args{x, y, gy, w, dx, g, relu};
   kernel<<<grid, kThreads, kBSmemBytes, static_cast<cudaStream_t>(stream)>>>(args, tiles_w);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dx (b, t, h, w, cin) = the input gradient of fused_pool_conv_fwd_f32 given
-// its input x, its output y and the gradient gy of y (both (b, t, h, w,
-// cout)); w (cin, cout). Per-frame kernel. Returns cudaGetLastError().
+// y (b, t, h, w, cout) = act(pool(x) @ w + bias), per-frame kernel. x (b, t,
+// h, w, cin), w (cin, cout), bias (cout,): contiguous, all of one dtype
+// (float32, or bfloat16 for the _bf16 entries), on the current device.
+// Launches on `stream`; returns cudaGetLastError() (0 on success). The
+// _tblock_ entries run the whole-sample kernels.
+extern "C" int fused_pool_conv_fwd_f32(const float* x, const float* w, const float* bias,
+                                       float* y, int b, int t, int h, int wd, int cin,
+                                       int cout, int relu, void* stream) {
+  return launch_fwd(false, x, w, bias, y, b, t, h, wd, cin, cout, relu, stream);
+}
+
+extern "C" int fused_pool_conv_tblock_fwd_f32(const float* x, const float* w,
+                                              const float* bias, float* y, int b, int t,
+                                              int h, int wd, int cin, int cout, int relu,
+                                              void* stream) {
+  return launch_fwd(true, x, w, bias, y, b, t, h, wd, cin, cout, relu, stream);
+}
+
+extern "C" int fused_pool_conv_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                                        const __nv_bfloat16* bias, __nv_bfloat16* y, int b,
+                                        int t, int h, int wd, int cin, int cout, int relu,
+                                        void* stream) {
+  return launch_fwd(false, x, w, bias, y, b, t, h, wd, cin, cout, relu, stream);
+}
+
+extern "C" int fused_pool_conv_tblock_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                                               const __nv_bfloat16* bias, __nv_bfloat16* y,
+                                               int b, int t, int h, int wd, int cin, int cout,
+                                               int relu, void* stream) {
+  return launch_fwd(true, x, w, bias, y, b, t, h, wd, cin, cout, relu, stream);
+}
+
+// dx (b, t, h, w, cin) = the input gradient of the forward given its input
+// x, its output y and the gradient gy of y (both (b, t, h, w, cout)); w
+// (cin, cout); one dtype throughout. Returns cudaGetLastError().
 extern "C" int fused_pool_conv_bwd_f32(const float* x, const float* y, const float* gy,
                                        const float* w, float* dx, int b, int t, int h,
                                        int wd, int cin, int cout, int relu, void* stream) {
   return launch_bwd(false, x, y, gy, w, dx, b, t, h, wd, cin, cout, relu, stream);
 }
 
-// As fused_pool_conv_bwd_f32, with the whole-sample kernel.
 extern "C" int fused_pool_conv_tblock_bwd_f32(const float* x, const float* y,
                                               const float* gy, const float* w, float* dx,
                                               int b, int t, int h, int wd, int cin, int cout,
                                               int relu, void* stream) {
+  return launch_bwd(true, x, y, gy, w, dx, b, t, h, wd, cin, cout, relu, stream);
+}
+
+extern "C" int fused_pool_conv_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* y,
+                                        const __nv_bfloat16* gy, const __nv_bfloat16* w,
+                                        __nv_bfloat16* dx, int b, int t, int h, int wd,
+                                        int cin, int cout, int relu, void* stream) {
+  return launch_bwd(false, x, y, gy, w, dx, b, t, h, wd, cin, cout, relu, stream);
+}
+
+extern "C" int fused_pool_conv_tblock_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* y,
+                                               const __nv_bfloat16* gy, const __nv_bfloat16* w,
+                                               __nv_bfloat16* dx, int b, int t, int h, int wd,
+                                               int cin, int cout, int relu, void* stream) {
   return launch_bwd(true, x, y, gy, w, dx, b, t, h, wd, cin, cout, relu, stream);
 }

@@ -16,6 +16,11 @@ Eval only: dropout is the identity and ``forward`` raises in training
 mode (training is not ported). The JAX model's ``use_scan`` / ``remat``
 choose how XLA compiles the recurrence; PyTorch runs eagerly, so the port
 always runs the Python time loop and has neither.
+
+A model cast to bfloat16 (every parameter and buffer) runs as the JAX
+model does on its bf16 variables: the cell's convs cast their input to
+bf16 and give bf16 gates, while the state ``(h, c)`` keeps the clip's
+float32, and BN and the head compute in float32 over bf16 parameters.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ivf_tpu_torch.models.layers import TorchBatchNorm, variance_scaling_
 from ivf_tpu_torch.ops.conv import avg_pool2d_valid, max_pool2d_valid
@@ -35,6 +41,13 @@ KernelSize = Union[int, Tuple[int, int]]
 
 def _pair(k: KernelSize) -> Tuple[int, int]:
     return (k, k) if isinstance(k, int) else tuple(k)
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.Dense``: input, kernel and bias promoted to one dtype
+    (float32 features over bfloat16 parameters compute in float32)."""
+    dtype = torch.promote_types(x.dtype, layer.weight.dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
 def _effective(steps: Sequence[int], t: int) -> list:
@@ -303,11 +316,11 @@ class ConvLSTMClassifier(nn.Module):
         outputs, clstm_output, block_seq = self.clstm(clip, feature_offset)
         b = clip.shape[0]
         if self.head == "gap":
-            out = self.gap_conv(block_seq.mean(dim=1).mean(dim=(1, 2)))
+            out = _dense(self.gap_conv, block_seq.mean(dim=1).mean(dim=(1, 2)))
         elif self.use_entire_seq:
-            out = self.end_fc(outputs.transpose(0, 1).reshape(b, -1))
+            out = _dense(self.end_fc, outputs.transpose(0, 1).reshape(b, -1))
         else:
-            out = self.end_fc(outputs[-1].reshape(b, -1))
+            out = _dense(self.end_fc, outputs[-1].reshape(b, -1))
         if self.add_softmax:
             out = torch.softmax(out, dim=-1)
         return out, clstm_output

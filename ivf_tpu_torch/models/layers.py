@@ -160,8 +160,9 @@ class InceptionModule(nn.Module):
     (``ops/kernels/fused_branch3.py``, same tie rule); ``'tblock'`` takes
     the whole-sample kernels, any other true value the per-frame ones. It
     takes precedence over ``pallas_pool`` and over ``use_pallas`` for b3b;
-    with BN unfolded the branch runs unfused, as in JAX. Its kernels take
-    float32 only: a bfloat16 input raises ``TypeError`` on any device.
+    with BN unfolded the branch runs unfused, as in JAX. In bfloat16 the
+    fused kernels take the bf16 activations and folded weights and sum in
+    float32, rounding once (the Pallas kernels' bf16 path).
     ``pool_impl`` is the unfused branch-3 pool's (``max_pool3d_same``).
     """
 
@@ -215,11 +216,6 @@ class InceptionModule(nn.Module):
         b1 = self.b1b(b1)
         b2 = self.b2b(b2)
         if self.fuse_pool_conv and self.b3b.folding:
-            if x.dtype != torch.float32:
-                raise TypeError(
-                    f"fuse_pool_conv: {x.dtype} activations; the fused branch-3 "
-                    "kernels take float32 (bfloat16: ROADMAP.md, Queue 2)"
-                )
             fused = fused_pool_conv_tblock if self.fuse_pool_conv == "tblock" else fused_pool_conv
             w3, c3 = self.b3b.folded()
             cin = x.shape[-1]

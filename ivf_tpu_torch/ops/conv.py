@@ -240,13 +240,20 @@ def conv2d_same_torch(
     (``(0, 0)`` for Keras 'valid').
 
     x: (B, H, W, Cin); weight: (Cout, Cin, kH, kW), rectangular allowed
-    -> (B, H', W', Cout).
+    -> (B, H', W', Cout). The input is cast to the weight's dtype and the
+    output is in it (``ivf_tpu/ops/conv.py:91-101``).
     """
     if torch_padding is None:
         torch_padding = ((weight.shape[2] - 1) // 2, (weight.shape[3] - 1) // 2)
     elif isinstance(torch_padding, int):
         torch_padding = (torch_padding, torch_padding)
-    y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, stride=stride, padding=tuple(torch_padding))
+    x = x.to(weight.dtype).permute(0, 3, 1, 2)
+    # in bfloat16 JAX rounds the conv before it adds the bias, and so does
+    # the port; float32 keeps the bias inside the conv
+    split = bias is not None and weight.dtype == torch.bfloat16
+    y = F.conv2d(x, weight, None if split else bias, stride=stride, padding=tuple(torch_padding))
+    if split:
+        y = y + bias[:, None, None]
     return y.permute(0, 2, 3, 1)
 
 

@@ -21,13 +21,24 @@ from typing import Optional, Tuple
 import torch
 
 from ivf_tpu_torch.ops.conv import conv2d_same_torch
-from ivf_tpu_torch.ops.kernels.fused_gates import gate_math
+from ivf_tpu_torch.ops.kernels.fused_gates import gate_math, mixed_gate_forward, sigmoid_bf16
 
 
 def keras_hard_sigmoid(x: torch.Tensor) -> torch.Tensor:
     """Keras's hard_sigmoid, ``clip(0.2 x + 0.5, 0, 1)``: slope 0.2, NOT
     ``F.hardsigmoid`` (slope 1/6)."""
     return torch.clamp(0.2 * x + 0.5, 0.0, 1.0)
+
+
+_SLOPE_BF16 = float(torch.tensor(0.2).bfloat16())  # JAX's weak-typed 0.2 in bf16
+
+
+def _hard_sigmoid_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Keras's hard sigmoid in bfloat16 as XLA computes it on float32-held
+    bf16 values (the slope rounded to bf16, each op rounded): exact in
+    bf16, so its last rounding is a no-op."""
+    t = (_SLOPE_BF16 * x).bfloat16().float()
+    return torch.clamp((t + 0.5).bfloat16().float(), 0.0, 1.0)
 
 
 def fused_gate_math(
@@ -38,7 +49,12 @@ def fused_gate_math(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The gate block in plain PyTorch. gates_*: (..., 4 Ch) in (i, f, c, o)
     order, ``gates_h`` None when the x- and h-convs were merged. Returns
-    (h', c')."""
+    (h', c') in c's dtype. bfloat16 gates with a float32 c (the JAX
+    package's bf16 search) round where XLA rounds that jnp math
+    (``fused_gates.mixed_gate_forward``)."""
+    if gates_x.dtype == torch.bfloat16 and c.dtype == torch.float32:
+        act = _hard_sigmoid_bf16 if recurrent_activation == "hard_sigmoid" else sigmoid_bf16
+        return mixed_gate_forward(gates_x, gates_h, c, act)
     hidden = c.shape[-1]
     z = gates_x if gates_h is None else gates_x + gates_h
     zi, zf, zc, zo = torch.split(z, hidden, dim=-1)

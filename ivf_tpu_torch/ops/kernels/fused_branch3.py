@@ -16,6 +16,16 @@ device memory; on CPU tensors both run the plain versions below, the
 pool's plain versions around a matmul. ``dw`` and ``db`` are plain
 PyTorch outside the kernels, as in JAX, from a recomputed pool, and only
 when autograd asks for them: the mask search freezes the weights.
+
+bfloat16 (x, w, b all bf16, as I3D hands them over in the bf16 search):
+the forward pools exactly in bf16, sums the bf16 products in float32,
+adds the bias in float32, applies the ReLU and rounds once to bf16; the
+backward runs the float32 computation on the exact float32 values of the
+bf16 ``g``, ``w`` and ``x`` (the ReLU mask taken on the bf16 ``y``) and
+rounds ``dx`` once; ``dw`` and ``db`` are summed in float32 and cast to
+the parameters' dtypes (``ivf_tpu/ops/pallas/fused_branch3.py:57-118,
+240-245``). Each kernel has a ``_bf16`` entry with its own launch
+counter.
 """
 
 from __future__ import annotations
@@ -49,16 +59,19 @@ def fused_pool_conv_bwd_plain(
     x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, w: torch.Tensor, relu: bool
 ) -> torch.Tensor:
     """Plain input gradient: ``gc = (g * [y != 0]) @ w^T``, then the pool's
-    plain gather against the recomputed pool."""
-    m = _relu_mask(y, g) if relu else g
-    gc = (m.reshape(-1, w.shape[1]) @ w.t().contiguous()).reshape(x.shape)
-    return maxpool3d_s1_bwd_plain(x, maxpool3d_s1_fwd_plain(x), gc)
+    plain gather against the recomputed pool, in float32 (bfloat16
+    operands are widened exactly and ``dx`` is rounded once)."""
+    m = (_relu_mask(y, g) if relu else g).float()
+    xf = x.float()
+    gc = (m.reshape(-1, w.shape[1]) @ w.float().t().contiguous()).reshape(x.shape)
+    return maxpool3d_s1_bwd_plain(xf, maxpool3d_s1_fwd_plain(xf), gc).to(x.dtype)
 
 
 def _weight_grads(x, y, g, relu):
-    """(dw, db) from a recomputed pool (the JAX package's ``_vjp_bwd``)."""
-    ge = _relu_mask(y, g) if relu else g
-    dw = torch.einsum("bthwi,bthwo->io", maxpool3d_s1_fwd_plain(x), ge)
+    """(dw, db) in float32 from a recomputed pool (the JAX package's
+    ``_vjp_bwd``); the caller casts them to the parameters' dtypes."""
+    ge = (_relu_mask(y, g) if relu else g).float()
+    dw = torch.einsum("bthwi,bthwo->io", maxpool3d_s1_fwd_plain(x).float(), ge)
     return dw, ge.sum(dim=(0, 1, 2, 3))
 
 
@@ -66,13 +79,18 @@ def _weight_grads(x, y, g, relu):
 def _lib() -> ctypes.CDLL:
     lib = build.library("fused_branch3")
     dims = [ctypes.c_int] * 7  # b, t, h, w, cin, cout, relu
-    for name in ("fused_pool_conv_fwd_f32", "fused_pool_conv_tblock_fwd_f32"):
-        getattr(lib, name).argtypes = [ctypes.c_void_p] * 4 + dims + [ctypes.c_void_p]
-        getattr(lib, name).restype = ctypes.c_int
-    for name in ("fused_pool_conv_bwd_f32", "fused_pool_conv_tblock_bwd_f32"):
-        getattr(lib, name).argtypes = [ctypes.c_void_p] * 5 + dims + [ctypes.c_void_p]
-        getattr(lib, name).restype = ctypes.c_int
+    for variant in ("", "tblock_"):
+        for suffix in ("f32", "bf16"):
+            fwd = getattr(lib, f"fused_pool_conv_{variant}fwd_{suffix}")
+            fwd.argtypes = [ctypes.c_void_p] * 4 + dims + [ctypes.c_void_p]
+            fwd.restype = ctypes.c_int
+            bwd = getattr(lib, f"fused_pool_conv_{variant}bwd_{suffix}")
+            bwd.argtypes = [ctypes.c_void_p] * 5 + dims + [ctypes.c_void_p]
+            bwd.restype = ctypes.c_int
     return lib
+
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def _check_cuda_operands(x, w, b=None, *out_like) -> None:
@@ -81,13 +99,15 @@ def _check_cuda_operands(x, w, b=None, *out_like) -> None:
             f"fused_pool_conv: x {tuple(x.shape)}, w {tuple(w.shape)} are not "
             "(B, T, H, W, Cin), (Cin, Cout)"
         )
+    if x.dtype not in _SUFFIX:
+        raise TypeError(f"fused_pool_conv: x is {x.dtype}; the kernels take float32 or bfloat16")
     named = [("x", x), ("w", w)] + ([("b", b)] if b is not None else [])
     named += [(f"y/g{k}", t) for k, t in enumerate(out_like)]
     for name, t in named:
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"fused_pool_conv: {name} must be on {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"fused_pool_conv: {name} is {t.dtype}; the kernel takes float32")
+        if t.dtype != x.dtype:
+            raise TypeError(f"fused_pool_conv: {name} is {t.dtype}; x is {x.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"fused_pool_conv: {name} must be contiguous")
     if b is not None and tuple(b.shape) != (w.shape[1],):
@@ -97,9 +117,11 @@ def _check_cuda_operands(x, w, b=None, *out_like) -> None:
             raise ValueError(f"fused_pool_conv: y/g {tuple(t.shape)} is not (B, T, H, W, Cout)")
 
 
-def _launch_fwd(symbol, counter, x, w, b, relu):
+def _launch_fwd(symbol, dtype, counter, x, w, b, relu):
     _check_cuda_operands(x, w, b)
-    y = torch.empty((*x.shape[:-1], w.shape[1]), device=x.device, dtype=torch.float32)
+    if x.dtype != dtype:
+        raise TypeError(f"{symbol}: x is {x.dtype}; this entry takes {dtype}")
+    y = torch.empty((*x.shape[:-1], w.shape[1]), device=x.device, dtype=dtype)
     if y.numel() == 0:
         return y
     rc = getattr(_lib(), symbol)(
@@ -112,8 +134,10 @@ def _launch_fwd(symbol, counter, x, w, b, relu):
     return y
 
 
-def _launch_bwd(symbol, counter, x, y, g, w, relu):
+def _launch_bwd(symbol, dtype, counter, x, y, g, w, relu):
     _check_cuda_operands(x, w, None, y, g)
+    if x.dtype != dtype:
+        raise TypeError(f"{symbol}: x is {x.dtype}; this entry takes {dtype}")
     dx = torch.empty_like(x)
     if x.numel() == 0 or y.numel() == 0:
         return dx.zero_()
@@ -127,46 +151,43 @@ def _launch_bwd(symbol, counter, x, y, g, w, relu):
     return dx
 
 
-def fused_pool_conv_fwd_cuda(x, w, b, relu: bool) -> torch.Tensor:
-    """Launch the per-frame forward kernel; counts in ``.launches``."""
-    return _launch_fwd("fused_pool_conv_fwd_f32", fused_pool_conv_fwd_cuda, x, w, b, relu)
+def _entry(direction: str, variant: str, dtype: torch.dtype):
+    """The counted launch wrapper of one kernel entry, e.g.
+    ``fused_pool_conv_tblock_bwd_bf16``."""
+    symbol = f"fused_pool_conv_{variant}{direction}_{_SUFFIX[dtype]}"
+    launch = _launch_fwd if direction == "fwd" else _launch_bwd
+
+    def fn(x, *args):
+        return launch(symbol, dtype, fn, x, *args)
+
+    bf16 = "_bf16" if dtype == torch.bfloat16 else ""
+    fn.__name__ = fn.__qualname__ = f"fused_pool_conv_{variant}{direction}{bf16}_cuda"
+    fn.__doc__ = f"Launch ``{symbol}``; counts in ``.launches``."
+    fn.launches = 0
+    return fn
 
 
-def fused_pool_conv_bwd_cuda(x, y, g, w, relu: bool) -> torch.Tensor:
-    """Launch the per-frame input-gradient kernel; counts in ``.launches``."""
-    return _launch_bwd("fused_pool_conv_bwd_f32", fused_pool_conv_bwd_cuda, x, y, g, w, relu)
+# fwd: (x, w, b, relu) -> y; bwd: (x, y, g, w, relu) -> dx
+fused_pool_conv_fwd_cuda = _entry("fwd", "", torch.float32)
+fused_pool_conv_bwd_cuda = _entry("bwd", "", torch.float32)
+fused_pool_conv_tblock_fwd_cuda = _entry("fwd", "tblock_", torch.float32)
+fused_pool_conv_tblock_bwd_cuda = _entry("bwd", "tblock_", torch.float32)
+fused_pool_conv_fwd_bf16_cuda = _entry("fwd", "", torch.bfloat16)
+fused_pool_conv_bwd_bf16_cuda = _entry("bwd", "", torch.bfloat16)
+fused_pool_conv_tblock_fwd_bf16_cuda = _entry("fwd", "tblock_", torch.bfloat16)
+fused_pool_conv_tblock_bwd_bf16_cuda = _entry("bwd", "tblock_", torch.bfloat16)
 
 
-def fused_pool_conv_tblock_fwd_cuda(x, w, b, relu: bool) -> torch.Tensor:
-    """Launch the whole-sample forward kernel; counts in ``.launches``."""
-    return _launch_fwd(
-        "fused_pool_conv_tblock_fwd_f32", fused_pool_conv_tblock_fwd_cuda, x, w, b, relu
-    )
+def _function(name: str, kernels):
+    """The autograd Function of one variant: ``kernels[dtype]`` = (fwd,
+    bwd) launch wrappers on CUDA tensors, the plain versions on CPU
+    tensors, no other device."""
 
-
-def fused_pool_conv_tblock_bwd_cuda(x, y, g, w, relu: bool) -> torch.Tensor:
-    """Launch the whole-sample input-gradient kernel; counts in ``.launches``."""
-    return _launch_bwd(
-        "fused_pool_conv_tblock_bwd_f32", fused_pool_conv_tblock_bwd_cuda, x, y, g, w, relu
-    )
-
-
-for _fn in (
-    fused_pool_conv_fwd_cuda,
-    fused_pool_conv_bwd_cuda,
-    fused_pool_conv_tblock_fwd_cuda,
-    fused_pool_conv_tblock_bwd_cuda,
-):
-    _fn.launches = 0
-
-
-def _function(name: str, fwd_cuda, bwd_cuda):
-    """The autograd Function of one variant: its kernels on CUDA tensors,
-    the plain versions on CPU tensors, no other device."""
-
-    def route(x, cuda_fn, plain_fn, *args):
+    def route(x, direction, plain_fn, *args):
         if x.is_cuda:
-            return cuda_fn(x, *args)
+            if x.dtype not in kernels:
+                raise TypeError(f"{name}: no kernel for {x.dtype}")
+            return kernels[x.dtype][direction](x, *args)
         if x.device.type == "cpu":
             return plain_fn(x, *args)
         raise RuntimeError(f"{name}: no kernel for device {x.device}")
@@ -174,8 +195,9 @@ def _function(name: str, fwd_cuda, bwd_cuda):
     class Fn(torch.autograd.Function):
         @staticmethod
         def forward(ctx, x, w, b, relu):
-            y = route(x, fwd_cuda, fused_pool_conv_plain, w, b, relu)
+            y = route(x, 0, fused_pool_conv_plain, w, b, relu)
             ctx.relu = relu
+            ctx.b_dtype = b.dtype
             ctx.save_for_backward(x, y, w)
             return y
 
@@ -185,20 +207,30 @@ def _function(name: str, fwd_cuda, bwd_cuda):
             g = g.contiguous()
             dx = dw = db = None
             if ctx.needs_input_grad[0]:
-                dx = route(x, bwd_cuda, fused_pool_conv_bwd_plain, y, g, w, ctx.relu)
+                dx = route(x, 1, fused_pool_conv_bwd_plain, y, g, w, ctx.relu)
             if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
                 dw, db = _weight_grads(x, y, g, ctx.relu)
-                dw = dw if ctx.needs_input_grad[1] else None
-                db = db if ctx.needs_input_grad[2] else None
+                dw = dw.to(w.dtype) if ctx.needs_input_grad[1] else None
+                db = db.to(ctx.b_dtype) if ctx.needs_input_grad[2] else None
             return dx, dw, db, None
 
     Fn.__name__ = Fn.__qualname__ = name
     return Fn
 
 
-_FusedPoolConv = _function("fused_pool_conv", fused_pool_conv_fwd_cuda, fused_pool_conv_bwd_cuda)
+_FusedPoolConv = _function(
+    "fused_pool_conv",
+    {
+        torch.float32: (fused_pool_conv_fwd_cuda, fused_pool_conv_bwd_cuda),
+        torch.bfloat16: (fused_pool_conv_fwd_bf16_cuda, fused_pool_conv_bwd_bf16_cuda),
+    },
+)
 _FusedPoolConvTBlock = _function(
-    "fused_pool_conv_tblock", fused_pool_conv_tblock_fwd_cuda, fused_pool_conv_tblock_bwd_cuda
+    "fused_pool_conv_tblock",
+    {
+        torch.float32: (fused_pool_conv_tblock_fwd_cuda, fused_pool_conv_tblock_bwd_cuda),
+        torch.bfloat16: (fused_pool_conv_tblock_fwd_bf16_cuda, fused_pool_conv_tblock_bwd_bf16_cuda),
+    },
 )
 
 

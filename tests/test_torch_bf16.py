@@ -6,9 +6,10 @@ exact-float32 pin of the port's entry points.
   tied maxima, negative plateaus (where a zero-pad cell wins) and borders.
 * The bfloat16 plain versions of ``pointwise_conv`` and ``maxpool3d_s1``
   against the Pallas functions in interpret mode.
-* I3D logits and input gradient in bfloat16 on both routes (the default,
-  which becomes ``pool_impl='argmax'``, and ``use_pallas`` + ``pallas_pool``)
-  and ``find_masks`` on 8x32x32 clips, against the JAX package.
+* I3D logits and input gradient in bfloat16 on four routes (the default,
+  which becomes ``pool_impl='argmax'``; ``use_pallas`` + ``pallas_pool``;
+  ``use_pallas`` + ``fuse_pool_conv`` per frame and ``'tblock'``) and
+  ``find_masks`` on 8x32x32 clips, against the JAX package.
 * The bf16 upgrade rule, what stays unported, and that ``find_masks``
   leaves the caller's TF32 flags as it found them.
 
@@ -43,7 +44,12 @@ from ivf_tpu_torch.utils.convert import i3d_variables_to_state_dict
 
 SHAPE = (1, 8, 32, 32, 3)
 SMALL = dict(num_classes=5, pool_shape=(1, 1, 1))
-ROUTES = {"default": {}, "kernels": dict(use_pallas=True, pallas_pool=True)}
+ROUTES = {
+    "default": {},
+    "kernels": dict(use_pallas=True, pallas_pool=True),
+    "fused": dict(use_pallas=True, fuse_pool_conv=True),
+    "tblock": dict(use_pallas=True, fuse_pool_conv="tblock"),
+}
 
 
 def _bits(a) -> np.ndarray:
@@ -189,8 +195,9 @@ def weights():
 def test_i3d_bf16_logits_and_input_gradient_match_jax(weights, route):
     """Logits within 1e-2 of the largest logit (the JAX package's own bf16
     bound against torch, scripts/tpu_parity_check.py:102-106; measured
-    4.5e-3 and 2.3e-3). The input gradient in relative L2 norm within 0.35
-    (measured 0.246 on both routes): bfloat16 rounds the activations into
+    4.5e-3 default, 2.3e-3 kernels, fused and tblock). The input gradient
+    in relative L2 norm within 0.35 (measured 0.246 on the first two
+    routes, 0.245 on the fused ones): bfloat16 rounds the activations into
     new ties and flips some maxima of the trunk pools, so the two
     frameworks' gradients differ about as much as JAX's own bfloat16
     gradient differs from its float32 one (0.38 and 0.34 here)."""
@@ -326,7 +333,8 @@ def test_find_masks_bf16_matches_jax(jax_bf16_run, tmp_path, route):
     normalized per frame to [0, 1]: atol 0.25 (measured 0.16 on both
     routes; JAX's own bfloat16 vs float32: 0.07): the activations and
     gradients at Mixed_4f differ by bfloat16 rounding, while the CAM
-    arithmetic itself agrees to 2**-7 (test above). Predictions agree."""
+    arithmetic itself agrees to 2**-7 (test above). Predictions agree.
+    The fused routes are held to the same bounds."""
     tm, gc, built = _port_find_masks(tmp_path, jax_bf16_run["sd"], **ROUTES[route])
     assert built == [("argmax", torch.bfloat16)]
     names = sorted(p.name for p in (Path(tmp_path) / "fm" / "results").glob("*.p"))
@@ -364,34 +372,33 @@ def test_bf16_argmax_upgrade_copies_and_leaves_float32(dtype, impl, want):
     assert (out is cfg) == (want == impl)
 
 
-@pytest.mark.parametrize(
-    "changes,error",
-    [
-        (dict(conv_model="clstm_kth", num_classes=6), NotImplementedError),
-        (dict(use_pallas=True, fuse_pool_conv=True), TypeError),
-        (dict(use_pallas=True, fuse_pool_conv="tblock"), TypeError),
-    ],
-    ids=["convlstm", "fused_frame", "fused_tblock"],
-)
-def test_bf16_where_it_is_not_ported_raises(changes, error):
-    """bfloat16 on the ConvLSTM family and on the fused branch 3 raises;
-    nothing falls back to a plain version."""
+@pytest.mark.parametrize("impl", ["shift", "eqbwd", "argmax_full", "argmax_shift"])
+def test_bf16_where_it_is_not_ported_raises(impl):
+    """The pool impls the port lacks raise in bfloat16 (and in float32);
+    nothing falls back to another pool."""
     cfg = TConfig()
     cfg.model.compute_dtype = "bfloat16"
-    for name, value in changes.items():
-        setattr(cfg.model, name, value)
-    with pytest.raises(error):
+    cfg.model.pool_impl = impl
+    with pytest.raises(NotImplementedError, match="pool_impl"):
         tapi.build_model(cfg, device="cpu")
 
 
-def test_fused_branch3_layer_raises_on_bf16_activations():
-    """Built in float32 and cast afterwards, the fused route still refuses
-    bfloat16 on the CPU, where its plain version could have run."""
-    model = t_i3d_smth(**SMALL, use_pallas=True, fuse_pool_conv=True)
-    model.reset_parameters(torch.Generator().manual_seed(0))
-    model = model.to(torch.bfloat16).eval()
-    with pytest.raises(TypeError, match="fused branch-3"):
-        model(torch.zeros(SHAPE))
+@pytest.mark.parametrize("route", ["fused", "tblock"])
+def test_bf16_fused_routes_give_the_pool_kernel_routes_logits(weights, route):
+    """In bfloat16 the fused branch 3 computes what the unfused kernel pair
+    does forward (the exact bf16 pool, then float32 sums rounded once), so
+    the I3D logits of both fused routes equal the pool-kernel route's bits
+    on the CPU; no argmax pool runs on a fused route."""
+    _, sd = weights
+    x = torch.from_numpy(np.random.RandomState(3).uniform(0, 255, SHAPE).astype(np.float32))
+    logits = {}
+    for name in ("kernels", route):
+        model = t_i3d_smth(**SMALL, **ROUTES[name], pool_impl="argmax")
+        model.load_state_dict(sd)
+        model = model.to(torch.bfloat16).eval()
+        with torch.no_grad():
+            logits[name] = model(x)
+    assert torch.equal(logits[route].view(torch.int16), logits["kernels"].view(torch.int16))
 
 
 def _tf32_state():

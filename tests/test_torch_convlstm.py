@@ -1,4 +1,5 @@
-"""ivf_tpu_torch's ConvLSTM slice vs the JAX package, on the CPU.
+"""ivf_tpu_torch's ConvLSTM slice vs the JAX package, on the CPU, in float32
+and in bfloat16 (bf16 weights and gates, float32 state).
 
 The same numpy-drawn inputs and weights (carried across by
 ``utils.convert.convlstm_variables_to_state_dict``, BN statistics and
@@ -458,3 +459,231 @@ def test_find_masks_clstm_matches_jax(jax_clstm_run, tmp_path, use_pallas):
         assert set(got) == set(want)
         assert got["GCHeatMap"].shape == (8, 32, 32)
         np.testing.assert_allclose(got["GCHeatMap"], want["GCHeatMap"], atol=1e-4)
+
+
+# -- bfloat16: bf16 weights and gates, float32 state -------------------------
+#
+# The JAX package's bf16 search casts every float32 variable to bfloat16
+# (ivf_tpu/api.py:669-675). The cell's convs then run in bf16 (they cast
+# their input to the kernel's dtype) while the carry keeps the clip's
+# float32, so the gate block sees bf16 gates and a float32 c and returns
+# float32 h' and c'; BN and the head compute in float32 over bf16
+# parameters.
+
+
+def _jbf16(a):
+    return jnp.asarray(a).astype(jnp.bfloat16)
+
+
+def _tbf16(a):
+    return _t(np.asarray(a, np.float32)).bfloat16()
+
+
+def _rel(got, want):
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got, np.float32)
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+@pytest.mark.parametrize("with_gh", [True, False], ids=["split", "merged"])
+def test_bf16_gate_math_and_vjp_match_pallas(with_gh):
+    """bf16 gates (z ~ 3 N(0, 1)) and a float32 c through the port's gate
+    wrapper (its plain versions) against ``pallas_gate_math(interpret=True)``
+    and its VJP, 4096 rows. The plain versions round where XLA rounds (see
+    ``ops/kernels/fused_gates.py``), so what is left is float32
+    transcendentals of two libraries: measured h' 1.25e-7, c' 8.3e-8, dc
+    1.3e-7 of the largest value, held at 2.6e-7; dz (bf16) measured 2.8e-4
+    of its largest value (a few elements one bf16 rounding apart), held at
+    6e-4. Outputs are float32 and dz bfloat16, as in JAX."""
+    rng = np.random.RandomState(0)
+    shape, ch = (4, 32, 32), 4
+    gx, gh = rng.randn(*shape, 4 * ch) * 3, rng.randn(*shape, 4 * ch) * 2
+    c, cot_h, cot_c = (rng.randn(*shape, ch).astype(np.float32) for _ in range(3))
+
+    def f(a, b, c_):
+        return pallas_gate_math(a, b if with_gh else None, c_, interpret=True)
+
+    (jh, jc), vjp = jax.vjp(f, _jbf16(gx), _jbf16(gh), jnp.asarray(c))
+    jdgx, jdgh, jdc = vjp((jnp.asarray(cot_h), jnp.asarray(cot_c)))
+    gx_t, c_t = _tbf16(gx).requires_grad_(True), _t(c).requires_grad_(True)
+    gh_t = _tbf16(gh).requires_grad_(True) if with_gh else None
+    h_new, c_new = tgates.gate_math(gx_t, gh_t, c_t)
+    inputs = [gx_t, c_t] + ([gh_t] if with_gh else [])
+    grads = torch.autograd.grad((h_new, c_new), inputs, (_t(cot_h), _t(cot_c)))
+    assert h_new.dtype == c_new.dtype == grads[1].dtype == torch.float32
+    assert grads[0].dtype == torch.bfloat16
+    for got, want in ((h_new, jh), (c_new, jc), (grads[1], jdc)):
+        assert _rel(got, want) <= 2.6e-7
+    assert _rel(grads[0], jdgx) <= 6e-4
+    if with_gh:
+        assert torch.equal(grads[2], grads[0])
+        assert _rel(grads[2], jdgh) <= 6e-4
+
+
+@pytest.mark.parametrize(
+    "gx_dtype,gh_dtype,c_dtype",
+    [
+        (torch.bfloat16, torch.bfloat16, torch.bfloat16),
+        (torch.float32, None, torch.bfloat16),
+        (torch.bfloat16, torch.float32, torch.float32),
+    ],
+    ids=["all_bf16", "bf16_state", "mixed_gates"],
+)
+def test_gate_math_refuses_dtypes_no_jax_path_gives(gx_dtype, gh_dtype, c_dtype):
+    """float32 gates with a float32 c, or bf16 gates with a float32 c, and
+    nothing else: the all-bf16 call is on no JAX path."""
+    gx = torch.zeros(2, 3, 16, dtype=gx_dtype)
+    gh = None if gh_dtype is None else torch.zeros(2, 3, 16, dtype=gh_dtype)
+    with pytest.raises(TypeError, match="fused_gates"):
+        tgates.gate_math(gx, gh, torch.zeros(2, 3, 4, dtype=c_dtype))
+
+
+@pytest.mark.parametrize("act", ["sigmoid", "hard_sigmoid"])
+def test_bf16_fused_gate_math_matches_jax(act):
+    """The plain gate block (hard-sigmoid gates, or ``use_pallas`` off) on
+    bf16 gates and a float32 c against the JAX package's jnp gate block as
+    XLA compiles it (jit): measured 1.23e-7 of the largest value for both
+    activations (torch's own bf16 sigmoid, rounded once, was 6.5e-3 off),
+    held at 2.5e-7."""
+    gx, gh, c, _, _ = _gate_inputs(seed=2)
+    gx = gx * 4  # reach both clip ends of the hard sigmoid
+    jh, jc = jax.jit(lambda a, b, c_: jcell.fused_gate_math(a, b, c_, act))(
+        _jbf16(gx), _jbf16(gh), jnp.asarray(c)
+    )
+    th, tc = tcell.fused_gate_math(_tbf16(gx), _tbf16(gh), _t(c), act)
+    assert th.dtype == tc.dtype == torch.float32
+    assert _rel(th, jh) <= 2.5e-7 and _rel(tc, jc) <= 2.5e-7
+
+
+def _to_jbf16(variables):
+    return jax.tree.map(_jbf16, variables)
+
+
+BF16_CASES = [("torch_family", False), ("torch_family", True), ("tf_family", False)]
+
+
+@pytest.mark.parametrize(
+    "case,use_pallas", BF16_CASES, ids=["torch_plain", "torch_kernel_route", "tf_plain"]
+)
+def test_bf16_classifier_logits_and_input_grad_match_jax(case, use_pallas):
+    """The classifier with every parameter and buffer in bf16 against the
+    JAX model on its bf16 variables (same route): logits within 5e-3 of
+    the largest logit (measured 2.3e-3 torch family, 2.6e-3 TF family;
+    JAX's own bf16 vs float32: 5.5e-3 and 2.0e-3) and the float32 input
+    gradient within 0.016 in relative L2 (measured 0.0081 and 0.0075).
+    The logits are float32: the state, BN and head run in float32."""
+    kw = CASES[case]
+    jmodel, variables, tmodel = _pair_models(kw, use_pallas)
+    if use_pallas:
+        jmodel = JClassifier(dropout_rate=0.0, use_pallas=True, **kw)
+    rng = np.random.RandomState(6)
+    clip = rng.rand(2, T, *HW, 3).astype(np.float32)
+    r = rng.randn(2, jmodel.num_classes).astype(np.float32)
+
+    def loss(x):
+        logits = jmodel.apply(_to_jbf16(variables), x)
+        return jnp.sum(logits * r), logits
+
+    (_, jlogits), jgrad = jax.jit(jax.value_and_grad(loss, has_aux=True))(jnp.asarray(clip))
+    tmodel = tmodel.to(torch.bfloat16)
+    x = _t(clip).requires_grad_(True)
+    logits = tmodel(x)
+    (grad,) = torch.autograd.grad(logits, x, _t(r))
+    assert logits.dtype == grad.dtype == torch.float32
+    assert _rel(logits, jlogits) <= 5e-3
+    jgrad = np.asarray(jgrad)
+    assert np.linalg.norm(grad.numpy() - jgrad) / np.linalg.norm(jgrad) <= 0.016
+
+
+class _Clips:
+    """Seeded uint8 clips (n, t, h, w, 3) with labels i % classes, the items
+    both packages' find_masks read."""
+
+    def __init__(self, n, t, h, w, num_classes, seed=0):
+        self.clips = np.random.RandomState(seed).randint(0, 255, (n, t, h, w, 3)).astype(np.uint8)
+        self.num_classes = num_classes
+
+    def __len__(self):
+        return len(self.clips)
+
+    def __getitem__(self, i):
+        return self.clips[i], i % self.num_classes, f"clip{i}"
+
+
+PINNED_INIT = np.where((np.arange(8) >= 2) & (np.arange(8) < 6), 5.0, -5.0).astype(np.float32)
+
+
+def _set_bf16(cfg, out_dir, family):
+    cfg = _set_small(cfg, out_dir)
+    cfg.model.compute_dtype = "bfloat16"
+    cfg.data.input_spatial_size = (32, 40)
+    if family == "tf":
+        cfg.model.block_order, cfg.model.pooling = "tf", "avg"
+        cfg.model.padding_clstm, cfg.model.recurrent_activation = "valid", "hard_sigmoid"
+        cfg.model.conv_stride = 1
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def jax_bf16_runs(tmp_path_factory):
+    """The JAX package's bf16 find_masks per family (computed once each),
+    the central init pinned, and the port's state dict of its weights."""
+    import ivf_tpu.interpret.mask_opt as j_mask_opt
+
+    runs = {}
+
+    def run(family):
+        if family not in runs:
+            cfg = _set_bf16(JConfig(), tmp_path_factory.mktemp(f"jax_bf16_{family}"), family)
+            cfg.data.num_workers = 1
+            cfg.model.dropout = 0.0
+            model = japi.build_model(cfg, softmax_override=True)
+            variables = jax_clstm_variables(model, (1, 8, 32, 40, 3), seed=1, input_scale=128.0)
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(j_mask_opt, "init_mask_central", lambda *a, **k: jnp.asarray(PINNED_INIT))
+                tm, gc = japi.find_masks(
+                    cfg, variables, dataset=_Clips(4, 8, 32, 40, 2), save_viz=False
+                )
+            runs[family] = (tm, gc, convlstm_variables_to_state_dict(variables))
+        return runs[family]
+
+    return run
+
+
+@pytest.mark.parametrize(
+    "family,use_pallas", [("torch", False), ("torch", True), ("tf", False)],
+    ids=["torch_plain", "torch_kernel_route", "tf_plain"],
+)
+def test_find_masks_clstm_bf16_matches_jax(jax_bf16_runs, tmp_path, family, use_pallas):
+    """find_masks in bf16 on the ConvLSTM (2 layers x 4 hidden, 8 frames of
+    32x40), the central init pinned in both packages, 8 steps, against the
+    JAX package's bf16 run: masks atol 1.2e-4 (measured 5.9e-5), scores
+    atol 6e-4 (3.0e-4), CAMs atol 0.02 (0.0095), predictions equal."""
+    jtm, jgc, sd = jax_bf16_runs(family)
+    cfg = _set_bf16(TConfig(), tmp_path, family)
+    cfg.model.use_pallas = use_pallas
+    built = []
+    orig = tapi.build_model
+
+    def spy_model(cfg, softmax_override=None, device=None):
+        model = orig(cfg, softmax_override, device)
+        built.append(next(model.parameters()).dtype)
+        return model
+
+    def pinned_init(score_fn, seqs, targets, **kw):
+        return torch.from_numpy(PINNED_INIT).expand(seqs.shape[0], -1).clone()
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tapi, "build_model", spy_model)
+        mp.setattr(tapi, "init_mask_central", pinned_init)
+        tm, gc = tapi.find_masks(cfg, sd, _Clips(4, 8, 32, 40, 2), device="cpu")
+    assert built == [torch.bfloat16]
+    assert np.std([r["time_mask"] for r in tm]) > 1e-3
+    for got, want in zip(tm, jtm):
+        assert got["pred_class"] == want["pred_class"]
+        for key in ("original_score_guess", "freeze_score", "reverse_score"):
+            np.testing.assert_allclose(got[key], float(want[key]), atol=6e-4)
+        np.testing.assert_allclose(got["time_mask"], np.asarray(want["time_mask"], np.float32), atol=1.2e-4)
+    for got, want in zip(gc, jgc):
+        assert got["GCHeatMap"].shape == (8, 32, 40) and got["GCHeatMap"].dtype == np.float32
+        np.testing.assert_allclose(got["GCHeatMap"], np.asarray(want["GCHeatMap"], np.float32), atol=0.02)

@@ -6,7 +6,8 @@ Inputs are post-ReLU values rounded to halves (exact zeros, tied maxima,
 windows whose maximum is the zero padding) or 0/1 plateaus, so a wrong
 border or tie rule shows. Forward, dx, dw and db under the cotangent of
 ``sum(sin(y))`` (tests/test_ops.py), rtol 1e-5 / atol 1e-5: the pool and
-the gather are exact, the two GEMMs sum in other orders. The CUDA kernels
+the gather are exact, the two GEMMs sum in other orders. In bfloat16 the
+same cases against the Pallas functions at bf16. The CUDA kernels
 are held against the plain versions by tests/test_torch_gpu.py and
 ``chip_smoke.py``.
 """
@@ -79,6 +80,40 @@ def test_fused_pool_conv_matches_pallas(variant, relu, case):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5, err_msg=name)
     if case == "plateaus":  # ties got credit beyond one element per window
         assert grads[0].abs().sum() > 0
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_bf16_fused_pool_conv_matches_pallas(variant, relu, case):
+    """bf16 x, w and b (the JAX package's bf16 search) against the Pallas
+    functions in interpret mode at bf16, the cotangent of
+    ``sum(sin(float32(y)))``. The forward is held within one bf16 ulp of
+    the largest output (the pool is exact, the float32 sums differ in
+    order only, one rounding); dx, dw and db, all bf16 as in JAX, gave
+    equal bits in every case here and are held to equal bits."""
+    jfn, tfn = VARIANTS[variant]
+    x, w, b = _inputs(case)
+    jb = lambda a: jnp.asarray(a).astype(jnp.bfloat16)  # noqa: E731
+
+    def jloss(x, w, b):
+        y = jfn(x, w, b, relu)
+        return jnp.sum(jnp.sin(y.astype(jnp.float32))), y
+
+    (_, y_ref), grads_ref = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        jb(x), jb(w), jb(b)
+    )
+    args = [torch.from_numpy(a).bfloat16().requires_grad_(True) for a in (x, w, b)]
+    y = tfn(*args, relu)
+    grads = torch.autograd.grad(torch.sin(y.float()).sum(), args)
+    assert y.dtype == torch.bfloat16 and all(g.dtype == torch.bfloat16 for g in grads)
+    want = np.asarray(y_ref.astype(jnp.float32))
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    np.testing.assert_allclose(y.detach().float().numpy(), want, rtol=0, atol=ulp)
+    for name, got, want in zip(("dx", "dw", "db"), grads, grads_ref):
+        np.testing.assert_array_equal(
+            got.float().numpy(), np.asarray(want.astype(jnp.float32)), err_msg=name
+        )
 
 
 @pytest.mark.parametrize("relu", [True, False])

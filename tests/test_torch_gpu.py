@@ -2,8 +2,9 @@
 
 Each kernel against its plain PyTorch version (float32 and the bfloat16
 entries, the argmax-index pool), the I3D kernel paths of ``find_masks``
-(the pool kernels, the fused branch 3, both bfloat16 routes) at full
-width and the ConvLSTM's at a small size, float32 results that do not
+(the pool kernels, the fused branch 3, the bfloat16 routes, the fused
+ones included) at full width and the ConvLSTM's (float32 and bfloat16) at
+a small size, float32 results that do not
 depend on the global TF32 flags, and two runs with equal bits. Skips
 without a CUDA device. This file
 imports torch and ivf_tpu_torch only, so it also runs where JAX is not
@@ -336,3 +337,132 @@ def test_bf16_find_masks_routes_go_through_their_kernels(cuda_device, tmp_path):
         masks, cams = _small_find_masks(tmp_path, "route", compute_dtype="bfloat16", **flags)
         assert all(fn.launches > 0 for fn in on) and not any(fn.launches for fn in off)
         assert np.isfinite(masks).all() and cams.shape == (2, 16, 224, 224)
+
+
+@pytest.mark.parametrize("with_gh", [True, False], ids=["split", "merged"])
+@pytest.mark.parametrize("shape,ch", [((3, 7, 9), 5), ((16, 60, 80), 4)], ids=["ragged", "clstm_kth_layer1"])
+def test_bf16_gate_kernels_match_plain(cuda_device, shape, ch, with_gh):
+    """bfloat16 gates, float32 state. The kernels round where the plain
+    versions do and use the same float32 operations in the same order,
+    so h', c' and dc are held within 1e-6 of max(1, their largest
+    magnitude) and dz (bf16) within one bfloat16 ulp of its largest."""
+    gen = torch.Generator().manual_seed(4)
+    gx, gh = ((torch.randn(*shape, 4 * ch, generator=gen) * 3).bfloat16().to(cuda_device) for _ in range(2))
+    c, dh, dc_out = (torch.randn(*shape, ch, generator=gen).to(cuda_device) for _ in range(3))
+    gh = gh if with_gh else None
+    fwd, bwd = tgates.lstm_gates_fwd_bf16_cuda, tgates.lstm_gates_bwd_bf16_cuda
+    before = (fwd.launches, bwd.launches, tgates.lstm_gates_fwd_cuda.launches)
+    h_new, c_new = fwd(gx, gh, c)
+    dz, dc = bwd(gx, gh, c, dh, dc_out)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches, tgates.lstm_gates_fwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1, before[2]
+    )
+    assert h_new.dtype == c_new.dtype == dc.dtype == torch.float32 and dz.dtype == torch.bfloat16
+    h_ref, c_ref = tgates.gate_math_plain(gx, gh, c)
+    dz_ref, dc_ref = tgates.gate_math_bwd_plain(gx, gh, c, dh, dc_out)
+    for got, ref in ((h_new, h_ref), (c_new, c_ref), (dc, dc_ref)):
+        assert (got - ref).abs().max().item() <= 1e-6 * max(1.0, ref.abs().max().item())
+    assert (dz.float() - dz_ref.float()).abs().max().item() <= BF16_ULP * dz_ref.float().abs().max().item()
+
+
+FUSED_BF16 = {
+    "frame": (tfb.fused_pool_conv_fwd_bf16_cuda, tfb.fused_pool_conv_bwd_bf16_cuda),
+    "tblock": (tfb.fused_pool_conv_tblock_fwd_bf16_cuda, tfb.fused_pool_conv_tblock_bwd_bf16_cuda),
+}
+
+
+@pytest.mark.parametrize("shape,cout", [((4, 8, 28, 28, 192), 32), ((4, 2, 7, 7, 832), 128)],
+                         ids=["Mixed_3b", "Mixed_5c"])
+@pytest.mark.parametrize("variant", sorted(FUSED_BF16))
+def test_bf16_fused_branch3_kernels_match_plain(cuda_device, variant, shape, cout):
+    """bf16 x, w, b: float32 sums in another order than the plain matmul,
+    one rounding each, so y and dx are held within one bfloat16 ulp of
+    their largest magnitude; the float32 entries' counters do not move."""
+    fwd, bwd = FUSED_BF16[variant]
+    gen = torch.Generator().manual_seed(5)
+    for relu in (True, False):
+        x = _ties(shape, 7) if relu else torch.randn(shape, generator=gen)
+        x = x.bfloat16().to(cuda_device)
+        w = (torch.randn(shape[-1], cout, generator=gen) / shape[-1] ** 0.5).bfloat16().to(cuda_device)
+        b = (torch.randn(cout, generator=gen) * 0.1).bfloat16().to(cuda_device)
+        g = torch.randn(*shape[:-1], cout, generator=gen).bfloat16().to(cuda_device)
+        f32 = FUSED[variant]
+        before = (fwd.launches, bwd.launches, f32[0].launches, f32[1].launches)
+        y = fwd(x, w, b, relu)
+        dx = bwd(x, y, g, w, relu)
+        torch.cuda.synchronize()
+        assert (fwd.launches, bwd.launches, f32[0].launches, f32[1].launches) == (
+            before[0] + 1, before[1] + 1, before[2], before[3]
+        )
+        assert y.dtype == dx.dtype == torch.bfloat16
+        y_ref = tfb.fused_pool_conv_plain(x, w, b, relu).float()
+        dx_ref = tfb.fused_pool_conv_bwd_plain(x, y, g, w, relu).float()
+        assert (y.float() - y_ref).abs().max().item() <= BF16_ULP * y_ref.abs().max().item()
+        assert (dx.float() - dx_ref).abs().max().item() <= BF16_ULP * dx_ref.abs().max().item()
+
+
+def test_bf16_entries_raise_on_what_they_do_not_take(cuda_device):
+    c = torch.zeros(2, 5, 4, device=cuda_device)
+    gx = torch.zeros(2, 5, 16, device=cuda_device)
+    with pytest.raises(TypeError):
+        tgates.lstm_gates_fwd_bf16_cuda(gx, None, c)  # float32 gates
+    with pytest.raises(TypeError):
+        tgates.lstm_gates_fwd_bf16_cuda(gx.bfloat16(), None, c.bfloat16())  # bf16 state
+    with pytest.raises(TypeError):
+        tgates.gate_math(gx.bfloat16(), None, c.bfloat16())
+    x = torch.zeros(1, 2, 3, 3, 4, device=cuda_device)
+    w, b = torch.zeros(4, 3, device=cuda_device), torch.zeros(3, device=cuda_device)
+    with pytest.raises(TypeError):
+        tfb.fused_pool_conv_tblock_fwd_bf16_cuda(x, w, b, True)  # float32
+    with pytest.raises(TypeError):
+        tfb.fused_pool_conv_fwd_bf16_cuda(x.bfloat16(), w, b, True)  # mixed dtypes
+
+
+@pytest.mark.parametrize("variant", [True, "tblock"], ids=["frame", "tblock"])
+def test_bf16_fused_find_masks_goes_through_its_kernels_and_repeats_its_bits(
+    cuda_device, tmp_path, variant
+):
+    """bfloat16 with the fused branch 3: the bf16 fused entries and the bf16
+    pointwise GEMM run, no argmax, pool or float32 kernel; two runs give
+    equal bits."""
+    name = "tblock" if variant == "tblock" else "frame"
+    on = (*FUSED_BF16[name], tpw.pointwise_conv_bf16_cuda)
+    off = (
+        tap.argmax_pool_fwd_cuda, tap.argmax_pool_bwd_cuda, tpool.maxpool3d_s1_fwd_bf16_cuda,
+        tpool.maxpool3d_s1_bwd_bf16_cuda, tpool.maxpool3d_s1_fwd_cuda, tpw.pointwise_conv_cuda,
+        *FUSED["frame"], *FUSED["tblock"],
+    )
+    for fn in on + off:
+        fn.launches = 0
+    flags = dict(compute_dtype="bfloat16", use_pallas=True, fuse_pool_conv=variant)
+    first = _small_find_masks(tmp_path, "first", **flags)
+    assert all(fn.launches > 0 for fn in on) and not any(fn.launches for fn in off)
+    second = _small_find_masks(tmp_path, "second", **flags)
+    assert np.isfinite(first[0]).all() and first[1].shape == (2, 16, 224, 224)
+    assert np.array_equal(first[0], second[0]) and np.array_equal(first[1], second[1])
+
+
+def test_bf16_clstm_find_masks_goes_through_the_bf16_gate_kernels(cuda_device, tmp_path):
+    """bfloat16 clstm_kth with the gate kernel: the bf16 entries run and the
+    float32 ones do not; two runs give equal bits."""
+    cfg = Config()
+    cfg.output_dir = str(tmp_path)
+    cfg.model.conv_model = "clstm_kth"
+    cfg.model.num_classes = 6
+    cfg.model.clstm_hidden, cfg.model.clstm_layers, cfg.model.conv_stride = 4, 2, 2
+    cfg.model.use_pallas, cfg.model.compute_dtype = True, "bfloat16"
+    cfg.data.clip_size, cfg.data.input_spatial_size, cfg.data.batch_size = 8, (32, 48), 2
+    cfg.mask.opt_iter = 2
+    bf16 = (tgates.lstm_gates_fwd_bf16_cuda, tgates.lstm_gates_bwd_bf16_cuda)
+    f32 = (tgates.lstm_gates_fwd_cuda, tgates.lstm_gates_bwd_cuda)
+    for fn in bf16 + f32:
+        fn.launches = 0
+    rng = np.random.RandomState(0)
+    clips = [(rng.randint(0, 255, (8, 32, 48, 3)).astype(np.uint8), i, f"c{i}") for i in range(2)]
+    runs = [api.find_masks(cfg, None, clips) for _ in range(2)]
+    assert all(fn.launches > 0 for fn in bf16) and not any(fn.launches for fn in f32)
+    masks = [np.stack([r["time_mask"] for r in tm]) for tm, _ in runs]
+    cams = [np.stack([r["GCHeatMap"] for r in gc]) for _, gc in runs]
+    assert np.isfinite(masks[0]).all() and cams[0].shape == (2, 8, 32, 48)
+    assert np.array_equal(masks[0], masks[1]) and np.array_equal(cams[0], cams[1])
