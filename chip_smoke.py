@@ -51,9 +51,10 @@ non-zero without the final line:
    repairs in raise mode, and the bfloat16 default route twice; equal bits
    required. In this process: each repair switched off in turn, two runs
    each (do they still give equal bits?) and its cost per search step.
-11. bf16_kernel_check: the bfloat16 kernels (pointwise GEMM at the
-   Mixed_3b trio and the logits head; the bf16 pool pair and the argmax
-   pair at all nine branch-3 sites; the four bf16 fused branch-3 entries
+11. bf16_kernel_check: the bfloat16 kernels (pointwise GEMM at every
+   1x1x1 conv of the I3D main path, forward and dx, with the sum over a
+   search step's 40 launches and the host time per call; the bf16 pool
+   pair and the argmax pair at all nine branch-3 sites; the four bf16 fused branch-3 entries
    at all nine sites, beside the bf16 unfused pair; the bf16 gate entries
    at both ConvLSTM layers, beside the float32 gate kernel) against their
    plain versions, timed beside ``torch.matmul`` / ``F.max_pool3d`` in
@@ -66,7 +67,8 @@ non-zero without the final line:
    pool-kernel route and the others against the kernel route.
 13. bf16_step_timing: device time by group per step on the four bf16
    routes beside the float32 ones at batch 4, then the bf16 default route
-   at batch 32 and 128; at 4 and 128 also with the stem's input gradient
+   at batch 32, and at 128 the default and kernel routes in turns; each
+   with its peak memory; at 4 and 128 also with the stem's input gradient
    through cuDNN instead of the polyphase form.
 
 The float32 phases set no global TF32 flag: the port's entry points pin
@@ -74,6 +76,11 @@ exact float32 themselves (``ivf_tpu_torch/precision.py``); direct autograd
 through a model (``small_reference``) runs inside the same pin. Then the
 ``kernels`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --bf16-width-sweep
+
+times the bf16 TMA GEMM at each column-tile width instead (see
+``bf16_width_sweep``).
 """
 
 from __future__ import annotations
@@ -1129,7 +1136,8 @@ def _step_timing(phase: str, models: dict, clips, card: str, turns, pairs: int =
     """Steady per-step wall time of the search for each route of ``models``
     (route name -> model), ``steps`` steps after a warm-up of two in each of
     ``turns``, then one profiled step of each: device time by kernel group,
-    the device-busy share and the top kernels. ``contexts``: route ->
+    the device-busy share, the top kernels and the step's peak device
+    memory. ``contexts``: route ->
     ``_repairs_off`` arguments the route's steps run under. With ``pairs``, also that many
     single steps of the first two routes (kernels on, then off), back to
     back with the first of each pair alternating, and the host's launch
@@ -1181,9 +1189,11 @@ def _step_timing(phase: str, models: dict, clips, card: str, turns, pairs: int =
               "pairs_on_faster": sum(a < c for a, c in zip(on, off)),
               "host_us_per_launch_before_after": host_us})
     for route in models:
+        torch.cuda.reset_peak_memory_stats()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             step_fns[route](carry0)
             torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
         groups, top, n_kernels = {}, [], 0
         for ev in prof.key_averages():
             dev_us = getattr(ev, "self_device_time_total", 0) or 0
@@ -1197,7 +1207,7 @@ def _step_timing(phase: str, models: dict, clips, card: str, turns, pairs: int =
         emit({"phase": phase, "route": route, "kernels": route != "plain", "card": card, "batch": b,
               "wall_ms_per_step": wall[route], "device_ms_per_step": device_ms,
               "device_busy_share": device_ms / wall_ms, "kernels_per_step": n_kernels,
-              "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+              "peak_mem_gib": peak_gib, "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
               "top_kernels": [list(t) for t in sorted(top, reverse=True)[:12]]})
 
 
@@ -1327,39 +1337,155 @@ def _bf16_site_inputs(shape, gen, dev):
     return x, g
 
 
+# I3D's 1x1x1 convs at batch b: (site, N, Cin, Cout, launches of the
+# forward per search step); each forward has a dx launch too: 40 a step
+def pw_main_path(b: int = BATCH):
+    s3, s4, s5 = b * 8 * 28 * 28, b * 4 * 14 * 14, b * 2 * 7 * 7
+    return [
+        ("Conv3d_2b", b * 8 * 56 * 56, 64, 64, 1), ("Mixed_3b_trio", s3, 192, 176, 1),
+        ("Mixed_3b_b3b", s3, 192, 32, 1), ("Mixed_3c_trio", s3, 256, 288, 1), ("Mixed_3c_b3b", s3, 256, 64, 1),
+        ("Mixed_4b_trio", s4, 480, 304, 1), ("Mixed_4b_b3b", s4, 480, 64, 1), ("Mixed_4c_trio", s4, 512, 296, 1),
+        ("Mixed_4d_trio", s4, 512, 280, 1), ("Mixed_4e_trio", s4, 512, 288, 1), ("Mixed_4cde_b3b", s4, 512, 64, 3),
+        ("Mixed_4f_trio", s4, 528, 448, 1), ("Mixed_4f_b3b", s4, 528, 128, 1), ("Mixed_5b_trio", s5, 832, 448, 1),
+        ("Mixed_5c_trio", s5, 832, 624, 1), ("Mixed_5bc_b3b", s5, 832, 128, 2), ("logits", b, 1024, 174, 1),
+    ]
+
+
+def host_us_per_call(pw, n: int, cin: int, cout: int, relu: bool, copy_w: bool = False,
+                     calls: int = 300) -> float:
+    """Host microseconds per ``pointwise_conv_bf16_cuda`` call (argument
+    checks, plan, tensor maps, allocation, ctypes, launch), the device left
+    to run behind: enqueue time, synchronized only at the end. W is the
+    column-major view of a (Cout, Cin) weight, as the layers pass it;
+    ``copy_w``: made contiguous before each call, as the layers did before
+    the kernels read W as stored."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.rand(n, cin, generator=gen, device="cuda").bfloat16()
+    w = torch.rand(cout, cin, generator=gen, device="cuda").bfloat16().t()
+    b = torch.rand(cout, generator=gen, device="cuda").bfloat16()
+
+    def call():
+        return pw.pointwise_conv_bf16_cuda(x, w.contiguous() if copy_w else w, b, relu)
+
+    for _ in range(10):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def bf16_width_sweep() -> int:
+    """``python3 chip_smoke.py --bf16-width-sweep``: the bf16 TMA GEMM at
+    every trunk shape of the main path (batch 4), forward and dx, at each
+    column-tile width the kernel has, launched directly: device ms and the
+    error in bf16 ulps of the largest output at each width, beside the
+    width ``tma_width`` picks. The data behind ``TMA_SLAB_COST_COLS``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from ivf_tpu_torch.ops.kernels import pointwise_conv as pw
+
+    lib, dev, bad = pw._lib(), torch.device("cuda"), []
+    gen = torch.Generator().manual_seed(0)
+    emit({"phase": "bf16_width_sweep", "nvidia_smi": nvidia_smi()})
+    for site, n, cin, cout, per_step in pw_main_path():
+        if site == "logits":
+            continue
+        wk = (torch.randn(cout, cin, generator=gen) / cin**0.5).bfloat16().to(dev)
+        bias = torch.randn(cout, generator=gen).bfloat16().to(dev)
+        for direction in ("fwd", "dx"):
+            if direction == "fwd":
+                x, w, b, relu, k, c = _ties((n, cin), gen, dev).bfloat16(), wk.t(), bias, True, cin, cout
+            else:
+                x, w, b, relu, k, c = torch.randn(n, cout, generator=gen).bfloat16().to(dev), wk, None, False, cout, cin
+            mn = int(w.stride(1) == 1)
+            ref = pw.pointwise_conv_plain(x, w, b, relu).float()
+            y = torch.empty(n, c, device=dev, dtype=torch.bfloat16)
+            widths = {}
+            for bn in pw.TMA_WIDTHS:
+                def call(bn=bn):
+                    rc = lib.pw_conv_bf16_tma(x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(1 - mn), mn,
+                                              b.data_ptr() if b is not None else None, y.data_ptr(), n, k, c, bn,
+                                              int(relu), torch.cuda.current_stream().cuda_stream)
+                    if rc != 0:
+                        raise RuntimeError(f"pw_conv_bf16_tma failed with CUDA error {rc}")
+
+                call()
+                torch.cuda.synchronize()
+                ulps = (y.float() - ref).abs().max().item() / (2.0**-7 * ref.abs().max().item())
+                widths[bn] = {"ms": device_ms(call), "err_ulps": ulps}
+                if not ulps <= 1.0:
+                    bad.append(f"{site} {direction} bn={bn}: {ulps} ulps")
+            chosen = pw.tma_width(n, k, c)
+            emit({"phase": "bf16_width_sweep", "site": site, "direction": direction, "shape": [n, k, c],
+                  "launches_per_step": per_step, "widths": widths, "chosen": chosen,
+                  "chosen_ms": widths[chosen]["ms"], "best": min(widths, key=lambda bn: widths[bn]["ms"])})
+    for f in bad:
+        print(f"chip_smoke FAILED: {f}", file=sys.stderr)
+    return 1 if bad else 0
+
+
 def phase_bf16_kernel_check(pw, pool, ap, failures) -> dict:
     """The bfloat16 kernels against their plain versions on the card: the
-    GEMM at the main path's Mixed_3b trio and logits head (within one bf16
-    ulp of the largest output), the bf16 pool pair and the argmax pair at
-    all nine branch-3 sites (equal bits). Device time per call (inputs
-    warm in L2), the plain version's, one PyTorch call's in bfloat16
-    (``torch.matmul``, ``F.max_pool3d``; none for the two backwards), and
-    the bound: bytes at 3.35 TB/s against bf16 operations at 989 TFLOP/s."""
+    GEMM at every 1x1x1 conv of the I3D main path, forward (W the layers'
+    column-major view of the (Cout, Cin) weight, bias, ReLU) and dx (its
+    transpose, row-major), within one bf16 ulp of the largest output, with
+    the sum over a search step's 40 launches and the host time per call;
+    the bf16 pool pair and the argmax pair at all nine branch-3 sites
+    (equal bits). Device time per call (inputs warm in L2), the plain
+    version's, one PyTorch call's in bfloat16 (``torch.matmul``,
+    ``F.max_pool3d``; none for the two backwards), and the bound: bytes at
+    3.35 TB/s against bf16 operations at 989 TFLOP/s."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(10)
     cases = {n: [] for n in BF16_COUNTERS}
-    for site, n, cin, cout, relu in (("Mixed_3b_trio", BATCH * 8 * 28 * 28, 192, 176, True),
-                                     ("logits", BATCH, 1024, 174, False)):
-        x = _ties((n, cin), gen, dev).bfloat16()
-        w = (torch.randn(cin, cout, generator=gen) / cin**0.5).bfloat16().to(dev)
-        b = torch.randn(cout, generator=gen).bfloat16().to(dev)
-        y = pw.pointwise_conv_bf16_cuda(x, w, b, relu)
-        ref = pw.pointwise_conv_plain(x, w, b, relu)
-        torch.cuda.synchronize()
-        err = (y.float() - ref.float()).abs().max().item()
-        tol = 2.0**-7 * ref.float().abs().max().item()
-        bms, by = bound(2 * (n * cin + cin * cout + cout + n * cout), 2 * n * cin * cout, PEAK_BF16_FLOPS)
-        cases["pointwise_conv_bf16"].append({
-            "site": site, "shape": [n, cin, cout], "relu": relu, "max_abs_err": err, "tol": tol,
-            "tol_reason": "one bf16 ulp of the largest output: float32 sums in another order, one rounding",
-            "ms": device_ms(lambda: pw.pointwise_conv_bf16_cuda(x, w, b, relu)),
-            "plain_ms": device_ms(lambda: pw.pointwise_conv_plain(x, w, b, relu)),
-            "library_ms": device_ms(lambda: torch.matmul(x, w)), "bound_ms": bms, "bound_by": by,
-        })
-        if not err <= tol:
-            failures.append(f"pointwise_conv_bf16 {site}: err {err} > {tol}")
+    step = {"ms": 0.0, "library_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "launches": 0}
+    for site, n, cin, cout, per_step in pw_main_path():
+        wk = (torch.randn(cout, cin, generator=gen) / cin**0.5).bfloat16().to(dev)
+        bias = torch.randn(cout, generator=gen).bfloat16().to(dev)
+        relu = site != "logits"
+        for direction in ("fwd", "dx"):
+            if direction == "fwd":
+                x, w, b, act, k, c = _ties((n, cin), gen, dev).bfloat16(), wk.t(), bias, relu, cin, cout
+            else:  # m @ W^T: the forward's column-major view transposed is row-major
+                x, w, b, act, k, c = torch.randn(n, cout, generator=gen).bfloat16().to(dev), wk, None, False, cout, cin
+            y = pw.pointwise_conv_bf16_cuda(x, w, b, act)
+            ref = pw.pointwise_conv_plain(x, w, b, act)
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = 2.0**-7 * ref.float().abs().max().item()
+            bms, by = bound(2 * (n * k + k * c + (c if b is not None else 0) + n * c), 2 * n * k * c,
+                            PEAK_BF16_FLOPS)
+            plan = pw.bf16_plan(n, k, c, x.stride(), x.data_ptr(), w.stride(), w.data_ptr())
+            row = {
+                "site": site, "direction": direction, "shape": [n, k, c], "relu": act, "path": plan["path"],
+                "bn": plan.get("bn"),
+                "max_abs_err": err, "tol": tol,
+                "tol_reason": "one bf16 ulp of the largest output: float32 sums in another order, one rounding",
+                "ms": device_ms(lambda: pw.pointwise_conv_bf16_cuda(x, w, b, act)),
+                "plain_ms": device_ms(lambda: pw.pointwise_conv_plain(x, w, b, act), reps=3),
+                "library_ms": device_ms(lambda: torch.matmul(x, w)), "bound_ms": bms, "bound_by": by,
+                "launches_per_step": per_step,
+            }
+            cases["pointwise_conv_bf16"].append(row)
+            for key in ("ms", "library_ms", "plain_ms", "bound_ms"):
+                step[key] += per_step * row[key]
+            step["launches"] += per_step
+            if not err <= tol:
+                failures.append(f"pointwise_conv_bf16 {site} {direction}: err {err} > {tol}")
+    step["host_us_per_call"] = {
+        "Mixed_3b_trio": host_us_per_call(pw, BATCH * 8 * 28 * 28, 192, 176, True),
+        "logits": host_us_per_call(pw, BATCH, 1024, 174, False),
+        "Mixed_3b_trio_with_w_copy": host_us_per_call(pw, BATCH * 8 * 28 * 28, 192, 176, True, copy_w=True),
+    }
+    emit({"phase": "bf16_kernel_check", "kernel": "pointwise_conv_bf16", "summary": "per search step",
+          "batch": BATCH, **step})
     for site, (t, h, w_, cin), _ in FUSED_SITES:
         shape = (BATCH, t, h, w_, cin)
         x, g = _bf16_site_inputs(shape, gen, dev)
@@ -1705,9 +1831,10 @@ def phase_bf16_main_path(api, counters, failures, card: str, f32_run: dict) -> d
 
 
 def phase_bf16_step_timing(api, card: str, weights: dict) -> None:
-    """Device time by group per search step on both bfloat16 routes beside
+    """Device time by group per search step on the bfloat16 routes beside
     the float32 ones at batch 4, in turns; then the bfloat16 default route
-    at batch 32 and 128 (a few steps each, peak memory). At 4 and 128 also
+    at batch 32 and, at 128, the default and kernel routes in turns (a few
+    steps each). At 4 and 128 also
     the default route with the stem's input gradient through cuDNN's
     backward-data conv instead of the polyphase form (``bf16_cudnn_dgrad``)."""
     from ivf_tpu_torch.config import Config
@@ -1735,12 +1862,10 @@ def phase_bf16_step_timing(api, card: str, weights: dict) -> None:
     for batch in (32, 128):
         big = torch.randint(0, 256, (batch, CLIP_T, CLIP_HW, CLIP_HW, 3), generator=gen,
                             device="cuda", dtype=torch.uint8).float()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _step_timing("bf16_step_timing", {"bf16_default": models["bf16_default"]}, big, card,
-                     turns=("bf16_default",), steps=3)
-        emit({"phase": "bf16_step_timing_memory", "route": "bf16_default", "batch": batch, "card": card,
-              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+        # at 128 the kernel route beside the default one, in turns
+        routes = ("bf16_default",) if batch == 32 else ("bf16_default", "bf16_kernels")
+        _step_timing("bf16_step_timing", {r: models[r] for r in routes}, big, card,
+                     turns=routes + routes[::-1], steps=3)
         if batch == 128:
             pair = ("bf16_default", "bf16_cudnn_dgrad")
             _step_timing("bf16_dgrad_timing", {r: models[r] for r in pair}, big, card,
@@ -1873,4 +1998,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--determinism-child"]:
         sys.exit(determinism_child())
+    if sys.argv[1:] == ["--bf16-width-sweep"]:
+        sys.exit(bf16_width_sweep())
     sys.exit(main())

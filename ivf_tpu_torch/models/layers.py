@@ -135,7 +135,7 @@ class Unit3D(nn.Module):
             relu_fused = self.activation is F.relu and (self.folding or self.bn is None)
             cout, cin = w.shape[:2]
             x = pointwise_conv(
-                x.to(w.dtype).contiguous(), w.reshape(cout, cin).t().contiguous(), b,
+                x.to(w.dtype).contiguous(), w.reshape(cout, cin).t(), b,
                 relu=relu_fused,
             )
         else:
@@ -205,7 +205,7 @@ class InceptionModule(nn.Module):
             if self.use_pallas:
                 cin = x.shape[-1]
                 y = pointwise_conv(
-                    x.to(kcat.dtype).contiguous(), kcat.reshape(-1, cin).t().contiguous(),
+                    x.to(kcat.dtype).contiguous(), kcat.reshape(-1, cin).t(),
                     bcat, relu=True,
                 )
             else:

@@ -59,6 +59,10 @@ def _bits(a) -> np.ndarray:
     return np.asarray(a).view(np.uint16)
 
 
+def _t32(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+
 def _bf16(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).bfloat16()
 
@@ -141,6 +145,129 @@ def test_bf16_pointwise_plain_matches_pallas(relu, use_bias):
     y = tpw.pointwise_conv(xt, _bf16(w), _bf16(b) if use_bias else None, relu=relu)
     (dx,) = torch.autograd.grad(y, xt, _bf16(g))
     assert y.dtype == dx.dtype == torch.bfloat16
+    for got, want in ((y, y_ref), (dx, dx_ref)):
+        want = np.asarray(want, np.float32)
+        tol = 2.0**-7 * np.abs(want).max()
+        np.testing.assert_allclose(got.detach().float().numpy(), want, rtol=0, atol=tol)
+
+
+# The bf16 pointwise GEMMs of I3D's main path at batch 4 (site, N, Cin,
+# Cout), the forward's W being the layers' column-major view of the
+# (Cout, Cin) weight, and the plan each forward and dx launch must get on
+# the H100's 132 SMs: (bn, col_tiles) of the TMA path (narrow tiles where
+# few rows meet a long K), or the split-K (splits, vec).
+PW_MAIN_PATH = [
+    ("Conv3d_2b", 100352, 64, 64, (64, 1), (64, 1)),
+    ("Mixed_3b_trio", 25088, 192, 176, (96, 2), (96, 2)),
+    ("Mixed_3b_b3b", 25088, 192, 32, (32, 1), (96, 2)),
+    ("Mixed_3c_trio", 25088, 256, 288, (160, 2), (128, 2)),
+    ("Mixed_3c_b3b", 25088, 256, 64, (64, 1), (128, 2)),
+    ("Mixed_4b_trio", 3136, 480, 304, (64, 5), (96, 5)),
+    ("Mixed_4b_b3b", 3136, 480, 64, (32, 2), (96, 5)),
+    ("Mixed_4c_trio", 3136, 512, 296, (64, 5), (128, 4)),
+    ("Mixed_4d_trio", 3136, 512, 280, (64, 5), (128, 4)),
+    ("Mixed_4e_trio", 3136, 512, 288, (64, 5), (128, 4)),
+    ("Mixed_4cde_b3b", 3136, 512, 64, (32, 2), (128, 4)),
+    ("Mixed_4f_trio", 3136, 528, 448, (96, 5), (128, 5)),
+    ("Mixed_4f_b3b", 3136, 528, 128, (32, 4), (128, 5)),
+    ("Mixed_5b_trio", 392, 832, 448, (32, 14), (32, 26)),
+    ("Mixed_5c_trio", 392, 832, 624, (32, 20), (32, 26)),
+    ("Mixed_5bc_b3b", 392, 832, 128, (32, 4), (32, 26)),
+    ("logits", 4, 1024, 174, (64, True), (11, False)),
+]
+_BASE = 1 << 20  # a 16-byte-aligned address
+
+
+@pytest.mark.parametrize("site,n,cin,cout,fwd,dx", PW_MAIN_PATH, ids=[r[0] for r in PW_MAIN_PATH])
+def test_bf16_plan_at_every_main_path_shape(site, n, cin, cout, fwd, dx):
+    """The bf16 wrapper's choice of kernel is a plain function of shapes,
+    strides and addresses: every trunk GEMM, forward (W K-major, the view
+    of the (Cout, Cin) weight) and dx (W^T MN-major), takes the TMA path;
+    the logits head (N = batch) the split-K pair."""
+    plan_fwd = tpw.bf16_plan(n, cin, cout, (cin, 1), _BASE, (1, cin), _BASE)
+    plan_dx = tpw.bf16_plan(n, cout, cin, (cout, 1), _BASE, (cin, 1), _BASE)
+    for plan, want, mn, k, c in ((plan_fwd, fwd, False, cin, cout), (plan_dx, dx, True, cout, cin)):
+        if site == "logits":
+            assert plan["path"] == "splitk"
+            assert (plan["splits"], plan["vec"]) == want
+            assert plan["chunk"] % 8 == 0 and (plan["splits"] - 1) * plan["chunk"] < k <= plan["splits"] * plan["chunk"]
+        else:
+            assert plan == {"path": "tma", "bn": want[0], "col_tiles": want[1], "w_mn_major": mn}
+            assert want[0] * (want[1] - 1) < c <= want[0] * want[1]
+            # at bench.py's 128 clips every tile count fills the card: wide
+            # tiles, X read fewer times
+            assert tpw.tma_width(32 * n, k, c) >= want[0]
+
+
+@pytest.mark.parametrize(
+    "n,cin,cout,x_stride,x_ptr,w_stride,w_ptr,path",
+    [
+        (64, 64, 64, (64, 1), _BASE, (64, 1), _BASE, "tma"),  # W (Cin, Cout) row-major
+        (63, 64, 64, (64, 1), _BASE, (64, 1), _BASE, "splitk"),  # N < 64
+        (1, 64, 64, (64, 1), _BASE, (1, 64), _BASE, "splitk"),
+        (200, 64, 64, (64, 1), _BASE + 2, (1, 64), _BASE, "splitk"),  # X base not 16-byte aligned
+        (200, 64, 64, (64, 1), _BASE, (1, 64), _BASE + 8, "splitk"),  # W base not aligned
+        (1000, 174, 64, (174, 1), _BASE, (1, 174), _BASE, "splitk"),  # Cin = 174: 348-byte rows
+        (1000, 64, 174, (64, 1), _BASE, (1, 64), _BASE, "splitk"),  # Cout = 174
+        (1000, 64, 64, (1, 1000), _BASE, (1, 64), _BASE, "splitk"),  # X column-major
+        (1000, 64, 64, (128, 1), _BASE, (1, 72), _BASE, "tma"),  # padded row strides
+    ],
+    ids=["w_row_major", "n63", "n1", "x_unaligned", "w_unaligned", "cin174", "cout174", "x_colmajor",
+         "padded_strides"],
+)
+def test_bf16_plan_routes_unaligned_and_small_shapes_to_split_k(
+        n, cin, cout, x_stride, x_ptr, w_stride, w_ptr, path):
+    plan = tpw.bf16_plan(n, cin, cout, x_stride, x_ptr, w_stride, w_ptr)
+    assert plan["path"] == path
+    if path == "splitk":
+        assert plan["chunk"] % 8 == 0 and plan["splits"] * plan["chunk"] >= cin
+        assert (plan["splits"] - 1) * plan["chunk"] < cin
+        assert plan["vec"] == (cin % 8 == 0 and x_stride[1] == 1 and w_stride[0] == 1
+                               and x_ptr % 16 == 0 and w_ptr % 16 == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "linear"])
+def test_pointwise_cpu_path_gives_the_same_bits_with_a_column_major_weight(dtype, relu):
+    """The layers pass W as the column-major view of the (Cout, Cin)
+    weight: the CPU path's forward and dx give the bits of a contiguous W."""
+    rng = np.random.RandomState(8)
+    x = _t32(np.maximum(rng.randn(2, 3, 5, 5, 112), 0)).to(dtype)
+    wk = _t32(rng.randn(48, 112) / 10).to(dtype)  # (Cout, Cin), as a conv weight
+    b = _t32(rng.randn(48)).to(dtype)
+    g = _t32(rng.randn(2, 3, 5, 5, 48)).to(dtype)
+    outs = []
+    for w in (wk.t(), wk.t().contiguous()):
+        xt = x.clone().requires_grad_(True)
+        y = tpw.pointwise_conv(xt, w, b, relu=relu)
+        (dx,) = torch.autograd.grad(y, xt, g)
+        outs.append((y.detach(), dx))
+    assert not outs[0][0].equal(torch.zeros_like(outs[0][0]))
+    for a, c in zip(*outs):
+        assert torch.equal(a.view(torch.int16) if dtype == torch.bfloat16 else a,
+                           c.view(torch.int16) if dtype == torch.bfloat16 else c)
+
+
+@pytest.mark.parametrize("relu,use_bias", [(True, True), (False, False)], ids=["relu_bias", "linear"])
+def test_bf16_pointwise_vjp_with_a_column_major_weight_matches_pallas(relu, use_bias):
+    """The bf16 VJP with W as the layers pass it (the (Cout, Cin) weight's
+    column-major view; dx launches on its transpose, (Cout, Cin) row-major)
+    against the Pallas kernel in interpret mode: forward and dx within one
+    bfloat16 ulp of the largest value, as the contiguous-W test."""
+    rng = np.random.RandomState(9)
+    x = np.maximum(rng.randn(2, 3, 5, 5, 112), 0).astype(np.float32)
+    wk = (rng.randn(48, 112) / 10).astype(np.float32)
+    b = rng.randn(48).astype(np.float32)
+    g = rng.randn(2, 3, 5, 5, 48).astype(np.float32)
+    jb = lambda a: jnp.asarray(a).astype(jnp.bfloat16)  # noqa: E731
+    bias = jb(b) if use_bias else None
+    y_ref, vjp = jax.vjp(
+        lambda a: pallas_pointwise_conv(a, jb(wk.T), bias, relu=relu, interpret=True), jb(x)
+    )
+    (dx_ref,) = vjp(jb(g))
+    xt = _bf16(x).requires_grad_(True)
+    y = tpw.pointwise_conv(xt, _bf16(wk).t(), _bf16(b) if use_bias else None, relu=relu)
+    (dx,) = torch.autograd.grad(y, xt, _bf16(g))
     for got, want in ((y, y_ref), (dx, dx_ref)):
         want = np.asarray(want, np.float32)
         tol = 2.0**-7 * np.abs(want).max()

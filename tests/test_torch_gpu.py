@@ -211,30 +211,78 @@ def test_find_masks_on_the_card_goes_through_the_kernels(cuda_device, tmp_path):
 BF16_ULP = 2.0**-7  # one bfloat16 ulp relative to a value's leading power of two
 
 
-@pytest.mark.parametrize(
-    "n,cin,cout,relu,use_bias",
-    [
-        (150, 112, 48, True, True),
-        (150, 112, 48, False, False),
-        (4, 1024, 174, False, True),
-        (8 * 28 * 28, 192, 176, True, True),
-    ],
-    ids=["ragged", "ragged_linear", "logits_head", "Mixed_3b_trio"],
-)
-def test_bf16_pointwise_kernel_matches_plain(cuda_device, n, cin, cout, relu, use_bias):
-    """Tensor-core sums in another order than the plain float32 matmul,
-    then one rounding each: within one bfloat16 ulp of the largest
-    output."""
+# I3D's bf16 pointwise GEMMs at batch 4 (site, N, Cin, Cout): the forward
+# takes W as the layers pass it, the column-major view of the (Cout, Cin)
+# weight, with bias and ReLU; dx is (N, Cout) @ that view's transpose, a
+# row-major (Cout, Cin) array, without either.
+PW_MAIN_PATH = [
+    ("Conv3d_2b", 100352, 64, 64), ("Mixed_3b_trio", 25088, 192, 176), ("Mixed_3b_b3b", 25088, 192, 32),
+    ("Mixed_3c_trio", 25088, 256, 288), ("Mixed_3c_b3b", 25088, 256, 64),
+    ("Mixed_4b_trio", 3136, 480, 304), ("Mixed_4b_b3b", 3136, 480, 64), ("Mixed_4c_trio", 3136, 512, 296),
+    ("Mixed_4d_trio", 3136, 512, 280), ("Mixed_4e_trio", 3136, 512, 288), ("Mixed_4cde_b3b", 3136, 512, 64),
+    ("Mixed_4f_trio", 3136, 528, 448), ("Mixed_4f_b3b", 3136, 528, 128), ("Mixed_5b_trio", 392, 832, 448),
+    ("Mixed_5c_trio", 392, 832, 624), ("Mixed_5bc_b3b", 392, 832, 128), ("logits", 4, 1024, 174),
+]
+# (n, cin, cout, relu, use_bias, w_layout, x_offset): w_layout "row" is a
+# contiguous (Cin, Cout) W, "col" the column-major view of a (Cout, Cin)
+# one; x_offset moves X's base by that many elements into a larger buffer.
+BF16_PW_CASES = {
+    "ragged": (150, 112, 48, True, True, "row", 0),
+    "ragged_linear": (150, 112, 48, False, False, "row", 0),
+    "logits_head": (4, 1024, 174, False, True, "row", 0),
+    "Mixed_3b_trio": (8 * 28 * 28, 192, 176, True, True, "row", 0),
+    **{f"{site}_fwd": (n, cin, cout, site != "logits", True, "col", 0) for site, n, cin, cout in PW_MAIN_PATH},
+    **{f"{site}_dx": (n, cout, cin, False, False, "row", 0) for site, n, cin, cout in PW_MAIN_PATH},
+    "n1": (1, 192, 176, True, True, "col", 0),
+    "n63": (63, 192, 176, True, True, "col", 0),
+    "n200": (200, 192, 176, True, True, "col", 0),
+    "n25000_ragged": (25000, 64, 40, True, True, "row", 0),
+    "cin174": (1000, 174, 64, True, True, "col", 0),
+    "cout174": (1000, 64, 174, True, True, "row", 0),
+    "x_unaligned": (3000, 192, 176, True, True, "col", 1),
+    "x_unaligned_row_w": (3000, 192, 176, False, False, "row", 3),
+    "w_col_major_k32": (3000, 32, 64, True, True, "col", 0),
+}
+
+
+@pytest.mark.parametrize("n,cin,cout,relu,use_bias,w_layout,x_offset", list(BF16_PW_CASES.values()),
+                         ids=list(BF16_PW_CASES))
+def test_bf16_pointwise_kernel_matches_plain(cuda_device, n, cin, cout, relu, use_bias, w_layout, x_offset):
+    """Tensor-core (or split-K) sums in another order than the plain float32
+    matmul, then one rounding each: within one bfloat16 ulp of the largest
+    output, on the TMA path and the split-K path, W in either layout, X
+    aligned or not."""
     gen = torch.Generator().manual_seed(0)
-    x = torch.relu(torch.randn(n, cin, generator=gen)).bfloat16().to(cuda_device)
-    w = (torch.randn(cin, cout, generator=gen) * 0.1).bfloat16().to(cuda_device)
+    x = torch.randn(n, cin, generator=gen)
+    x = (torch.relu(x) if relu else x).bfloat16()
+    buf = torch.empty(n * cin + x_offset, dtype=torch.bfloat16, device=cuda_device)
+    xd = buf[x_offset:].view(n, cin)
+    xd.copy_(x.to(cuda_device))
+    wk = (torch.randn(cout, cin, generator=gen) * 0.1).bfloat16()
+    w = wk.t().to(cuda_device) if w_layout == "col" else wk.t().contiguous().to(cuda_device)
     b = torch.randn(cout, generator=gen).bfloat16().to(cuda_device) if use_bias else None
+    assert (xd.data_ptr() % 16 == 0) == (x_offset % 8 == 0)
     before = tpw.pointwise_conv_bf16_cuda.launches
-    y = tpw.pointwise_conv_bf16_cuda(x, w, b, relu)
+    y = tpw.pointwise_conv_bf16_cuda(xd, w, b, relu)
     torch.cuda.synchronize()
     assert tpw.pointwise_conv_bf16_cuda.launches == before + 1 and y.dtype == torch.bfloat16
-    ref = tpw.pointwise_conv_plain(x, w, b, relu).float()
+    ref = tpw.pointwise_conv_plain(xd, w, b, relu).float()
     assert (y.float() - ref).abs().max().item() <= BF16_ULP * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("n,cin,cout,relu", [(4, 1024, 174, False), (25088, 192, 176, True)],
+                         ids=["logits_head", "Mixed_3b_trio"])
+def test_bf16_pointwise_kernel_repeats_its_bits(cuda_device, n, cin, cout, relu):
+    """Split K sums its chunks in a fixed order and the TMA path has one
+    owner per output: two launches on the same inputs give equal bits."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.relu(torch.randn(n, cin, generator=gen)).bfloat16().to(cuda_device)
+    w = (torch.randn(cout, cin, generator=gen) * 0.1).bfloat16().to(cuda_device).t()
+    b = torch.randn(cout, generator=gen).bfloat16().to(cuda_device)
+    y1 = tpw.pointwise_conv_bf16_cuda(x, w, b, relu)
+    y2 = tpw.pointwise_conv_bf16_cuda(x, w, b, relu)
+    torch.cuda.synchronize()
+    assert torch.equal(y1.view(torch.int16), y2.view(torch.int16))
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 4, 5, 6), (4, 8, 28, 28, 192)])
