@@ -14,7 +14,9 @@ non-zero without the final line:
    the kernel's time, the plain version's, one PyTorch library call's
    (a yardstick only) and the card's lower bound for the same work. The
    four fused branch-3 kernels at all nine branch-3 sites, per-frame
-   against whole-sample too, timed beside the unfused kernel pair.
+   against whole-sample too, timed beside the unfused kernel pair, whose
+   bits the float32 entries must give; a summary row per entry sums the
+   nine sites.
 3. small_reference: I3D at (1, 8, 32, 32, 3) on the card vs the same
    model on the CPU (plain versions), for the pool-kernel route and both
    fused routes: logits and input gradient.
@@ -80,7 +82,11 @@ through a model (``small_reference``) runs inside the same pin. Then the
     python3 chip_smoke.py --bf16-width-sweep
 
 times the bf16 TMA GEMM at each column-tile width instead (see
-``bf16_width_sweep``).
+``bf16_width_sweep``), and
+
+    python3 chip_smoke.py --fused-sweep
+
+the fused branch-3 kernels under every candidate plan (``fused_sweep``).
 """
 
 from __future__ import annotations
@@ -153,15 +159,17 @@ BF16_TOL_REASON = (
 # equal in five runs); the masks by the backward's tie rule, as BF16_MASK_TOL
 BF16_ROUTES_TOL = 2.0**-8
 # the fused bf16 routes against the bf16 kernel route: b3b's 1x1x1 conv
-# sums in float32 on the CUDA cores there and on the tensor cores here, so
-# single branch-3 outputs round to neighbouring bf16 values, which the
-# later blocks carry to Mixed_5c: the CAMs (normalized bf16 maps) moved by
-# 0.027 and the scores by 2**-10 on an H100 at 700 W, where one rounding
-# (BF16_ROUTES_TOL) had been predicted; the CAMs are held at BF16_CAM_TOL
+# sums on the tensor cores on both routes, but in another order (the fused
+# kernel's mma.sync k16 steps against the TMA GEMM's wgmma), so a branch-3
+# output may round to the neighbouring bf16 value, which the later blocks
+# carry to Mixed_5c. On an H100 at 700 W the CAMs moved by 0.027 while the
+# fused kernels summed on the CUDA cores, and by 0 since they use tensor
+# cores; the CAMs stay held at BF16_CAM_TOL
 BF16_FUSED_CAM_REASON = (
-    "b3b's conv sums in another order (CUDA-core float32 vs tensor cores), "
-    "so some branch-3 outputs round to the neighbouring bf16 value and the "
-    "later blocks carry that to Mixed_5c; measured 0.027 on an H100"
+    "b3b's conv sums in another order (the fused kernel's mma.sync against "
+    "the TMA GEMM's wgmma), so a branch-3 output may round to the "
+    "neighbouring bf16 value and the later blocks carry that to Mixed_5c; "
+    "measured 0.027 with CUDA-core sums, 0 with tensor-core sums, on an H100"
 )
 # the nine branch-3 sites of i3d_smth at 16x224x224: (T, H, W, Cin), Cout
 FUSED_SITES = (
@@ -264,12 +272,17 @@ def device_ms(fn, reps: int = 20, warmup: int = 3, cold: bool = False) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush()
-            fn()
-        torch.cuda.synchronize()
-    return sum(kernel_us(prof, skip).values()) / reps / 1e3
+    total = 0.0
+    for _ in range(3):  # the profiler now and then drops every event of a window: measure again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush()
+                fn()
+            torch.cuda.synchronize()
+        total = sum(kernel_us(prof, skip).values())
+        if total > 0:
+            break
+    return total / reps / 1e3
 
 
 def bound(nbytes: float, ops: float, peak_ops: float = PEAK_F32_FLOPS):
@@ -551,6 +564,9 @@ def phase_fused_check(fb, pool, pw, failures) -> dict:
                 if relu:
                     rows["fwd"]["pair_bits_equal"] = bool(torch.equal(y, y_pair))
                     rows["bwd"]["pair_bits_equal"] = bool(torch.equal(dx, dx_pair))
+                    for d in ("fwd", "bwd"):
+                        if not rows[d]["pair_bits_equal"]:
+                            failures.append(f"{name}_{d} {site}: not the unfused kernel pair's bits")
                     timed = {"fwd": lambda: fwd(x, wt, b, True), "bwd": lambda: bwd(x, y, g, wt, True)}
                     for d, fn in timed.items():
                         rows[d].update({"ms": device_ms(fn), "cold_ms": device_ms(fn, cold=True), **shared[d]})
@@ -559,6 +575,7 @@ def phase_fused_check(fb, pool, pw, failures) -> dict:
                     cases[f"{name}_{d}"].append({
                         "site": site, "shape": list(shape), "cout": cout, "relu": relu, **row,
                         "bound_ms": bms, "bound_by": by, "frame_vs_tblock": between,
+                        "plan": fb.plan(torch.float32, name.endswith("tblock"), shape, cout)[d],
                     })
                     if not row["max_abs_err"] <= row["tol"]:
                         failures.append(f"{name}_{d} {site} relu={relu}: err {row['max_abs_err']} > {row['tol']}")
@@ -567,7 +584,21 @@ def phase_fused_check(fb, pool, pw, failures) -> dict:
     for name, rows_ in cases.items():
         for row in rows_:
             emit({"phase": "kernel_check", "kernel": name, **row})
+    _fused_summary("kernel_check", cases)
     return cases
+
+
+def _fused_summary(phase: str, cases: dict) -> None:
+    """One line per fused entry: its timed rows (ReLU on) summed over the
+    nine branch-3 sites, beside the same sums of the library pair, the
+    unfused kernel pair and the bound."""
+    for name, rows in cases.items():
+        on = [r for r in rows if r.get("relu") and "ms" in r and "pair_ms" in r]
+        if not on:
+            continue
+        sums = {k: (None if any(r[k] is None for r in on) else sum(r[k] for r in on))
+                for k in ("ms", "cold_ms", "plain_ms", "library_ms", "pair_ms", "bound_ms")}
+        emit({"phase": phase, "kernel": name, "summary": f"sum over {len(on)} branch-3 sites, ReLU on", **sums})
 
 
 def phase_small_reference(failures) -> None:
@@ -1027,7 +1058,7 @@ def phase_clstm_bf16_main_path(api, counters, failures, card: str, weights: dict
 
 
 def _group(name: str) -> str:
-    if "fpc_frame" in name or "fpc_tblock" in name:
+    if "fpc_fwd" in name or "fpc_bwd" in name:
         return "fused_branch3 kernels"
     if "lstm_gates" in name:
         return "fused_gates kernels"
@@ -1429,6 +1460,123 @@ def bf16_width_sweep() -> int:
     return 1 if bad else 0
 
 
+def fused_sweep() -> int:
+    """``python3 chip_smoke.py --fused-sweep``: the fused branch-3 kernels
+    at every distinct branch-3 shape of the main path (batch 4, ReLU on),
+    in both dtypes, under every plan the launches choose from
+    (``fused_branch3.candidates``, forced through
+    ``fused_branch3_force_plan``): device ms, and the error against the
+    plain version (float32: also equal bits to the default plan, since
+    every plan adds each output's terms in one order). The whole-sample
+    entries are swept, and the per-frame backward for plans of 1 frame (a
+    per-frame forward is the forward with boxes of 1 frame). The data
+    behind the cost constants of ``csrc/fused_branch3.cu``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from ivf_tpu_torch.ops.kernels import fused_branch3 as fb
+
+    lib, dev, bad, samples = fb._lib(), torch.device("cuda"), [], []
+    gen = torch.Generator().manual_seed(21)
+    emit({"phase": "fused_sweep", "nvidia_smi": nvidia_smi()})
+    shapes = list(dict.fromkeys((shape, cout) for _, shape, cout in FUSED_SITES))
+    for (t, h, w, cin), cout in shapes:
+        shape = (BATCH, t, h, w, cin)
+        for dtype in (torch.float32, torch.bfloat16):
+            sfx = "" if dtype == torch.float32 else "_bf16"
+            fwd = getattr(fb, f"fused_pool_conv_tblock_fwd{sfx}_cuda")
+            bwd = getattr(fb, f"fused_pool_conv_tblock_bwd{sfx}_cuda")
+            bwd_frame = getattr(fb, f"fused_pool_conv_bwd{sfx}_cuda")  # the instance of 1 frame
+            x = _ties(shape, gen, dev).to(dtype)
+            wt = (torch.randn(cin, cout, generator=gen) / cin**0.5).to(dtype).to(dev)
+            b = (torch.randn(cout, generator=gen) * 0.1).to(dtype).to(dev)
+            g = torch.randn(*shape[:-1], cout, generator=gen).to(dtype).to(dev)
+            y0 = fwd(x, wt, b, True)
+            dx0 = bwd(x, y0, g, wt, True)
+            y_ref = fb.fused_pool_conv_plain(x, wt, b, True).float()
+            dx_ref = fb.fused_pool_conv_bwd_plain(x, y0, g, wt, True).float()
+            rel = 1e-5 if dtype == torch.float32 else 2.0**-7
+            tol = {"fwd": rel * y_ref.abs().max().item(), "bwd": rel * max(1.0, dx_ref.abs().max().item())}
+            runs = {
+                "fwd": [((inst, box, (0, 0, 0)), lambda: fwd(x, wt, b, True), y0, y_ref)
+                        for inst, box in fb.candidates(dtype, "fwd", shape, cout)],
+                "bwd": [((-1, (0, 0, 0), (*tile, chunk)),
+                         lambda fn=bwd_frame if chunk == 1 else bwd: fn(x, y0, g, wt, True), dx0, dx_ref)
+                        for tile, chunk in fb.candidates(dtype, "bwd", shape, cout)],
+            }
+            entries = {k: (getattr(fb, f"fused_pool_conv_{v}fwd{sfx}_cuda"), getattr(fb, f"fused_pool_conv_{v}bwd{sfx}_cuda"))
+                       for k, v in (("frame", ""), ("tblock", "tblock_"))}
+            default_ms = {k: {"fwd": device_ms(lambda: f(x, wt, b, True), reps=10),
+                              "bwd": device_ms(lambda: bw_(x, y0, g, wt, True), reps=10)}
+                          for k, (f, bw_) in entries.items()}
+            for d, cands in runs.items():
+                rows = []
+                for (inst, box, bplan), fn, default_out, ref in cands:
+                    lib.fused_branch3_force_plan(inst, *box, *bplan)
+                    try:
+                        out = fn()
+                        torch.cuda.synchronize()
+                        # the profiler now and then drops a kernel's events: the larger of two
+                        ms = max(device_ms(fn, reps=10), device_ms(fn, reps=10))
+                    except RuntimeError as exc:
+                        rows.append({"plan": [inst, *box] if d == "fwd" else list(bplan), "refused": str(exc)})
+                        continue
+                    finally:
+                        lib.fused_branch3_force_plan(-1, 0, 0, 0, 0, 0, 0)
+                    err = (out.float() - ref).abs().max().item()
+                    same = bool(torch.equal(out, default_out))
+                    rows.append({"plan": [inst, *box] if d == "fwd" else list(bplan), "ms": ms, "err": err,
+                                 "bits_equal_default": same})
+                    plan = (inst, tuple(box)) if d == "fwd" else (tuple(bplan[:2]), bplan[2])
+                    samples.append((d, dtype, shape, cout, plan, ms))
+                    if not err <= tol[d] or (dtype == torch.float32 and not same):
+                        bad.append(f"{shape} {cout} {dtype} {d} plan {rows[-1]['plan']}: err {err}, bits {same}")
+                timed = sorted((r for r in rows if "ms" in r), key=lambda r: r["ms"])
+                frame = [r for r in timed if (r["plan"][1] if d == "fwd" else r["plan"][2]) == 1]
+                emit({"phase": "fused_sweep", "shape": list(shape), "cout": cout, "dtype": str(dtype),
+                      "direction": d, "default": {k: fb.plan(dtype, k == "tblock", shape, cout)[d]
+                                                  for k in ("frame", "tblock")},
+                      "default_ms": {k: v[d] for k, v in default_ms.items()},
+                      "best": timed[0] if timed else None, "best_frame": frame[0] if frame else None,
+                      "rows": rows})
+    _fit_fused_costs(fb, samples)
+    for f in bad:
+        print(f"chip_smoke FAILED: {f}", file=sys.stderr)
+    return 1 if bad else 0
+
+
+def _fit_fused_costs(fb, samples) -> None:
+    """The constants of the fused branch 3's cost models (``kFwdCost*``,
+    ``kBwdCost*`` in ``csrc/fused_branch3.cu``): per direction and dtype, a
+    non-negative least-squares fit of the swept times (microseconds) on the
+    planner's cost terms, weighted to relative error; and, per shape and
+    instance (per-frame: the plans of 1 frame), the time of the plan the
+    fitted model picks over the fastest swept plan's."""
+    import numpy as np
+    from scipy.optimize import nnls
+
+    for d in ("fwd", "bwd"):
+        for dtype in (torch.float32, torch.bfloat16):
+            rows = [(shape, cout, plan, ms) for d_, dt, shape, cout, plan, ms in samples
+                    if d_ == d and dt == dtype and ms > 0]
+            terms = [fb.cost_terms(dtype, d, shape, cout, plan) for shape, cout, plan, _ in rows]
+            keep = [(r, t) for r, t in zip(rows, terms) if t]
+            if not keep:
+                continue
+            x = np.array([t for _, t in keep])
+            y = np.array([r[3] * 1e3 for r, _ in keep])
+            coef, _ = nnls(x / y[:, None], np.ones_like(y))
+            picks = {}
+            for (shape, cout, plan, ms), pred in zip([r for r, _ in keep], x @ coef):
+                one = (plan[1][0] if d == "fwd" else plan[1]) == 1
+                for inst in ("frame", "tblock") if one else ("tblock",):
+                    picks.setdefault((tuple(shape), cout, inst), []).append((pred, ms))
+            ratios = {f"{k[0][1:]} {k[2]}": min(v)[1] / min(ms for _, ms in v) for k, v in picks.items()}
+            emit({"phase": "fused_fit", "direction": d, "dtype": str(dtype), "samples": len(keep),
+                  "coef": coef.tolist(), "pick_over_best": ratios,
+                  "pick_over_best_mean": sum(ratios.values()) / len(ratios)})
+
+
 def phase_bf16_kernel_check(pw, pool, ap, failures) -> dict:
     """The bfloat16 kernels against their plain versions on the card: the
     GEMM at every 1x1x1 conv of the I3D main path, forward (W the layers'
@@ -1638,6 +1786,7 @@ def phase_bf16_fused_gate_check(fb, gates, pool, pw, failures) -> dict:
                         "site": site, "shape": list(shape), "cout": cout, "relu": relu, **row,
                         "tol_reason": "one bf16 ulp of the largest magnitude",
                         "bound_ms": bms, "bound_by": by, "frame_vs_tblock": between,
+                        "plan": fb.plan(torch.bfloat16, name.endswith("tblock"), shape, cout)[d],
                     })
                     if not row["max_abs_err"] <= row["tol"]:
                         failures.append(f"{name}_{d}_bf16 {site} relu={relu}: err {row['max_abs_err']} > {row['tol']}")
@@ -1694,6 +1843,7 @@ def phase_bf16_fused_gate_check(fb, gates, pool, pw, failures) -> dict:
     for name, rows_ in cases.items():
         for row in rows_:
             emit({"phase": "bf16_kernel_check", "kernel": name, **row})
+    _fused_summary("bf16_kernel_check", cases)
     return cases
 
 
@@ -2000,4 +2150,6 @@ if __name__ == "__main__":
         sys.exit(determinism_child())
     if sys.argv[1:] == ["--bf16-width-sweep"]:
         sys.exit(bf16_width_sweep())
+    if sys.argv[1:] == ["--fused-sweep"]:
+        sys.exit(fused_sweep())
     sys.exit(main())

@@ -73,6 +73,8 @@
 #include <cstdint>
 #include <mutex>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kTileM = 64;     // rows of X and Y per block
@@ -176,46 +178,6 @@ struct TmaCfg {
   static constexpr int kSmemBytes = 1024 + kStages * kStageBytes + kOutBytes + kBarBytes;
   static_assert(kStages >= 2, "shared memory holds fewer than two stages");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// One TMA copy of a (c1, c0) box of `map` into shared memory at `dst`,
-// completing on the mbarrier `bar`; c0 is the contiguous coordinate.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
 
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
 // and stride byte offsets, all in 16-byte units.
@@ -471,7 +433,7 @@ pw_gemm_bf16_tma(const __grid_constant__ CUtensorMap xmap, const __grid_constant
       mbar_init(smem_u32(&full[s]), 1);
       mbar_init(smem_u32(&empty[s]), 256);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -630,29 +592,6 @@ pw_gemm_bf16_splitk_reduce(const float* __restrict__ part, int splits, const bf1
 }
 
 // ---- bfloat16 host side ----
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in the driver API: reached through the
-// runtime's entry-point query, so the library links no libcuda.
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiledFn>(p)
-                                                                 : nullptr;
-  }();
-  return fn;
-}
 
 // A bf16 array of `rows` rows of `cols` elements, `ld` elements apart, cut
 // into boxes of box_rows x box_cols with the 128-byte swizzle; zeros past

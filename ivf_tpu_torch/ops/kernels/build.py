@@ -4,7 +4,7 @@ Each ``csrc/<name>.cu`` exports plain C functions. At first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``ivf_tpu_torch/_build/lib<name>.so`` and loaded with ``ctypes``: no
 PyTorch headers, so a build takes seconds. A library is rebuilt when its
-source is newer than it. ``build`` compiles several sources at once, one
+source, or a header in ``csrc/`` (``*.cuh``), is newer than it. ``build`` compiles several sources at once, one
 ``nvcc`` process each, all started together.
 """
 
@@ -82,9 +82,13 @@ def build(names: Iterable[str]) -> Dict[str, str]:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing, or older than its source or any header in
+    ``csrc/`` (the sources include them)."""
     lib = library_path(name)
-    src = CSRC_DIR / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    inputs = [CSRC_DIR / f"{name}.cu", *CSRC_DIR.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -10,9 +10,13 @@ rule (``maxpool3d.py``)::
     gc = (g * [y != 0]) @ w^T          ([y != 0] only with the ReLU)
     dx = the pool's 27-term gather of gc against pool(x)
 
-On CUDA tensors each direction of each function runs its own kernel in
-``csrc/fused_branch3.cu``, which keeps the pooled tensor and ``gc`` out of
-device memory; on CPU tensors both run the plain versions below, the
+On CUDA tensors each direction runs a kernel of ``csrc/fused_branch3.cu``
+(one forward and one backward design; the two functions are two instances
+of each, a block covering one frame or a chunk of frames), which keeps the
+pooled tensor and ``gc`` out of device memory; the library plans each
+launch's tile, chunk and instance from the shape (``plan``, chosen among
+``candidates`` by a cost model fitted to ``chip_smoke.py --fused-sweep``,
+``cost_terms``). On CPU tensors both run the plain versions below, the
 pool's plain versions around a matmul. ``dw`` and ``db`` are plain
 PyTorch outside the kernels, as in JAX, from a recomputed pool, and only
 when autograd asks for them: the mask search freezes the weights.
@@ -87,7 +91,40 @@ def _lib() -> ctypes.CDLL:
             bwd = getattr(lib, f"fused_pool_conv_{variant}bwd_{suffix}")
             bwd.argtypes = [ctypes.c_void_p] * 5 + dims + [ctypes.c_void_p]
             bwd.restype = ctypes.c_int
+    # the plans (tile, chunk, instance) the launches take, and a way to
+    # force one (chip_smoke.py --fused-sweep)
+    lib.fused_branch3_force_plan.argtypes = [ctypes.c_int] * 7
+    lib.fused_branch3_plan.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.fused_branch3_candidates.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int]
+    lib.fused_branch3_cost_terms.argtypes = [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    for fn in (lib.fused_branch3_force_plan, lib.fused_branch3_plan, lib.fused_branch3_candidates,
+               lib.fused_branch3_cost_terms):
+        fn.restype = ctypes.c_int
     return lib
+
+
+def plan(dtype: torch.dtype, tblock: bool, shape, cout: int) -> dict:
+    """The plan the kernels take for x of ``shape`` (B, T, H, W, Cin):
+    the forward's instance and box (frames, rows, columns), the
+    backward's tile and chunk of frames."""
+    out = (ctypes.c_int * 7)()
+    rc = _lib().fused_branch3_plan(0 if dtype == torch.float32 else 1, int(tblock), *shape, cout, out)
+    if rc != 0:
+        raise RuntimeError(f"fused_branch3_plan failed with CUDA error {rc}")
+    return {"fwd": {"inst": out[0], "box": list(out[1:4])}, "bwd": {"tile": list(out[4:6]), "chunk": out[6]}}
+
+
+def candidates(dtype: torch.dtype, direction: str, shape, cout: int) -> list:
+    """The plans the launches choose from for x of ``shape`` (B, T, H, W,
+    Cin): forward (instance, (frames, rows, columns)), backward ((rows,
+    columns), chunk); the per-frame entries take those of 1 frame."""
+    out = (ctypes.c_int * 512)()
+    n = _lib().fused_branch3_candidates(0 if dtype == torch.float32 else 1, int(direction == "bwd"),
+                                        *shape[1:], cout, out, 128)
+    rows = [tuple(out[4 * k:4 * k + 4]) for k in range(n)]
+    if direction == "fwd":
+        return [(r[0], r[1:]) for r in rows]
+    return [(r[:2], r[2]) for r in rows]
 
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -249,3 +286,14 @@ def fused_pool_conv_tblock(
     """The same function as ``fused_pool_conv``, with the whole-sample
     kernels (each x voxel read about once per direction)."""
     return _FusedPoolConvTBlock.apply(x.contiguous(), w.contiguous(), b.contiguous(), relu)
+
+
+def cost_terms(dtype: torch.dtype, direction: str, shape, cout: int, plan) -> list:
+    """The terms of the planner's cost model for one plan (a ``candidates``
+    entry): its cost is their dot product with the constants of
+    ``csrc/fused_branch3.cu``. Empty if the plan does not fit."""
+    flat = [plan[0], *plan[1]] if direction == "fwd" else [*plan[0], plan[1], 0]
+    out = (ctypes.c_double * 6)()
+    n = _lib().fused_branch3_cost_terms(0 if dtype == torch.float32 else 1, int(direction == "bwd"), *shape,
+                                        cout, *flat, out)
+    return list(out[:n])

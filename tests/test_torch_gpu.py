@@ -84,22 +84,40 @@ FUSED = {
 }
 
 
-@pytest.mark.parametrize("shape,cout", [((2, 8, 28, 28, 192), 32), ((2, 2, 7, 7, 832), 128)],
-                         ids=["Mixed_3b", "Mixed_5b"])
+# the nine branch-3 sites of i3d_smth at 16x224x224 (batch 2), and ragged
+# shapes: odd H and W that are no tile's multiple, T = 1 and T = 2, Cin 20
+# (no 16-byte bf16 copies), Cout 24
+FUSED_CASES = {
+    "Mixed_3b": ((2, 8, 28, 28, 192), 32), "Mixed_3c": ((2, 8, 28, 28, 256), 64),
+    "Mixed_4b": ((2, 4, 14, 14, 480), 64), "Mixed_4c": ((2, 4, 14, 14, 512), 64),
+    "Mixed_4d": ((2, 4, 14, 14, 512), 64), "Mixed_4e": ((2, 4, 14, 14, 512), 64),
+    "Mixed_4f": ((2, 4, 14, 14, 528), 128), "Mixed_5b": ((2, 2, 7, 7, 832), 128),
+    "Mixed_5c": ((2, 2, 7, 7, 832), 128),
+    "T1_odd_Cin20": ((2, 1, 9, 11, 20), 24), "T2_odd_Cin20": ((1, 2, 13, 5, 20), 24),
+    "ragged_Cout24": ((2, 3, 17, 15, 48), 24),
+}
+
+
+def _fused_inputs(shape, cout, relu, seed, dtype=torch.float32):
+    gen = torch.Generator().manual_seed(seed)
+    x = _ties(shape, seed + 1) if relu else torch.randn(shape, generator=gen)
+    w = torch.randn(shape[-1], cout, generator=gen) / shape[-1] ** 0.5
+    b = torch.randn(cout, generator=gen) * 0.1
+    g = torch.randn(*shape[:-1], cout, generator=gen)
+    return (t.to(dtype).to("cuda") for t in (x, w, b, g))
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
 @pytest.mark.parametrize("variant", sorted(FUSED))
-def test_fused_branch3_kernels_match_plain(cuda_device, variant, shape, cout):
+def test_fused_branch3_kernels_match_plain(cuda_device, variant, case):
     """Forward within 1e-5 of the largest |y|, dx within 1e-5 of
     max(1, largest |dx|): the pool and the gather are exact, the GEMMs sum
     in another order than the plain matmul. Post-ReLU tie data with the
     ReLU, signed data without."""
     fwd, bwd = FUSED[variant]
-    gen = torch.Generator().manual_seed(3)
+    shape, cout = FUSED_CASES[case]
     for relu in (True, False):
-        x = _ties(shape, 4) if relu else torch.randn(shape, generator=gen)
-        x = x.to(cuda_device)
-        w = (torch.randn(shape[-1], cout, generator=gen) / shape[-1] ** 0.5).to(cuda_device)
-        b = (torch.randn(cout, generator=gen) * 0.1).to(cuda_device)
-        g = torch.randn(*shape[:-1], cout, generator=gen).to(cuda_device)
+        x, w, b, g = _fused_inputs(shape, cout, relu, 3)
         before = (fwd.launches, bwd.launches)
         y = fwd(x, w, b, relu)
         dx = bwd(x, y, g, w, relu)
@@ -109,6 +127,29 @@ def test_fused_branch3_kernels_match_plain(cuda_device, variant, shape, cout):
         dx_ref = tfb.fused_pool_conv_bwd_plain(x, y, g, w, relu)
         assert (y - y_ref).abs().max().item() <= 1e-5 * y_ref.abs().max().item()
         assert (dx - dx_ref).abs().max().item() <= 1e-5 * max(1.0, dx_ref.abs().max().item())
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+@pytest.mark.parametrize("variant", sorted(FUSED))
+def test_fused_branch3_kernels_give_the_unfused_pairs_bits(cuda_device, variant, case):
+    """float32: y and dx equal, bit for bit, what the unfused kernel pair
+    (maxpool3d_s1 + pointwise_conv, the ReLU mask between them) gives on
+    the same inputs: both add each output's terms in the same order."""
+    fwd, bwd = FUSED[variant]
+    shape, cout = FUSED_CASES[case]
+    n, cin = int(np.prod(shape[:-1])), shape[-1]
+    for relu in (True, False):
+        x, w, b, g = _fused_inputs(shape, cout, relu, 11)
+        y = fwd(x, w, b, relu)
+        dx = bwd(x, y, g, w, relu)
+        pooled = tpool.maxpool3d_s1_fwd_cuda(x)
+        y_pair = tpw.pointwise_conv_cuda(pooled.view(n, cin), w, b, relu).view(y.shape)
+        m = torch.where(y_pair != 0, g, 0.0) if relu else g
+        gc = tpw.pointwise_conv_cuda(m.reshape(n, cout), w.t().contiguous(), None, False)
+        dx_pair = tpool.maxpool3d_s1_bwd_cuda(x, pooled, gc.view(shape))
+        torch.cuda.synchronize()
+        assert torch.equal(y, y_pair)
+        assert torch.equal(dx, dx_pair)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
@@ -420,21 +461,17 @@ FUSED_BF16 = {
 }
 
 
-@pytest.mark.parametrize("shape,cout", [((4, 8, 28, 28, 192), 32), ((4, 2, 7, 7, 832), 128)],
-                         ids=["Mixed_3b", "Mixed_5c"])
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
 @pytest.mark.parametrize("variant", sorted(FUSED_BF16))
-def test_bf16_fused_branch3_kernels_match_plain(cuda_device, variant, shape, cout):
+def test_bf16_fused_branch3_kernels_match_plain(cuda_device, variant, case):
     """bf16 x, w, b: float32 sums in another order than the plain matmul,
     one rounding each, so y and dx are held within one bfloat16 ulp of
-    their largest magnitude; the float32 entries' counters do not move."""
+    their largest magnitude; a second launch gives equal bits; the
+    float32 entries' counters do not move."""
     fwd, bwd = FUSED_BF16[variant]
-    gen = torch.Generator().manual_seed(5)
+    shape, cout = FUSED_CASES[case]
     for relu in (True, False):
-        x = _ties(shape, 7) if relu else torch.randn(shape, generator=gen)
-        x = x.bfloat16().to(cuda_device)
-        w = (torch.randn(shape[-1], cout, generator=gen) / shape[-1] ** 0.5).bfloat16().to(cuda_device)
-        b = (torch.randn(cout, generator=gen) * 0.1).bfloat16().to(cuda_device)
-        g = torch.randn(*shape[:-1], cout, generator=gen).bfloat16().to(cuda_device)
+        x, w, b, g = _fused_inputs(shape, cout, relu, 5, torch.bfloat16)
         f32 = FUSED[variant]
         before = (fwd.launches, bwd.launches, f32[0].launches, f32[1].launches)
         y = fwd(x, w, b, relu)
@@ -448,6 +485,9 @@ def test_bf16_fused_branch3_kernels_match_plain(cuda_device, variant, shape, cou
         dx_ref = tfb.fused_pool_conv_bwd_plain(x, y, g, w, relu).float()
         assert (y.float() - y_ref).abs().max().item() <= BF16_ULP * y_ref.abs().max().item()
         assert (dx.float() - dx_ref).abs().max().item() <= BF16_ULP * dx_ref.abs().max().item()
+        y2, dx2 = fwd(x, w, b, relu), bwd(x, y, g, w, relu)
+        assert torch.equal(y2.view(torch.int16), y.view(torch.int16))
+        assert torch.equal(dx2.view(torch.int16), dx.view(torch.int16))
 
 
 def test_bf16_entries_raise_on_what_they_do_not_take(cuda_device):
