@@ -10,9 +10,12 @@ non-zero without the final line:
    per source, in parallel) and report the compiler's register/spill
    summary and the card's ``nvidia-smi`` name and power limit.
 2. kernel_check: each CUDA kernel against its plain PyTorch version on
-   the card, at the main paths' shapes and a ragged one, TF32 off; with
+   the card, at the main paths' shapes and ragged ones, TF32 off; with
    the kernel's time, the plain version's, one PyTorch library call's
    (a yardstick only) and the card's lower bound for the same work. The
+   float32 pointwise GEMM at every 1x1x1 conv of the I3D search step,
+   forward and dx, W in both layouts, with its plan and the sum over a
+   step's 40 launches (and the fused routes' 22). The
    four fused branch-3 kernels at all nine branch-3 sites, per-frame
    against whole-sample too, timed beside the unfused kernel pair, whose
    bits the float32 entries must give; a summary row per entry sums the
@@ -86,7 +89,17 @@ times the bf16 TMA GEMM at each column-tile width instead (see
 
     python3 chip_smoke.py --fused-sweep
 
-the fused branch-3 kernels under every candidate plan (``fused_sweep``).
+the fused branch-3 kernels under every candidate plan (``fused_sweep``),
+and
+
+    python3 chip_smoke.py --f32-tile-sweep
+
+the float32 GEMM under every tile instance (``f32_tile_sweep``), and
+
+    python3 chip_smoke.py --f32-compare DIR
+
+the float32 GEMM of the checkout in DIR against this one's, in turns
+(``f32_compare``).
 """
 
 from __future__ import annotations
@@ -313,42 +326,92 @@ def _ties(shape, gen, dev):
     return torch.relu(x).to(dev)
 
 
+def _f32_pw_case(pw, x, w, b, relu):
+    """One float32 pointwise case on the card: the kernel's output, the
+    plain version's, and the error of the kernel with W in the other
+    layout (the same values made contiguous along the other dimension)."""
+    w_other = w.t().contiguous().t() if w.stride(1) == 1 else w.contiguous()
+    y = pw.pointwise_conv_cuda(x, w, b, relu)
+    y_other = pw.pointwise_conv_cuda(x, w_other, b, relu)
+    ref = pw.pointwise_conv_plain(x, w, b, relu)
+    torch.cuda.synchronize()
+    err = max((y - ref).abs().max().item(), (y_other - ref).abs().max().item())
+    return err, 1e-5 * ref.abs().max().item(), w_other
+
+
 def phase_kernel_check(pw, pool, failures) -> dict:
+    """The float32 kernels against their plain versions. The pointwise GEMM
+    at every 1x1x1 conv of the I3D main path (batch 4), forward (W the
+    layers' column-major view of the (Cout, Cin) weight, bias, ReLU but at
+    the logits) and dx (W^T, row-major), each also with W in the other
+    layout, within 1e-5 of the largest output; device time per launch (W
+    as the main path passes it; inputs warm in L2), the other layout's,
+    the plain version's, ``torch.matmul``'s with TF32 off, the bound
+    (operations at 67 TFLOP/s against bytes at 3.35 TB/s), the launches
+    per search step and the plan; then the sum over a step's 40 launches
+    and over the 22 that the fused routes still make (no b3b). Then one
+    clip's batch and ragged shapes, with and without bias and ReLU. The
+    pool pair at two sites."""
+    from ivf_tpu_torch.precision import reference_numerics
+
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     cases = {"pointwise_conv": [], "maxpool3d_s1_fwd": [], "maxpool3d_s1_bwd": []}
     b = BATCH
-    pw_shapes = [  # the main path's batch, then one clip's, then ragged
-        ("Conv3d_2b", b * 8 * 56 * 56, 64, 64),
-        ("Mixed_3b_trio", b * 8 * 28 * 28, 192, 176),
-        ("logits", b, 1024, 174),
+    keys = ("ms", "library_ms", "plain_ms", "bound_ms")
+    step = {k: 0.0 for k in keys} | {"launches": 0}
+    fused_step = {k: 0.0 for k in keys} | {"launches": 0}
+    for site, n, cin, cout, per_step in pw_main_path():
+        wk = (torch.randn(cout, cin, generator=gen) / cin**0.5).to(dev)
+        bias = torch.randn(cout, generator=gen).to(dev)
+        relu = site != "logits"
+        for direction in ("fwd", "dx"):
+            if direction == "fwd":
+                x, w, bb, act, k, c = _ties((n, cin), gen, dev), wk.t(), bias, relu, cin, cout
+            else:  # m @ W^T: the forward's column-major view transposed is row-major
+                x, w, bb, act, k, c = torch.randn(n, cout, generator=gen).to(dev), wk, None, False, cout, cin
+            err, tol, w_other = _f32_pw_case(pw, x, w, bb, act)
+            bms, by = bound(4 * (n * k + k * c + (c if bb is not None else 0) + n * c), 2 * n * k * c)
+            with reference_numerics():
+                lib = device_ms(lambda: torch.matmul(x, w))
+            row = {
+                "site": site, "direction": direction, "shape": [n, k, c], "relu": act, "bias": bb is not None,
+                "max_abs_err": err, "tol": tol,
+                "ms": device_ms(lambda: pw.pointwise_conv_cuda(x, w, bb, act)),
+                "other_layout_ms": device_ms(lambda: pw.pointwise_conv_cuda(x, w_other, bb, act)),
+                "plain_ms": device_ms(lambda: pw.pointwise_conv_plain(x, w, bb, act), reps=3),
+                "library_ms": lib, "bound_ms": bms, "bound_by": by, "launches_per_step": per_step,
+                "plan": pw.f32_plan(n, k, c, x.stride(), x.data_ptr(), w.stride(), w.data_ptr()),
+            }
+            cases["pointwise_conv"].append(row)
+            sums = (step, fused_step) if "b3b" not in site else (step,)
+            for s in sums:
+                for key in keys:
+                    s[key] += per_step * row[key]
+                s["launches"] += per_step
+            if not err <= tol:
+                failures.append(f"pointwise_conv {site} {direction}: err {err} > {tol}")
+    emit({"phase": "kernel_check", "kernel": "pointwise_conv", "summary": "per search step", "batch": b,
+          **step, "fused_routes": fused_step})
+    extra = [  # one clip's batch, then ragged: n below every tile, Cin and Cout not multiples of 4
         ("Conv3d_2b/clip", 8 * 56 * 56, 64, 64),
         ("Mixed_3b_trio/clip", 8 * 28 * 28, 192, 176),
         ("logits/clip", 1, 1024, 174),
         ("ragged", 150, 112, 48),
+        ("ragged_odd", 1001, 174, 61),
     ]
-    for site, n, cin, cout in pw_shapes:
+    for site, n, cin, cout in extra:
         x = _ties((n, cin), gen, dev)
-        w = (torch.randn(cin, cout, generator=gen) / cin**0.5).to(dev)
+        wk = (torch.randn(cout, cin, generator=gen) / cin**0.5).to(dev)
         bias = torch.randn(cout, generator=gen).to(dev)
         for relu, use_bias in ((True, True), (False, False)):
             bb = bias if use_bias else None
-            y = pw.pointwise_conv_cuda(x, w, bb, relu)
-            ref = pw.pointwise_conv_plain(x, w, bb, relu)
-            torch.cuda.synchronize()
-            err = (y - ref).abs().max().item()
-            tol = 1e-5 * ref.abs().max().item()
-            nbytes = 4 * (n * cin + cin * cout + n * cout + (cout if use_bias else 0))
-            bms, by = bound(nbytes, 2 * n * cin * cout)
-            case = {
-                "site": site, "shape": [n, cin, cout], "relu": relu, "bias": use_bias,
+            err, tol, _ = _f32_pw_case(pw, x, wk.t(), bb, relu)
+            cases["pointwise_conv"].append({
+                "site": site, "direction": "fwd", "shape": [n, cin, cout], "relu": relu, "bias": use_bias,
                 "max_abs_err": err, "tol": tol,
-                "ms": cuda_ms(lambda: pw.pointwise_conv_cuda(x, w, bb, relu)),
-                "plain_ms": cuda_ms(lambda: pw.pointwise_conv_plain(x, w, bb, relu)),
-                "library_ms": cuda_ms(lambda: torch.matmul(x, w)),
-                "bound_ms": bms, "bound_by": by,
-            }
-            cases["pointwise_conv"].append(case)
+                "plan": pw.f32_plan(n, cin, cout, x.stride(), x.data_ptr(), wk.t().stride(), wk.data_ptr()),
+            })
             if not err <= tol:
                 failures.append(f"pointwise_conv {site} relu={relu} bias={use_bias}: err {err} > {tol}")
 
@@ -1460,6 +1523,162 @@ def bf16_width_sweep() -> int:
     return 1 if bad else 0
 
 
+def f32_tile_sweep() -> int:
+    """``python3 chip_smoke.py --f32-tile-sweep``: the float32 GEMM at every
+    1x1x1 conv of the main path (batch 4), forward (W the layers'
+    column-major view) and dx (W^T, row-major), under every tile of
+    ``pointwise_conv.F32_TILES`` and, at few rows, the rows kernel, each
+    forced through ``pointwise_conv_cuda(..., tile=)``: device ms (the
+    larger of two readings: the profiler now and then drops a kernel's
+    events), the error against the plain version within 1e-5 of the
+    largest output, and equal bits across tiles (each output is one fmaf
+    chain in K order whichever tile computes it); beside the planner's
+    pick. Then ``f32_fit``: per tile, the least-squares constants of
+    ``pointwise_conv.F32_COST`` (weighted to relative error; M the best of
+    1-4) and how close the refitted planner's picks come to the fastest
+    tile. The data behind ``F32_COST``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from ivf_tpu_torch.ops.kernels import pointwise_conv as pw
+
+    dev, bad, samples = torch.device("cuda"), [], []
+    gen = torch.Generator().manual_seed(23)
+    emit({"phase": "f32_tile_sweep", "nvidia_smi": nvidia_smi()})
+    for site, n, cin, cout, per_step in pw_main_path():
+        wk = (torch.randn(cout, cin, generator=gen) / cin**0.5).to(dev)
+        bias = torch.randn(cout, generator=gen).to(dev)
+        relu = site != "logits"
+        for direction in ("fwd", "dx"):
+            if direction == "fwd":
+                x, w, b, act, k, c = _ties((n, cin), gen, dev), wk.t(), bias, relu, cin, cout
+            else:
+                x, w, b, act, k, c = torch.randn(n, cout, generator=gen).to(dev), wk, None, False, cout, cin
+            ref = pw.pointwise_conv_plain(x, w, b, act)
+            tol = 1e-5 * ref.abs().max().item()
+            tiles = (["rows"] if n <= pw.F32_ROWS_MAX else []) + list(pw.F32_TILES)
+            times, first = {}, None
+            for tile in tiles:
+                def call(tile=tile):
+                    return pw.pointwise_conv_cuda(x, w, b, act, tile=tile)
+
+                y = call()
+                torch.cuda.synchronize()
+                err = (y - ref).abs().max().item()
+                first = y if first is None else first
+                same = bool(torch.equal(y, first))
+                times[tile] = {"ms": max(device_ms(call, reps=10), device_ms(call, reps=10)), "err": err,
+                               "bits_equal": same}
+                if not (err <= tol and same):
+                    bad.append(f"{site} {direction} tile {tile}: err {err} > {tol} or bits {same}")
+                if tile != "rows":
+                    samples.append((n, k, c, tile, times[tile]["ms"]))
+            chosen = pw.f32_plan(n, k, c, x.stride(), x.data_ptr(), w.stride(), w.data_ptr())["tile"]
+            best = min(times, key=lambda t: times[t]["ms"])
+            emit({"phase": "f32_tile_sweep", "site": site, "direction": direction, "shape": [n, k, c],
+                  "launches_per_step": per_step, "tiles": times, "chosen": chosen,
+                  "chosen_ms": times[chosen]["ms"], "best": best, "best_ms": times[best]["ms"]})
+    _fit_f32_costs(pw, samples)
+    for f in bad:
+        print(f"chip_smoke FAILED: {f}", file=sys.stderr)
+    return 1 if bad else 0
+
+
+def _fit_f32_costs(pw, samples) -> None:
+    """Per tile, the constants of ``pointwise_conv.F32_COST``: time (us) =
+    C0 + slabs * (C1 * b + C2 * ceil(b / R)), b the blocks of the busiest
+    SM, fitted non-negative and weighted to relative error, R the best of
+    1-6; then, over the swept shapes of more than ``F32_ROWS_MAX`` rows,
+    the refitted model's pick against the fastest tile."""
+    import numpy as np
+    from scipy.optimize import nnls
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cdiv = pw._cdiv
+    fitted = {}
+    for tile, (bm, bn, _, _) in pw.F32_TILES.items():
+        rows = [(n, k, c, ms) for n, k, c, t, ms in samples if t == tile and ms > 0 and n > pw.F32_ROWS_MAX]
+        y = np.array([ms * 1e3 for *_, ms in rows])
+        best = None
+        for r in range(1, 7):
+            x = []
+            for n, k, c, _ in rows:
+                slabs, busiest = cdiv(k, pw.F32_SLAB), cdiv(cdiv(n, bm) * cdiv(c, bn), sms)
+                x.append([1.0, slabs * busiest, slabs * cdiv(busiest, r)])
+            coef, res = nnls(np.array(x) / y[:, None], np.ones_like(y))
+            if best is None or res < best[0]:
+                best = (res, [round(v, 4) for v in coef], r)
+        fitted[tile] = (*best[1], best[2])
+    saved = dict(pw.F32_COST)
+    pw.F32_COST.update(fitted)
+    try:
+        shapes = {(n, k, c) for n, k, c, *_ in samples if n > pw.F32_ROWS_MAX}
+        ratios, picked, fastest = {}, 0.0, 0.0
+        for n, k, c in sorted(shapes):
+            ms = {t: v for n_, k_, c_, t, v in samples if (n_, k_, c_) == (n, k, c)}
+            pick = pw.f32_plan(n, k, c, (k, 1), 0, (1, k), 0, sms)["tile"]
+            ratios[f"{n}x{k}x{c}"] = ms[pick] / min(ms.values())
+            picked += ms[pick]
+            fastest += min(ms.values())
+    finally:
+        pw.F32_COST.clear()
+        pw.F32_COST.update(saved)
+    emit({"phase": "f32_fit", "F32_COST": fitted, "pick_over_best": ratios,
+          "pick_over_best_mean": sum(ratios.values()) / len(ratios), "picked_ms": picked, "fastest_ms": fastest})
+
+
+def f32_compare(other: str) -> int:
+    """``python3 chip_smoke.py --f32-compare DIR``: the float32 GEMM's rows
+    of ``phase_kernel_check`` on the checkout in DIR (say, the parent
+    commit's, unpacked) and on this one, in turns (DIR, this, this, DIR),
+    each in a child process that imports its own ``ivf_tpu_torch`` and
+    builds its kernels: per site and direction the mean device ms of each
+    side's two turns, ``torch.matmul``'s and the bound, then the sums over
+    a search step."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    here = str(Path(__file__).resolve().parent)
+    sides = {"other": [], "this": []}
+    emit({"phase": "f32_compare", "other": str(Path(other).resolve()), "nvidia_smi": nvidia_smi()})
+    for side, root in (("other", other), ("this", here), ("this", here), ("other", other)):
+        out = subprocess.run([sys.executable, __file__, "--f32-rows", root], capture_output=True, text=True,
+                             timeout=900)
+        if out.returncode != 0:
+            print(f"chip_smoke FAILED: --f32-rows {root}\n{out.stdout[-2000:]}{out.stderr[-2000:]}", file=sys.stderr)
+            return 1
+        lines = [json.loads(ln) for ln in out.stdout.splitlines() if ln.startswith("{")]
+        sides[side].append({(r["site"], r["direction"]): r for r in lines
+                            if r.get("kernel") == "pointwise_conv" and "ms" in r and "summary" not in r})
+    mean = lambda runs, key, field: sum(r[key][field] for r in runs) / len(runs)  # noqa: E731
+    sums = {"other_ms": 0.0, "this_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "launches": 0}
+    for key, row in sides["this"][0].items():
+        cmp_row = {"other_ms": mean(sides["other"], key, "ms"), "this_ms": mean(sides["this"], key, "ms"),
+                   "library_ms": mean(sides["this"], key, "library_ms"), "bound_ms": row["bound_ms"]}
+        for k, v in cmp_row.items():
+            sums[k] += row["launches_per_step"] * v
+        sums["launches"] += row["launches_per_step"]
+        emit({"phase": "f32_compare", "site": key[0], "direction": key[1], "shape": row["shape"],
+              "launches_per_step": row["launches_per_step"], "plan": row["plan"], **cmp_row,
+              "this_turns_ms": [r[key]["ms"] for r in sides["this"]]})
+    emit({"phase": "f32_compare", "summary": "per search step", **sums})
+    return 0
+
+
+def f32_rows(root: str) -> int:
+    """The child of ``f32_compare``: ``phase_kernel_check`` on the
+    ``ivf_tpu_torch`` of the checkout at ``root``."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    from ivf_tpu_torch.ops.kernels import build, maxpool3d as pool, pointwise_conv as pw
+
+    build.build(["pointwise_conv", "maxpool3d"])
+    if not hasattr(pw, "f32_plan"):  # a checkout from before the float32 planner
+        pw.f32_plan = lambda *args, **kwargs: None
+    failures: list = []
+    phase_kernel_check(pw, pool, failures)
+    return 1 if failures else 0
+
+
 def fused_sweep() -> int:
     """``python3 chip_smoke.py --fused-sweep``: the fused branch-3 kernels
     at every distinct branch-3 shape of the main path (batch 4, ReLU on),
@@ -2152,4 +2371,10 @@ if __name__ == "__main__":
         sys.exit(bf16_width_sweep())
     if sys.argv[1:] == ["--fused-sweep"]:
         sys.exit(fused_sweep())
+    if sys.argv[1:] == ["--f32-tile-sweep"]:
+        sys.exit(f32_tile_sweep())
+    if len(sys.argv) == 3 and sys.argv[1] == "--f32-compare":
+        sys.exit(f32_compare(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--f32-rows":
+        sys.exit(f32_rows(sys.argv[2]))
     sys.exit(main())

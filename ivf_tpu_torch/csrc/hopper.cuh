@@ -1,6 +1,6 @@
 // Hopper (sm_90a) helpers shared by the CUDA sources of ivf_tpu_torch:
-// shared-memory addresses, mbarriers, TMA tensor copies that complete on
-// them, and the host's encoding of tensor maps.
+// shared-memory addresses, mbarriers, cp.async copies, TMA tensor copies
+// that complete on mbarriers, and the host's encoding of tensor maps.
 
 #pragma once
 
@@ -50,6 +50,31 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
 // before its later async-proxy (bulk, TMA) writes to it.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// cp.async: 16 bytes (.cg, past L1) or 4 bytes (.ca) from device memory into
+// shared memory; the first `src_bytes` come from `src`, the rest are zeros
+// (src is not read when src_bytes is 0).
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // One TMA copy of a (c1, c0) box of `map` into shared memory at `dst`,

@@ -8,18 +8,46 @@
 // 128-lane tile. Its VJP reuses it for dx = m @ W^T; so does this one
 // (ivf_tpu_torch/ops/kernels/pointwise_conv.py).
 //
-// float32 (pw_gemm_f32). X is (N, Cin) with N = B*T*H*W, W is (Cin, Cout).
-// It does Cin*Cout / (2*(Cin + Cout)) FLOPs per byte of X and Y, 16 for the
-// 64 -> 64 Conv3d_2b and ~46 for the 192 -> 176 trio of Mixed_3b. Against
-// the card's float32 CUDA-core ridge (67 TFLOP/s over 3.35 TB/s = 20
-// FLOP/byte) the Inception 1x1x1 convs are bound by operations, Conv3d_2b
-// and the N = B logits head by bytes. Design: one 256-thread block per
-// 64 x 64 tile of Y; K in slabs of 16 staged through shared memory (X
-// K-major so the inner loop reads a broadcast row); a 4 x 4 fmaf
-// micro-tile per thread; bias and ReLU in registers before the one store;
-// ragged edges masked, no padded copies. It still lacks tensor cores
-// (TF32 wgmma), TMA and double-buffered slabs, and takes W only as a
-// contiguous (Cin, Cout) array (its wrapper makes the copy).
+// float32 (pw_gemm_f32, pw_gemm_f32_rows). X is (N, Cin) with N = B*T*H*W,
+// W is (Cin, Cout). It does Cin*Cout / (2*(Cin + Cout)) FLOPs per byte of X
+// and Y, 16 for the 64 -> 64 Conv3d_2b and ~46 for the 192 -> 176 trio of
+// Mixed_3b. Against the card's float32 CUDA-core ridge (67 TFLOP/s over
+// 3.35 TB/s = 20 FLOP/byte) the Inception 1x1x1 convs are bound by
+// operations, Conv3d_2b and the N = B logits head by bytes. The port's
+// float32 is exact, and the fused branch 3 (fused_branch3.cu) gives this
+// kernel's bits, so there are no tensor cores (TF32) and no split of K:
+// every output is one fmaf chain over K in ascending order from +0, then
+// + bias, then the ReLU. The speed comes from parallelism over outputs:
+//   pw_gemm_f32<F32Tile, WK>: a register-blocked CUDA-core GEMM, one
+//   block per BM x BN tile of Y, TM x TN outputs per thread, each warp 4 x
+//   8 threads. A 16-byte shared load costs the SM's shared-memory path 4
+//   cycles whatever its broadcast, so the fmaf a load feeds set the rate:
+//   8 x 4 per thread on the wide tiles (12 loads per 128 fmaf, within the
+//   registers that let 3-4 blocks share an SM; 8 x 8 held fewer blocks and
+//   ran slower), 4 x 4 and 2 x 4 on the narrow ones, which the few-row
+//   shapes need to fill the SMs. K comes in 32-deep slabs through a 2-4
+//   stage ring in shared memory filled by cp.async (16-byte copies where
+//   the rows are aligned, 4-byte ones otherwise, zeros past the ragged
+//   edges); the copies of slab k + STAGES - 1 run during the math of slab
+//   k, one barrier per slab. Each thread's copies are worked out once, so
+//   that a full slab costs a few instructions a copy (the per-copy address
+//   and edge arithmetic had taken as many instructions as the fmaf of a 4 x
+//   4 tile). X is staged as it is (K contiguous, a 36-float pitch) and read
+//   4 K values per 16-byte load; W is read as stored, in either layout:
+//   MN-major (the dx launch's W^T) staged as it is and read as float4 rows;
+//   K-major (the layers' view of the (Cout, Cin) weight) staged with its
+//   columns permuted so that a quarter warp reads 8 consecutive rows of the
+//   36-float pitch: every fragment read is conflict-free. The 4 x 4 and
+//   2 x 4 tiles read the next K chunk's fragments during this chunk's fmaf.
+//   Epilogue: bias, ReLU, 16-byte stores where Y's rows allow, ragged rows
+//   and columns masked. Five tile instances, wide (128 x 64) to narrow (32
+//   x 32): the wrapper's planner (f32_plan) picks one from the shape, by a
+//   cost model fitted to `chip_smoke.py --f32-tile-sweep`.
+//   pw_gemm_f32_rows: few rows (the logits head, N = batch). One warp per
+//   4 rows x 8 columns, one output a lane, its chain over the whole of K;
+//   8 columns a block spread W over many SMs. X and W come in 128-deep
+//   slabs through a 6-stage cp.async ring (16-byte copies along W's
+//   contiguous dimension: W is read coalesced in either layout).
 //
 // bfloat16: the Pallas kernel's bf16 arithmetic -- bf16 operands, float32
 // accumulation, the bias upcast and added in float32, the ReLU, one
@@ -77,79 +105,432 @@
 
 namespace {
 
-constexpr int kTileM = 64;     // rows of X and Y per block
-constexpr int kTileN = 64;     // columns of W and Y per block
-constexpr int kTileK = 16;     // depth of one shared-memory slab
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+// ---- float32 ----
 
-__global__ void __launch_bounds__(kThreads)
-pw_gemm_f32(const float* __restrict__ x, const float* __restrict__ w,
-            const float* __restrict__ bias, float* __restrict__ y,
-            long long n, int cin, int cout, int relu) {
-  __shared__ float xs[kTileK][kTileM + 1];
-  __shared__ float ws[kTileK][kTileN];
+constexpr int kF32BK = 32;              // K per slab: 8 chunks of 4 floats
+constexpr int kF32Pitch = kF32BK + 4;   // floats per staged row of a K-contiguous slab
 
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kTileM;
-  const int col0 = blockIdx.y * kTileN;
+// A block tile of BM x BN outputs, TM x TN per thread, STAGES K slabs in
+// the ring, at least MIN_BLOCKS blocks resident per SM (the register cap;
+// MIN_BLOCKS_K with W K-major, whose fragments take more registers).
+// Thread (tx, ty) owns rows i * kRows + ty and columns g * 4 * kCols + 4 tx
+// + q (runs of 4, for float4 reads of W MN-major and float4 stores). The
+// 32 lanes of a warp are 4 thread rows x 8 thread columns: a fragment load
+// reads 4 distinct X rows and 8 distinct W runs (a quarter warp: 1 and 8,
+// in distinct banks). kPipe: the next K chunk's fragments are read while
+// this chunk's fmaf run (the small tiles, where the registers allow it).
+template <int BM_, int BN_, int TM_, int TN_, int STAGES_, int MIN_BLOCKS_, int MIN_BLOCKS_K_ = MIN_BLOCKS_>
+struct F32Tile {
+  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_, kStages = STAGES_;
+  static constexpr int kMinBlocks = MIN_BLOCKS_, kMinBlocksK = MIN_BLOCKS_K_;
+  static constexpr int kCols = BN / TN;
+  static constexpr int kRows = BM / TM;
+  static constexpr int kThreads = kCols * kRows;
+  static constexpr int kGroups = TN / 4;
+  static constexpr bool kPipe = TM * TN <= 16;
+  // X slab: BM rows of kF32Pitch. W slab, K-major: BN rows of kF32Pitch;
+  // MN-major: kF32BK rows of BN
+  static constexpr int kAFloats = BM * kF32Pitch;
+  static constexpr int kBFloats = BN * kF32Pitch;
+  static constexpr int kStageFloats = kAFloats + kBFloats;
+  static constexpr int kSmemBytes = kStages * kStageFloats * 4;
+  static_assert(TN % 4 == 0 && BM % TM == 0 && BN % TN == 0 && kCols % 8 == 0 && kRows % 4 == 0 &&
+                    kStages >= 2,
+                "warps of 4 x 8 threads");
+  static_assert(BM * 8 % kThreads == 0 && BN * 8 % kThreads == 0 && kThreads % (BN / 4) == 0 &&
+                    kF32BK * (BN / 4) % kThreads == 0 && kThreads % 32 == 0,
+                "every thread copies the same number of 16-byte pieces of a slab");
+};
 
-  float acc[4][4];
+// The instances, by the index the wrapper passes (pointwise_conv.F32_TILES).
+using F32Tile0 = F32Tile<128, 64, 8, 4, 3, 2>;
+using F32Tile1 = F32Tile<64, 64, 8, 4, 3, 4, 3>;
+using F32Tile2 = F32Tile<64, 32, 4, 4, 4, 4>;
+using F32Tile3 = F32Tile<32, 32, 4, 4, 4, 6>;
+using F32Tile4 = F32Tile<32, 32, 2, 4, 4, 4>;
+constexpr int kF32Tiles = 5;
+
+// bit 0: X's rows 16-byte aligned (16-byte copies), bit 1: W likewise along
+// its contiguous dimension, bit 2: Y's rows (float4 stores)
+constexpr int kVecX = 1, kVecW = 2, kVecY = 4;
+
+__device__ __forceinline__ int clamp4(int v) { return v < 0 ? 0 : (v > 4 ? 4 : v); }
+
+// Copies 4 consecutive elements of a row into 16 aligned bytes of shared
+// memory: one 16-byte copy when `vec` (src 16-byte aligned, stride 1), four
+// 4-byte copies of elements `stride` apart otherwise; elements at or past
+// `valid` (0..4) are zeros. `base` stands in for src where nothing is read.
+__device__ __forceinline__ void copy4(float* dst, const float* src, long long stride, int valid, bool vec,
+                                      const float* base) {
+  if (vec) {
+    cp_async16_zfill(dst, valid > 0 ? src : base, 4 * valid);
+  } else {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int q = 0; q < 4; ++q) cp_async4_zfill(dst + q, q < valid ? src + q * stride : base, q < valid ? 4 : 0);
   }
+}
 
-  for (int k0 = 0; k0 < cin; k0 += kTileK) {
-    for (int e = threadIdx.x; e < kTileM * kTileK; e += kThreads) {
-      const int r = e / kTileK;
-      const int c = e % kTileK;
-      const long long gr = row0 + r;
-      const int gc = k0 + c;
-      xs[c][r] = (gr < n && gc < cin) ? x[gr * cin + gc] : 0.f;
+__device__ __forceinline__ float lane4(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// The staged row of W K-major that holds the thread's column j = 4 g + q:
+// column c sits in row (c % 4) * BN / 4 + c / 4.
+template <class T>
+__device__ __forceinline__ int b_row(int tx, int j) {
+  return (j % 4) * (T::BN / 4) + (j / 4) * T::kCols + tx;
+}
+
+// acc[i][j] += the 4 K values of a[i] times those of b, in K order.
+template <class T>
+__device__ __forceinline__ void fma_column(float (&acc)[T::TM][T::TN], const float4 (&a)[T::TM], const float4& b,
+                                           int j) {
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i) {
+    float& d = acc[i][j];
+    d = fmaf(a[i].x, b.x, d);
+    d = fmaf(a[i].y, b.y, d);
+    d = fmaf(a[i].z, b.z, d);
+    d = fmaf(a[i].w, b.w, d);
+  }
+}
+
+// acc[i][4 g + q] += a[i] at K value kk times the run b[g] at that K value.
+template <class T>
+__device__ __forceinline__ void fma_row(float (&acc)[T::TM][T::TN], const float4 (&a)[T::TM],
+                                        const float4 (&b)[T::kGroups], int kk) {
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i) {
+    const float av = lane4(a[i], kk);
+#pragma unroll
+    for (int g = 0; g < T::kGroups; ++g) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][4 * g + q] = fmaf(av, lane4(b[g], q), acc[i][4 * g + q]);
     }
-    for (int e = threadIdx.x; e < kTileK * kTileN; e += kThreads) {
-      const int r = e / kTileN;
-      const int c = e % kTileN;
-      const int gr = k0 + r;
-      const int gc = col0 + c;
-      ws[r][c] = (gr < cin && gc < cout)
-                     ? w[static_cast<long long>(gr) * cout + gc]
-                     : 0.f;
+  }
+}
+
+// K chunk kc's fragments: a[i], 4 K values of row i; K-major, b[j] the 4 K
+// values of column j; MN-major, b[kk * kGroups + g] the run g at K value
+// 4 kc + kk.
+template <class T, bool WK>
+__device__ __forceinline__ void load_frags(const float* as, const float* bs, int tx, int kc, float4 (&a)[T::TM],
+                                           float4 (&b)[T::TN]) {
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i) a[i] = *reinterpret_cast<const float4*>(as + i * T::kRows * kF32Pitch + 4 * kc);
+#pragma unroll
+  for (int j = 0; j < T::TN; ++j) {
+    b[j] = WK ? *reinterpret_cast<const float4*>(bs + b_row<T>(tx, j) * kF32Pitch + 4 * kc)
+              : *reinterpret_cast<const float4*>(bs + (4 * kc + j / T::kGroups) * T::BN +
+                                                 (j % T::kGroups) * 4 * T::kCols + 4 * tx);
+  }
+}
+
+template <class T, bool WK>
+__device__ __forceinline__ void fma_frags(float (&acc)[T::TM][T::TN], const float4 (&a)[T::TM],
+                                          const float4 (&b)[T::TN]) {
+  if constexpr (WK) {
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j) fma_column<T>(acc, a, b[j], j);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float4 run[T::kGroups];
+#pragma unroll
+      for (int g = 0; g < T::kGroups; ++g) run[g] = b[kk * T::kGroups + g];
+      fma_row<T>(acc, a, run, kk);
     }
-    __syncthreads();
+  }
+}
+
+// Y (n, cout) = act(X (n, cin) @ W + bias). X[r, k] at x[r * ldx + k]; W[k,
+// c] at w[k * swk + c * swc]. WK: the W slab is staged K-major (W's K
+// stride is 1, or neither stride is when 16-byte copies are off), else
+// MN-major. Block b takes row tile b / col_tiles, column tile b % col_tiles.
+template <class T, bool WK>
+__global__ void __launch_bounds__(T::kThreads, WK ? T::kMinBlocksK : T::kMinBlocks)
+pw_gemm_f32(const float* __restrict__ x, long long ldx, const float* __restrict__ w, long long swk,
+            long long swc, const float* __restrict__ bias, float* __restrict__ y, int n, int cin, int cout,
+            int col_tiles, int relu, int vec) {
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int tx = (warp % (T::kCols / 8)) * 8 + lane % 8;
+  const int ty = (warp / (T::kCols / 8)) * 4 + lane / 8;
+  const int row0 = (blockIdx.x / col_tiles) * T::BM;
+  const int col0 = (blockIdx.x % col_tiles) * T::BN;
+  const int kslabs = (cin + kF32BK - 1) / kF32BK;
+  const bool xvec = vec & kVecX, wvec = vec & kVecW;
+
+  // The thread's copies of a slab, the same in every slab but for K: X
+  // rows (tid / 8) + t * kStep (t < kXCopies) and W columns (K-major) the
+  // same, at K piece tid % 8; W MN-major: K rows tid / (BN / 4) + t *
+  // kKStep at column run tid % (BN / 4). Their sources and destinations
+  // are worked out once; a full slab with 16-byte rows then costs a few
+  // instructions a copy (the generic loop below, per element, takes the
+  // last slab of a ragged K and unaligned operands).
+  constexpr int kStep = T::kThreads / 8, kKStep = T::kThreads / (T::BN / 4);
+  constexpr int kXCopies = T::BM / kStep, kWCopies = WK ? T::BN / kStep : kF32BK / kKStep;
+  const bool fast = xvec && wvec;
+  const int kq = tid % 8;
+  const float* xp = x + static_cast<long long>(row0 + tid / 8) * ldx + 4 * kq;
+  const int x_rows = n - row0 - tid / 8;  // copy t has a row while t * kStep < x_rows
+  const int x_dst = (tid / 8) * kF32Pitch + 4 * kq;
+  const int wc = WK ? tid / 8 : 4 * (tid % (T::BN / 4));  // K-major: column; MN-major: first of the run
+  const float* wp = WK ? w + static_cast<long long>(col0 + wc) * swc + 4 * kq
+                       : w + static_cast<long long>(tid / (T::BN / 4)) * swk + (col0 + wc);
+  const int w_lim = WK ? cout - col0 - wc : 4 * clamp4(cout - col0 - wc);  // K-major: columns; MN: bytes
+  const int w_dst = WK ? ((wc & 3) * (T::BN / 4) + (wc >> 2)) * kF32Pitch + 4 * kq
+                       : (tid / (T::BN / 4)) * T::BN + wc;
+
+  // the copies of slab kb into its stage: X rows as they are; W K-major
+  // with column c in row (c % 4) * BN / 4 + c / 4, so that the 8 lanes of a
+  // quarter warp, which read columns 4 tx + q, hit 8 rows in a row of the
+  // 36-float pitch (conflict-free 16-byte reads); W MN-major as it is
+  auto load_slab = [&](int kb) {
+    float* as = smem + (kb % T::kStages) * T::kStageFloats;
+    float* bs = as + T::kAFloats;
+    const int k0 = kb * kF32BK;
+    if (fast && k0 + kF32BK <= cin) {
 #pragma unroll
-    for (int k = 0; k < kTileK; ++k) {
-      float a[4];
-      float b[4];
+      for (int t = 0; t < kXCopies; ++t) {
+        const bool ok = t * kStep < x_rows;
+        cp_async16_zfill(as + x_dst + t * kStep * kF32Pitch, ok ? xp + t * kStep * ldx + k0 : x, ok ? 16 : 0);
+      }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int t = 0; t < kWCopies; ++t) {
+        if constexpr (WK) {  // swk is 1: 16-byte copies along K
+          const bool ok = t * kStep < w_lim;
+          cp_async16_zfill(bs + w_dst + t * (kStep / 4) * kF32Pitch, ok ? wp + t * kStep * swc + k0 : w,
+                           ok ? 16 : 0);
+        } else {
+          cp_async16_zfill(bs + w_dst + t * kKStep * T::BN, w_lim > 0 ? wp + (k0 + t * kKStep) * swk : w, w_lim);
+        }
+      }
+      return;
+    }
+    for (int e = tid; e < T::BM * 8; e += T::kThreads) {
+      const int r = e >> 3, gk = k0 + 4 * (e & 7);
+      const int gr = row0 + r;
+      copy4(as + r * kF32Pitch + (gk - k0), x + static_cast<long long>(gr) * ldx + gk, 1,
+            gr < n ? clamp4(cin - gk) : 0, xvec, x);
+    }
+    if constexpr (WK) {
+      for (int e = tid; e < T::BN * 8; e += T::kThreads) {
+        const int c = e >> 3, gk = k0 + 4 * (e & 7);
+        const int gc = col0 + c;
+        copy4(bs + ((c & 3) * (T::BN / 4) + (c >> 2)) * kF32Pitch + (gk - k0),
+              w + static_cast<long long>(gc) * swc + static_cast<long long>(gk) * swk, swk,
+              gc < cout ? clamp4(cin - gk) : 0, wvec, w);
+      }
+    } else {
+      for (int e = tid; e < kF32BK * (T::BN / 4); e += T::kThreads) {
+        const int kr = e / (T::BN / 4), c = 4 * (e % (T::BN / 4));
+        const int gk = k0 + kr, gc = col0 + c;
+        copy4(bs + kr * T::BN + c, w + static_cast<long long>(gk) * swk + static_cast<long long>(gc) * swc, swc,
+              gk < cin ? clamp4(cout - gc) : 0, wvec, w);
       }
     }
-    __syncthreads();
+  };
+
+  float acc[T::TM][T::TN];
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i) {
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j) acc[i][j] = 0.f;
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long r = row0 + ty + 16 * i;
-    if (r >= n) continue;
+  for (int s = 0; s < T::kStages - 1; ++s) {
+    if (s < kslabs) load_slab(s);
+    cp_async_commit();
+  }
+  for (int kb = 0; kb < kslabs; ++kb) {
+    cp_async_wait<T::kStages - 2>();  // this thread's copies of slab kb have landed
+    __syncthreads();                  // everyone's have, and slab kb - 1's stage is free
+    if (kb + T::kStages - 1 < kslabs) load_slab(kb + T::kStages - 1);
+    cp_async_commit();
+    const float* as = smem + (kb % T::kStages) * T::kStageFloats + ty * kF32Pitch;
+    const float* bs = smem + (kb % T::kStages) * T::kStageFloats + T::kAFloats;
+    if constexpr (T::kPipe) {
+      float4 fa[2][T::TM], fb[2][T::TN];
+      load_frags<T, WK>(as, bs, tx, 0, fa[0], fb[0]);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx + 16 * j;
-      if (c >= cout) continue;
-      float v = acc[i][j];
-      if (bias != nullptr) v += bias[c];
-      if (relu && v < 0.f) v = 0.f;
-      y[r * cout + c] = v;
+      for (int kc = 0; kc < kF32BK / 4; ++kc) {
+        if (kc + 1 < kF32BK / 4) load_frags<T, WK>(as, bs, tx, kc + 1, fa[(kc + 1) & 1], fb[(kc + 1) & 1]);
+        fma_frags<T, WK>(acc, fa[kc & 1], fb[kc & 1]);
+      }
+    } else {
+#pragma unroll
+      for (int kc = 0; kc < kF32BK / 4; ++kc) {
+        // 4 K values of each of the thread's rows, then each output's 4 fmaf
+        // in K order; W's fragment a column (K-major) or a K value (MN-major)
+        // at a time, to stay within the registers
+        float4 a[T::TM];
+#pragma unroll
+        for (int i = 0; i < T::TM; ++i) {
+          a[i] = *reinterpret_cast<const float4*>(as + i * T::kRows * kF32Pitch + 4 * kc);
+        }
+        if constexpr (WK) {
+#pragma unroll
+          for (int j = 0; j < T::TN; ++j) {
+            const float4 b = *reinterpret_cast<const float4*>(bs + b_row<T>(tx, j) * kF32Pitch + 4 * kc);
+            fma_column<T>(acc, a, b, j);
+          }
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            float4 b[T::kGroups];
+#pragma unroll
+            for (int g = 0; g < T::kGroups; ++g) {
+              b[g] = *reinterpret_cast<const float4*>(bs + (4 * kc + kk) * T::BN + g * 4 * T::kCols + 4 * tx);
+            }
+            fma_row<T>(acc, a, b, kk);
+          }
+        }
+      }
     }
   }
+  cp_async_wait<0>();
+
+  // epilogue: + bias, ReLU, 16-byte stores where Y's rows allow
+  const bool yvec = vec & kVecY;
+#pragma unroll
+  for (int g = 0; g < T::kGroups; ++g) {
+    const int c = col0 + g * 4 * T::kCols + 4 * tx;
+    if (c >= cout) continue;
+    float bv[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) bv[q] = (bias != nullptr && c + q < cout) ? bias[c + q] : 0.f;
+#pragma unroll
+    for (int i = 0; i < T::TM; ++i) {
+      const int r = row0 + i * T::kRows + ty;
+      if (r >= n) continue;
+      float v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        v[q] = acc[i][4 * g + q];
+        if (bias != nullptr) v[q] += bv[q];
+        if (relu && v[q] < 0.f) v[q] = 0.f;
+      }
+      float* out = y + static_cast<long long>(r) * cout + c;
+      if (yvec) {
+        *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (c + q < cout) out[q] = v[q];
+        }
+      }
+    }
+  }
+}
+
+// Few rows (the logits head: N = batch). One warp per block: lane l owns
+// output (row blockIdx.y * 4 + l % 4, column blockIdx.x * 8 + l / 4), one
+// fmaf chain over the whole of K; 8 columns a block spread W's columns over
+// many SMs. X's 4 rows and W's 8 columns come in 128-deep K slabs through a
+// 6-stage cp.async ring (16-byte copies along W's contiguous dimension: W
+// is read coalesced in either layout). WK as in pw_gemm_f32.
+constexpr int kRowsK = 128, kRowsPitch = kRowsK + 4, kRowsStages = 6;
+constexpr int kRowsStageFloats = 4 * kRowsPitch + 8 * kRowsPitch;
+
+template <bool WK>
+__global__ void __launch_bounds__(32)
+pw_gemm_f32_rows(const float* __restrict__ x, long long ldx, const float* __restrict__ w, long long swk,
+                 long long swc, const float* __restrict__ bias, float* __restrict__ y, int n, int cin, int cout,
+                 int relu, int vec) {
+  __shared__ __align__(16) float sm[kRowsStages * kRowsStageFloats];
+  const int lane = threadIdx.x;
+  const int row0 = blockIdx.y * 4, col0 = blockIdx.x * 8;
+  const int r = lane % 4, cl = lane / 4;
+  const int kslabs = (cin + kRowsK - 1) / kRowsK;
+  const bool xvec = vec & kVecX, wvec = vec & kVecW;
+
+  // X: 4 rows of kRowsPitch; W K-major: 8 rows (columns) of kRowsPitch,
+  // MN-major: 128 rows (K) of 8
+  // a full slab with 16-byte rows: lane l copies piece l of each X row and
+  // W column (K-major), or of K rows l / 2 + 16 t (MN-major)
+  const bool fast = xvec && wvec;
+  const float* xp = x + static_cast<long long>(row0) * ldx + 4 * lane;
+  const float* wp = WK ? w + static_cast<long long>(col0) * swc + 4 * lane
+                       : w + static_cast<long long>(lane / 2) * swk + col0 + 4 * (lane & 1);
+  const int w_bytes = 4 * clamp4(cout - col0 - 4 * (lane & 1));  // MN-major
+  auto load_slab = [&](int kb) {
+    float* xs = sm + (kb % kRowsStages) * kRowsStageFloats;
+    float* ws = xs + 4 * kRowsPitch;
+    const int k0 = kb * kRowsK;
+    if (fast && k0 + kRowsK <= cin) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const bool ok = row0 + t < n;
+        cp_async16_zfill(xs + t * kRowsPitch + 4 * lane, ok ? xp + t * ldx + k0 : x, ok ? 16 : 0);
+      }
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        if constexpr (WK) {
+          const bool ok = col0 + t < cout;
+          cp_async16_zfill(ws + t * kRowsPitch + 4 * lane, ok ? wp + t * swc + k0 : w, ok ? 16 : 0);
+        } else {
+          cp_async16_zfill(ws + (16 * t + lane / 2) * 8 + 4 * (lane & 1),
+                           w_bytes > 0 ? wp + (k0 + 16 * t) * swk : w, w_bytes);
+        }
+      }
+      return;
+    }
+    for (int e = lane; e < 4 * 32; e += 32) {
+      const int rr = e >> 5, gk = k0 + 4 * (e & 31), gr = row0 + rr;
+      copy4(xs + rr * kRowsPitch + (gk - k0), x + static_cast<long long>(gr) * ldx + gk, 1,
+            gr < n ? clamp4(cin - gk) : 0, xvec, x);
+    }
+    for (int e = lane; e < 8 * 32; e += 32) {
+      if constexpr (WK) {
+        const int c = e >> 5, gk = k0 + 4 * (e & 31), gc = col0 + c;
+        copy4(ws + c * kRowsPitch + (gk - k0),
+              w + static_cast<long long>(gc) * swc + static_cast<long long>(gk) * swk, swk,
+              gc < cout ? clamp4(cin - gk) : 0, wvec, w);
+      } else {
+        const int kr = e >> 1, c = 4 * (e & 1), gk = k0 + kr, gc = col0 + c;
+        copy4(ws + kr * 8 + c, w + static_cast<long long>(gk) * swk + static_cast<long long>(gc) * swc, swc,
+              gk < cin ? clamp4(cout - gc) : 0, wvec, w);
+      }
+    }
+  };
+
+  float acc = 0.f;
+#pragma unroll
+  for (int s = 0; s < kRowsStages - 1; ++s) {
+    if (s < kslabs) load_slab(s);
+    cp_async_commit();
+  }
+  for (int kb = 0; kb < kslabs; ++kb) {
+    cp_async_wait<kRowsStages - 2>();
+    __syncwarp();
+    if (kb + kRowsStages - 1 < kslabs) load_slab(kb + kRowsStages - 1);
+    cp_async_commit();
+    const float* xs = sm + (kb % kRowsStages) * kRowsStageFloats + r * kRowsPitch;
+    const float* ws = sm + (kb % kRowsStages) * kRowsStageFloats + 4 * kRowsPitch;
+#pragma unroll 8
+    for (int kc = 0; kc < kRowsK / 4; ++kc) {
+      const float4 a = *reinterpret_cast<const float4*>(xs + 4 * kc);
+      const float4 b = WK ? *reinterpret_cast<const float4*>(ws + cl * kRowsPitch + 4 * kc)
+                          : make_float4(ws[(4 * kc) * 8 + cl], ws[(4 * kc + 1) * 8 + cl],
+                                        ws[(4 * kc + 2) * 8 + cl], ws[(4 * kc + 3) * 8 + cl]);
+      acc = fmaf(a.x, b.x, acc);
+      acc = fmaf(a.y, b.y, acc);
+      acc = fmaf(a.z, b.z, acc);
+      acc = fmaf(a.w, b.w, acc);
+    }
+  }
+  cp_async_wait<0>();
+
+  const int gr = row0 + r, c = col0 + cl;
+  if (gr >= n || c >= cout) return;
+  float v = acc;
+  if (bias != nullptr) v += bias[c];
+  if (relu && v < 0.f) v = 0.f;
+  y[static_cast<long long>(gr) * cout + c] = v;
 }
 
 // ---- bfloat16, path (a): TMA + wgmma ----
@@ -693,6 +1074,27 @@ int dispatch_tma(int bn, const CUtensorMap& xm, const CUtensorMap& wm, const bf1
   }
 }
 
+template <class T, bool WK>
+int launch_f32(const float* x, long long ldx, const float* w, long long swk, long long swc, const float* bias,
+               float* y, int n, int cin, int cout, int relu, int vec, cudaStream_t stream) {
+  static bool smem_set[kMaxDevices] = {};  // the > 48 KB opt-in, once per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!smem_set[dev]) {
+    e = cudaFuncSetAttribute(pw_gemm_f32<T, WK>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set[dev] = true;
+  }
+  const int col_tiles = (cout + T::BN - 1) / T::BN;
+  const long long blocks = static_cast<long long>((n + T::BM - 1) / T::BM) * col_tiles;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  pw_gemm_f32<T, WK><<<static_cast<unsigned>(blocks), T::kThreads, T::kSmemBytes, stream>>>(
+      x, ldx, w, swk, swc, bias, y, n, cin, cout, col_tiles, relu, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool aligned16(const void* p, long long ld) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld % 8 == 0;
 }
@@ -700,20 +1102,51 @@ bool aligned16(const void* p, long long ld) {
 }  // namespace
 
 
-// Y (n, cout) = act(X (n, cin) @ W (cin, cout) + bias), all row-major and
-// contiguous on the current device; bias may be null. Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int pw_conv_f32(const float* x, const float* w, const float* bias,
-                           float* y, long long n, int cin, int cout,
-                           int relu, void* stream) {
-  if (n <= 0 || cin < 0 || cout <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long row_tiles = (n + kTileM - 1) / kTileM;
-  if (row_tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(row_tiles),
-                  static_cast<unsigned>((cout + kTileN - 1) / kTileN));
-  pw_gemm_f32<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w, bias, y, n, cin, cout, relu);
-  return static_cast<int>(cudaGetLastError());
+// The float32 GEMM: Y (n, cout) = act(X (n, cin) @ W + bias). X[r, k] at
+// x[r * ldx + k]; W[k, c] at w[k * swk + c * swc] (the wrapper passes W as
+// stored: (cin, cout) row-major, or the column-major view of a (cout, cin)
+// weight); bias (cout) or null; Y contiguous; all on the current device.
+// `tile`: an index into the F32Tile instances, or -1 for the few-rows
+// kernel; `w_k_major`: stage W K-major; `vec`: kVecX | kVecW | kVecY where
+// 16-byte copies and stores are allowed (checked here). Every output is one
+// fmaf chain over K in ascending order from +0 (steps past K add +0 * +0),
+// then + bias, then the ReLU. Returns cudaGetLastError() (0 on success) or
+// cudaErrorInvalidValue.
+extern "C" int pw_conv_f32(const float* x, long long ldx, const float* w, long long swk, long long swc,
+                           const float* bias, float* y, long long n, int cin, int cout, int tile, int w_k_major,
+                           int vec, int relu, void* stream) {
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool bad_vec = ((vec & kVecX) && (ldx % 4 != 0 || !aligned(x))) ||
+                       ((vec & kVecW) && ((w_k_major ? (swk != 1 || swc % 4 != 0)
+                                                     : (swc != 1 || swk % 4 != 0)) || !aligned(w))) ||
+                       ((vec & kVecY) && (cout % 4 != 0 || !aligned(y)));
+  if (n <= 0 || n > 0x7fffffffLL || cin < 0 || cout <= 0 || ldx < cin || swk < 0 || swc < 0 || bad_vec ||
+      tile < -1 || tile >= kF32Tiles) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nn = static_cast<int>(n);
+  if (tile < 0) {
+    const dim3 grid((cout + 7) / 8, (nn + 3) / 4);
+    if (w_k_major) {
+      pw_gemm_f32_rows<true><<<grid, 32, 0, st>>>(x, ldx, w, swk, swc, bias, y, nn, cin, cout, relu, vec);
+    } else {
+      pw_gemm_f32_rows<false><<<grid, 32, 0, st>>>(x, ldx, w, swk, swc, bias, y, nn, cin, cout, relu, vec);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  switch (tile * 2 + (w_k_major ? 1 : 0)) {
+#define PW_F32_CASE(I)                                                                                    \
+  case 2 * I: return launch_f32<F32Tile##I, false>(x, ldx, w, swk, swc, bias, y, nn, cin, cout, relu, vec, st); \
+  case 2 * I + 1: return launch_f32<F32Tile##I, true>(x, ldx, w, swk, swc, bias, y, nn, cin, cout, relu, vec, st);
+    PW_F32_CASE(0)
+    PW_F32_CASE(1)
+    PW_F32_CASE(2)
+    PW_F32_CASE(3)
+    PW_F32_CASE(4)
+#undef PW_F32_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The bfloat16 GEMM: X (n, cin), W (cin, cout), bias (cout) or null, Y

@@ -8,18 +8,24 @@ package's ``_pw_bwd``: ``m = g * [y > 0]``, ``dx = m @ W^T`` through the
 same kernel, ``dw = X^T m`` and ``db = sum(m)`` in plain PyTorch (JAX also
 left them outside the kernel), each only when autograd asks for it.
 
-float32 runs ``pw_gemm_f32``, which takes a contiguous (Cin, Cout) W: its
-wrapper makes the copy. bfloat16 (``pointwise_conv_bf16_cuda``, its own
-launch counter): float32 accumulation, the bias added in float32, the
-ReLU, one rounding to bfloat16, as the Pallas kernel; the backward's ReLU
-mask is taken on the bfloat16 output, and ``dw``, ``db`` are summed in
-float32 and cast to the parameters' dtype, as the JAX package's VJP does.
-The bf16 kernels read W as stored, (Cin, Cout) row-major or the
-column-major view of a (Cout, Cin) conv weight, so neither the forward nor
-the ``dx`` launch (on ``W.t()``) copies it. ``bf16_plan`` picks the path
-from the shapes, strides and alignment: the TMA + ``wgmma`` streaming
-kernel for the trunk's GEMMs, the split-K pair (a float32 scratch summed
-in a fixed order, no atomics) for the logits head and any other shape.
+float32 runs ``pw_gemm_f32`` (a register-blocked CUDA-core GEMM in one of
+five tile instances, ``F32_TILES``) or, for a handful of rows (the logits
+head), ``pw_gemm_f32_rows``; ``f32_plan`` picks one from the shapes,
+strides and alignment. Every output is one fmaf chain over K in ascending
+order, then the bias, then the ReLU: no TF32, no split of K, so the fused
+branch 3 gives the same bits. W is read as stored, (Cin, Cout) row-major
+or the column-major view of a (Cout, Cin) conv weight, so neither the
+forward nor the ``dx`` launch (on ``W.t()``) copies it.
+
+bfloat16 (``pointwise_conv_bf16_cuda``, its own launch counter): float32
+accumulation, the bias added in float32, the ReLU, one rounding to
+bfloat16, as the Pallas kernel; the backward's ReLU mask is taken on the
+bfloat16 output, and ``dw``, ``db`` are summed in float32 and cast to the
+parameters' dtype, as the JAX package's VJP does. The bf16 kernels read W
+as stored too. ``bf16_plan`` picks the path from the shapes, strides and
+alignment: the TMA + ``wgmma`` streaming kernel for the trunk's GEMMs, the
+split-K pair (a float32 scratch summed in a fixed order, no atomics) for
+the logits head and any other shape.
 """
 
 from __future__ import annotations
@@ -108,11 +114,80 @@ def bf16_plan(n: int, cin: int, cout: int, x_stride, x_ptr: int, w_stride, w_ptr
     return {"path": "splitk", "splits": splits, "chunk": chunk, "vec": vec}
 
 
+# float32 tile instances of pw_gemm_f32, in the order of csrc/pointwise_conv.cu
+# (F32Tile0 ..): "BMxBN/TMxTN" -> (BM, BN, TM, TN); the block has
+# (BM/TM)*(BN/TN) threads, each TM x TN outputs
+F32_TILES = {
+    "128x64/8x4": (128, 64, 8, 4),
+    "64x64/8x4": (64, 64, 8, 4),
+    "64x32/4x4": (64, 32, 4, 4),
+    "32x32/4x4": (32, 32, 4, 4),
+    "32x32/2x4": (32, 32, 2, 4),
+}
+F32_SLAB = 32  # K per slab
+F32_ROWS_MAX = 16  # n at or below this takes pw_gemm_f32_rows (4 rows x 8 columns a block)
+# the planner's cost model of a tile, in microseconds: C0 + K slabs * (C1 *
+# b + C2 * ceil(b / R)), b the blocks of the busiest SM: C1 is a block's
+# share of the SM's rate per slab, C2 a slab's latency for each round of R
+# blocks that the SM runs at once; fitted to `chip_smoke.py --f32-tile-sweep`
+# (every main-path shape, forward and dx, at every tile), R the best of 1-6
+F32_COST = {  # name -> (C0, C1, C2, R)
+    "128x64/8x4": (2.4489, 1.7125, 0.1493, 2),
+    "64x64/8x4": (1.8806, 0.8432, 0.3314, 4),
+    "64x32/4x4": (2.6921, 0.5174, 0.1334, 4),
+    "32x32/4x4": (2.6774, 0.1433, 0.498, 3),
+    "32x32/2x4": (2.05, 0.3409, 0.1763, 5),
+}
+
+
+def f32_tile_cost(name: str, n: int, cin: int, cout: int, sms: int = H100_SMS) -> float:
+    """The cost model's microseconds for tile ``name`` at X (n, cin) @ W
+    (cin, cout) on ``sms`` SMs."""
+    bm, bn, _, _ = F32_TILES[name]
+    c0, c1, c2, r = F32_COST[name]
+    busiest = _cdiv(_cdiv(n, bm) * _cdiv(cout, bn), sms)
+    return c0 + _cdiv(cin, F32_SLAB) * (c1 * busiest + c2 * _cdiv(busiest, r))
+
+
+def f32_plan(n: int, cin: int, cout: int, x_stride, x_ptr: int, w_stride, w_ptr: int,
+             sms: int = H100_SMS, tile: Optional[str] = None) -> dict:
+    """Which float32 kernel takes ``X (n, cin) @ W (cin, cout)``, from the
+    shapes, the element strides and the byte addresses alone.
+
+    ``"rows"`` (``pw_gemm_f32_rows``) for n <= ``F32_ROWS_MAX``, else the
+    tile of ``F32_TILES`` with the least ``f32_tile_cost``; ``tile``
+    forces one (a name of ``F32_TILES`` or ``"rows"``). W is staged
+    K-major (``w_k_major``) when its K stride is 1 and its Cout stride is
+    not (the view of a (Cout, Cin) weight), else MN-major. ``vec`` lists
+    where 16-byte copies and stores go: ``x`` (X's rows contiguous, row
+    stride a multiple of 4, 16-byte aligned), ``w`` (likewise along W's
+    contiguous dimension), ``y`` (Cout a multiple of 4)."""
+    if tile is None:
+        tile = "rows" if n <= F32_ROWS_MAX else min(
+            F32_TILES, key=lambda t: (f32_tile_cost(t, n, cin, cout, sms), -F32_TILES[t][0] * F32_TILES[t][1]))
+    elif tile != "rows" and tile not in F32_TILES:
+        raise ValueError(f"pointwise_conv: no float32 tile {tile!r}; tiles: rows, {', '.join(F32_TILES)}")
+    w_k_major = w_stride[0] == 1 and w_stride[1] != 1
+    lead = w_stride[1] if w_k_major else w_stride[0]
+    contiguous = w_stride[0] == 1 if w_k_major else w_stride[1] == 1
+    vec = []
+    if x_stride[1] == 1 and x_stride[0] % 4 == 0 and x_ptr % 16 == 0:
+        vec.append("x")
+    if contiguous and lead % 4 == 0 and w_ptr % 16 == 0:
+        vec.append("w")
+    if cout % 4 == 0:
+        vec.append("y")
+    return {"path": "rows" if tile == "rows" else "tile", "tile": tile, "w_k_major": w_k_major, "vec": vec}
+
+
+_F32_VEC_BITS = {"x": 1, "w": 2, "y": 4}
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.library("pointwise_conv")
     ptr, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.pw_conv_f32.argtypes = [ptr, ptr, ptr, ptr, ll, i, i, i, ptr]
+    lib.pw_conv_f32.argtypes = [ptr, ll, ptr, ll, ll, ptr, ptr, ll, i, i, i, i, i, i, ptr]
     lib.pw_conv_bf16_tma.argtypes = [ptr, ll, ptr, ll, i, ptr, ptr, ll, i, i, i, i, ptr]
     lib.pw_conv_bf16_splitk.argtypes = [ptr, ll, ll, ptr, ll, ll, ptr, ptr, ptr, ll, i, i, i, i, i, i, ptr]
     for fn in (lib.pw_conv_f32, lib.pw_conv_bf16_tma, lib.pw_conv_bf16_splitk):
@@ -154,21 +229,27 @@ def _raise_on(symbol: str, rc: int) -> None:
 
 
 def pointwise_conv_cuda(
-    x2: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], relu: bool
+    x2: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], relu: bool,
+    tile: Optional[str] = None,
 ) -> torch.Tensor:
-    """Launch ``pw_conv_f32``: x2 (N, Cin) contiguous, w (Cin, Cout) (made
-    contiguous here), bias (Cout,) or None; float32 on one CUDA device.
-    Counts its launches in ``pointwise_conv_cuda.launches``."""
+    """Launch the float32 GEMM: x2 (N, Cin) contiguous, w (Cin, Cout) with
+    any strides (read as stored), bias (Cout,) contiguous or None; float32
+    on one CUDA device; Y (N, Cout) contiguous. ``f32_plan`` picks the
+    kernel (``tile`` forces one). Counts its launches in
+    ``pointwise_conv_cuda.launches``."""
     _check_cuda_operands(x2, w, bias, torch.float32, strided=("w",))
-    w = w.contiguous()
     n, cin = x2.shape
     cout = w.shape[1]
     y = torch.empty((n, cout), device=x2.device, dtype=torch.float32)
     if n == 0 or cout == 0:
         return y
+    plan = f32_plan(n, cin, cout, x2.stride(), x2.data_ptr(), w.stride(), w.data_ptr(),
+                    _sm_count(x2.device.index), tile)
     rc = _lib().pw_conv_f32(
-        x2.data_ptr(), w.data_ptr(), bias.data_ptr() if bias is not None else None,
-        y.data_ptr(), n, cin, cout, int(relu), _stream(x2),
+        x2.data_ptr(), x2.stride(0), w.data_ptr(), w.stride(0), w.stride(1),
+        bias.data_ptr() if bias is not None else None, y.data_ptr(), n, cin, cout,
+        -1 if plan["path"] == "rows" else list(F32_TILES).index(plan["tile"]), int(plan["w_k_major"]),
+        sum(_F32_VEC_BITS[v] for v in plan["vec"]), int(relu), _stream(x2),
     )
     _raise_on("pw_conv_f32", rc)
     pointwise_conv_cuda.launches += 1

@@ -264,6 +264,104 @@ PW_MAIN_PATH = [
     ("Mixed_4f_trio", 3136, 528, 448), ("Mixed_4f_b3b", 3136, 528, 128), ("Mixed_5b_trio", 392, 832, 448),
     ("Mixed_5c_trio", 392, 832, 624), ("Mixed_5bc_b3b", 392, 832, 128), ("logits", 4, 1024, 174),
 ]
+F32_TOL = 1e-5  # of the largest output: float32 sums of up to 1024 terms in another order than cuBLAS
+
+
+def _f32_pw_operands(n, cin, cout, relu, use_bias, w_layout, x_offset, seed, dev):
+    """X (n, cin) at ``x_offset`` elements into a larger buffer (post-ReLU
+    tie data with the ReLU, signed without), W (cin, cout) row-major
+    ("row") or the column-major view of a (cout, cin) weight ("col"), bias."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, cin, generator=gen)
+    x = torch.relu(torch.round(x * 2) / 2) if relu else x
+    buf = torch.empty(n * cin + x_offset, device=dev)
+    xd = buf[x_offset:].view(n, cin)
+    xd.copy_(x.to(dev))
+    wk = torch.randn(cout, cin, generator=gen) / cin**0.5
+    w = wk.t().to(dev) if w_layout == "col" else wk.t().contiguous().to(dev)
+    b = torch.randn(cout, generator=gen).to(dev) if use_bias else None
+    return xd, w, b
+
+
+def _check_f32_pw(xd, w, b, relu, tile=None):
+    before = tpw.pointwise_conv_cuda.launches
+    y = tpw.pointwise_conv_cuda(xd, w, b, relu, tile=tile)
+    torch.cuda.synchronize()
+    assert tpw.pointwise_conv_cuda.launches == before + 1 and y.dtype == torch.float32
+    ref = tpw.pointwise_conv_plain(xd, w, b, relu)
+    assert (y - ref).abs().max().item() <= F32_TOL * ref.abs().max().item()
+    return y
+
+
+@pytest.mark.parametrize("layout", ["main", "other"])
+@pytest.mark.parametrize("direction", ["fwd", "dx"])
+@pytest.mark.parametrize("site,n,cin,cout", PW_MAIN_PATH, ids=[r[0] for r in PW_MAIN_PATH])
+def test_f32_pointwise_kernel_at_every_main_path_shape(cuda_device, site, n, cin, cout, direction, layout):
+    """The float32 GEMM at I3D's 1x1x1 convs (batch 4): the forward with W
+    as the layers pass it (the column-major view of the (Cout, Cin)
+    weight; bias; ReLU but at the logits), dx on its transpose (row-major,
+    neither); each also with W in the other layout. Within 1e-5 of the
+    largest output, and both layouts give equal bits."""
+    if direction == "fwd":
+        args = (n, cin, cout, site != "logits", True, "col")
+    else:
+        args = (n, cout, cin, False, False, "row")
+    relu = args[3]
+    xd, w, b = _f32_pw_operands(*args, 0, 5, cuda_device)
+    w_other = w.contiguous() if w.stride(0) == 1 else w.t().contiguous().t()
+    y = _check_f32_pw(xd, w if layout == "main" else w_other, b, relu)
+    y2 = tpw.pointwise_conv_cuda(xd, w_other if layout == "main" else w, b, relu)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2)
+
+
+# ragged: n below every tile, Cin and Cout not multiples of 4, rows leaving
+# one partial tile of every instance (129 = 128 + 1 = 2 * 64 + 1 = ...), an
+# unaligned X base (4-byte copies), the few-rows kernel at n = 1 and 16
+F32_PW_RAGGED = {
+    "n20": (20, 112, 48, True, True),
+    "cin174_cout61": (1001, 174, 61, True, True),
+    "cin61_cout174": (1001, 61, 174, False, False),
+    "n129": (129, 64, 40, True, True),
+    "n129_cout130": (129, 36, 130, False, True),
+    "n1_logits": (1, 1024, 174, False, True),
+    "n16": (16, 100, 37, True, False),
+}
+
+
+@pytest.mark.parametrize("x_offset", [0, 1], ids=["x_aligned", "x_offset1"])
+@pytest.mark.parametrize("w_layout", ["col", "row"])
+@pytest.mark.parametrize("case", sorted(F32_PW_RAGGED))
+def test_f32_pointwise_kernel_at_ragged_shapes(cuda_device, case, w_layout, x_offset):
+    """Ragged edges masked, no padded copies: within 1e-5 of the largest
+    output, W in either layout, X aligned or not."""
+    n, cin, cout, relu, use_bias = F32_PW_RAGGED[case]
+    _check_f32_pw(*_f32_pw_operands(n, cin, cout, relu, use_bias, w_layout, x_offset, 6, cuda_device)[:3], relu)
+
+
+@pytest.mark.parametrize("w_layout", ["col", "row"])
+@pytest.mark.parametrize("shape", [(129, 174, 61), (1001, 192, 176)], ids=["ragged", "Mixed_3b_1001"])
+def test_f32_every_tile_gives_the_same_bits(cuda_device, shape, w_layout):
+    """Every instance (and the few-rows kernel), forced through the
+    planner: within 1e-5 of the largest output and equal bits, since each
+    output is one fmaf chain in K order whichever kernel computes it."""
+    n, cin, cout = shape
+    xd, w, b = _f32_pw_operands(n, cin, cout, True, True, w_layout, 0, 7, cuda_device)
+    outs = [_check_f32_pw(xd, w, b, True, tile) for tile in ["rows", *tpw.F32_TILES]]
+    assert all(torch.equal(outs[0], y) for y in outs[1:])
+
+
+@pytest.mark.parametrize("n,cin,cout,relu", [(4, 1024, 174, False), (25088, 192, 176, True), (392, 832, 624, True)],
+                         ids=["logits_head", "Mixed_3b_trio", "Mixed_5c_trio"])
+def test_f32_pointwise_kernel_repeats_its_bits(cuda_device, n, cin, cout, relu):
+    """One owner per output, no atomics: two launches give equal bits."""
+    xd, w, b = _f32_pw_operands(n, cin, cout, relu, True, "col", 0, 8, cuda_device)
+    y1 = tpw.pointwise_conv_cuda(xd, w, b, relu)
+    y2 = tpw.pointwise_conv_cuda(xd, w, b, relu)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+
+
 # (n, cin, cout, relu, use_bias, w_layout, x_offset): w_layout "row" is a
 # contiguous (Cin, Cout) W, "col" the column-major view of a (Cout, Cin)
 # one; x_offset moves X's base by that many elements into a larger buffer.
