@@ -59,7 +59,9 @@ non-zero without the final line:
 11. bf16_kernel_check: the bfloat16 kernels (pointwise GEMM at every
    1x1x1 conv of the I3D main path, forward and dx, with the sum over a
    search step's 40 launches and the host time per call; the bf16 pool
-   pair and the argmax pair at all nine branch-3 sites; the four bf16 fused branch-3 entries
+   pair and the argmax pair at all nine branch-3 sites, the argmax pair
+   also at Mixed_3b and Mixed_3c at 128 clips, inputs cold, with its
+   nine-site sums; the four bf16 fused branch-3 entries
    at all nine sites, beside the bf16 unfused pair; the bf16 gate entries
    at both ConvLSTM layers, beside the float32 gate kernel) against their
    plain versions, timed beside ``torch.matmul`` / ``F.max_pool3d`` in
@@ -99,7 +101,12 @@ the float32 GEMM under every tile instance (``f32_tile_sweep``), and
     python3 chip_smoke.py --f32-compare DIR
 
 the float32 GEMM of the checkout in DIR against this one's, in turns
-(``f32_compare``).
+(``f32_compare``), and
+
+    python3 chip_smoke.py --argmax-compare DIR
+
+the argmax pair's rows of ``bf16_kernel_check`` likewise
+(``argmax_compare``).
 """
 
 from __future__ import annotations
@@ -1627,34 +1634,50 @@ def _fit_f32_costs(pw, samples) -> None:
           "pick_over_best_mean": sum(ratios.values()) / len(ratios), "picked_ms": picked, "fastest_ms": fastest})
 
 
+def _turns(other: str, child_flag: str, keep):
+    """``chip_smoke.py <child_flag> ROOT`` on the checkout in ``other`` (say,
+    the parent commit's, unpacked) and on this one, in turns (other, this,
+    this, other), each in a child process that imports its own
+    ``ivf_tpu_torch`` and builds its kernels. Returns side -> one
+    {key: row} per turn of the JSON rows for which ``keep(row)`` gives a
+    key, or None if a child failed."""
+    here = str(Path(__file__).resolve().parent)
+    sides = {"other": [], "this": []}
+    for side, root in (("other", other), ("this", here), ("this", here), ("other", other)):
+        out = subprocess.run([sys.executable, __file__, child_flag, root], capture_output=True, text=True,
+                             timeout=900)
+        if out.returncode != 0:
+            print(f"chip_smoke FAILED: {child_flag} {root}\n{out.stdout[-2000:]}{out.stderr[-2000:]}",
+                  file=sys.stderr)
+            return None
+        lines = [json.loads(ln) for ln in out.stdout.splitlines() if ln.startswith("{")]
+        sides[side].append({key: r for r in lines if (key := keep(r)) is not None})
+    return sides
+
+
+def _turn_mean(runs, key, field):
+    return sum(r[key][field] for r in runs) / len(runs)
+
+
 def f32_compare(other: str) -> int:
     """``python3 chip_smoke.py --f32-compare DIR``: the float32 GEMM's rows
-    of ``phase_kernel_check`` on the checkout in DIR (say, the parent
-    commit's, unpacked) and on this one, in turns (DIR, this, this, DIR),
-    each in a child process that imports its own ``ivf_tpu_torch`` and
-    builds its kernels: per site and direction the mean device ms of each
+    of ``phase_kernel_check`` on the checkout in DIR and on this one, in
+    turns (``_turns``): per site and direction the mean device ms of each
     side's two turns, ``torch.matmul``'s and the bound, then the sums over
     a search step."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    here = str(Path(__file__).resolve().parent)
-    sides = {"other": [], "this": []}
     emit({"phase": "f32_compare", "other": str(Path(other).resolve()), "nvidia_smi": nvidia_smi()})
-    for side, root in (("other", other), ("this", here), ("this", here), ("other", other)):
-        out = subprocess.run([sys.executable, __file__, "--f32-rows", root], capture_output=True, text=True,
-                             timeout=900)
-        if out.returncode != 0:
-            print(f"chip_smoke FAILED: --f32-rows {root}\n{out.stdout[-2000:]}{out.stderr[-2000:]}", file=sys.stderr)
-            return 1
-        lines = [json.loads(ln) for ln in out.stdout.splitlines() if ln.startswith("{")]
-        sides[side].append({(r["site"], r["direction"]): r for r in lines
-                            if r.get("kernel") == "pointwise_conv" and "ms" in r and "summary" not in r})
-    mean = lambda runs, key, field: sum(r[key][field] for r in runs) / len(runs)  # noqa: E731
+    sides = _turns(other, "--f32-rows", lambda r: (r["site"], r["direction"]) if (
+        r.get("kernel") == "pointwise_conv" and "ms" in r and "summary" not in r) else None)
+    if sides is None:
+        return 1
     sums = {"other_ms": 0.0, "this_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "launches": 0}
     for key, row in sides["this"][0].items():
-        cmp_row = {"other_ms": mean(sides["other"], key, "ms"), "this_ms": mean(sides["this"], key, "ms"),
-                   "library_ms": mean(sides["this"], key, "library_ms"), "bound_ms": row["bound_ms"]}
+        cmp_row = {"other_ms": _turn_mean(sides["other"], key, "ms"),
+                   "this_ms": _turn_mean(sides["this"], key, "ms"),
+                   "library_ms": _turn_mean(sides["this"], key, "library_ms"), "bound_ms": row["bound_ms"]}
         for k, v in cmp_row.items():
             sums[k] += row["launches_per_step"] * v
         sums["launches"] += row["launches_per_step"]
@@ -1662,6 +1685,41 @@ def f32_compare(other: str) -> int:
               "launches_per_step": row["launches_per_step"], "plan": row["plan"], **cmp_row,
               "this_turns_ms": [r[key]["ms"] for r in sides["this"]]})
     emit({"phase": "f32_compare", "summary": "per search step", **sums})
+    return 0
+
+
+def argmax_compare(other: str) -> int:
+    """``python3 chip_smoke.py --argmax-compare DIR``: the argmax pair's rows
+    of ``phase_bf16_kernel_check`` (``argmax_rows``: the nine branch-3 sites
+    at batch 4, Mixed_3b and Mixed_3c at 128) on the checkout in DIR and on
+    this one, in turns (``_turns``): per row the mean device ms of each
+    side's two turns, ``F.max_pool3d``'s (forward) and the bound, and
+    whether every turn gave the plain version's bits; then the nine-site
+    sums at batch 4."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    emit({"phase": "argmax_compare", "other": str(Path(other).resolve()), "nvidia_smi": nvidia_smi()})
+    sides = _turns(other, "--argmax-rows", lambda r: (r["kernel"], r["site"], r["shape"][0]) if (
+        r.get("phase") == "argmax_rows" and "ms" in r) else None)
+    if sides is None:
+        return 1
+    sums = {}
+    for key, row in sides["this"][0].items():
+        name, site, batch = key
+        cmp_row = {"other_ms": _turn_mean(sides["other"], key, "ms"),
+                   "this_ms": _turn_mean(sides["this"], key, "ms"),
+                   "library_ms": row["library_ms"] and _turn_mean(sides["this"], key, "library_ms"),
+                   "bound_ms": row["bound_ms"],
+                   "equal_bits": all(r[key]["equal_bits"] for side in sides.values() for r in side)}
+        emit({"phase": "argmax_compare", "kernel": name, "site": site, "shape": row["shape"], "cold": row["cold"],
+              "plan": row["plan"], **cmp_row, "this_turns_ms": [r[key]["ms"] for r in sides["this"]],
+              "other_turns_ms": [r[key]["ms"] for r in sides["other"]]})
+        if batch == BATCH:
+            sums.setdefault(name, []).append(cmp_row)
+    for name, rows in sums.items():
+        emit({"phase": "argmax_compare", "kernel": name, "summary": f"nine sites, batch {BATCH}",
+              **{k: _sum_or_null(r[k] for r in rows) for k in ("other_ms", "this_ms", "library_ms", "bound_ms")}})
     return 0
 
 
@@ -1676,6 +1734,22 @@ def f32_rows(root: str) -> int:
         pw.f32_plan = lambda *args, **kwargs: None
     failures: list = []
     phase_kernel_check(pw, pool, failures)
+    return 1 if failures else 0
+
+
+def argmax_rows_child(root: str) -> int:
+    """The child of ``argmax_compare``: ``argmax_rows`` on the
+    ``ivf_tpu_torch`` of the checkout at ``root``."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    from ivf_tpu_torch.ops.kernels import argmax_pool as ap, build
+
+    build.build(["argmax_pool"])
+    failures: list = []
+    for name, rows in argmax_rows(ap, failures).items():
+        for row in rows:
+            emit({"phase": "argmax_rows", "kernel": name, **row})
+    for f in failures:
+        print(f"chip_smoke FAILED: {f}", file=sys.stderr)
     return 1 if failures else 0
 
 
@@ -1803,7 +1877,8 @@ def phase_bf16_kernel_check(pw, pool, ap, failures) -> dict:
     transpose, row-major), within one bf16 ulp of the largest output, with
     the sum over a search step's 40 launches and the host time per call;
     the bf16 pool pair and the argmax pair at all nine branch-3 sites
-    (equal bits). Device time per call (inputs warm in L2), the plain
+    (equal bits; the argmax pair also at 128 clips, ``argmax_rows``).
+    Device time per call (inputs warm in L2), the plain
     version's, one PyTorch call's in bfloat16 (``torch.matmul``,
     ``F.max_pool3d``; none for the two backwards), and the bound: bytes at
     3.35 TB/s against bf16 operations at 989 TFLOP/s."""
@@ -1859,31 +1934,20 @@ def phase_bf16_kernel_check(pw, pool, ap, failures) -> dict:
         numel = x.numel()
         y = pool.maxpool3d_s1_fwd_bf16_cuda(x)
         dx = pool.maxpool3d_s1_bwd_bf16_cuda(x, y, g)
-        ya, idx = ap.argmax_pool_fwd_cuda(x)
-        dxa = ap.argmax_pool_bwd_cuda(idx, g)
-        ya_ref, idx_ref = ap.argmax_pool_fwd_plain(x)
         torch.cuda.synchronize()
         xc = x.permute(0, 4, 1, 2, 3)
         lib_fwd = lambda: F.max_pool3d(xc, 3, 1, 1)  # noqa: E731
         checks = (
-            ("maxpool3d_s1_fwd_bf16", None, (y, pool.maxpool3d_s1_fwd_plain(x)),
+            ("maxpool3d_s1_fwd_bf16", (y, pool.maxpool3d_s1_fwd_plain(x)),
              lambda: pool.maxpool3d_s1_fwd_bf16_cuda(x), lambda: pool.maxpool3d_s1_fwd_plain(x), lib_fwd,
              4 * numel, 26 * numel),
-            ("maxpool3d_s1_bwd_bf16", None, (dx, pool.maxpool3d_s1_bwd_bf16_plain(x, y, g)),
+            ("maxpool3d_s1_bwd_bf16", (dx, pool.maxpool3d_s1_bwd_bf16_plain(x, y, g)),
              lambda: pool.maxpool3d_s1_bwd_bf16_cuda(x, y, g), lambda: pool.maxpool3d_s1_bwd_bf16_plain(x, y, g),
              None, 8 * numel, 54 * numel),
-            ("argmax_pool_fwd", torch.equal(idx, idx_ref), (ya, ya_ref),
-             lambda: ap.argmax_pool_fwd_cuda(x), lambda: ap.argmax_pool_fwd_plain(x), lib_fwd,
-             5 * numel, 27 * 3 * numel),
-            ("argmax_pool_bwd", None, (dxa, ap.argmax_pool_bwd_plain(idx_ref, g)),
-             lambda: ap.argmax_pool_bwd_cuda(idx, g), lambda: ap.argmax_pool_bwd_plain(idx_ref, g),
-             None, 5 * numel, 27 * 3 * numel),
         )
-        for name, extra_equal, (got, want), fn, plain, lib, nbytes, ops in checks:
+        for name, (got, want), fn, plain, lib, nbytes, ops in checks:
             torch.cuda.synchronize()
             bits = bool(torch.equal(got.view(torch.int16), want.view(torch.int16)))
-            if extra_equal is not None:
-                bits = bits and bool(extra_equal)
             bms, by = bound(nbytes, ops, PEAK_BF16_FLOPS)
             cases[name].append({
                 "site": site, "shape": list(shape), "equal_bits": bits,
@@ -1893,9 +1957,81 @@ def phase_bf16_kernel_check(pw, pool, ap, failures) -> dict:
             })
             if not bits:
                 failures.append(f"{name} {site}: not bit-equal to the plain version")
+    cases.update(argmax_rows(ap, failures))
     for name, rows in cases.items():
         for row in rows:
             emit({"phase": "bf16_kernel_check", "kernel": name, **row})
+    for name in ("argmax_pool_fwd", "argmax_pool_bwd"):
+        rows = [r for r in cases[name] if r["shape"][0] == BATCH]
+        emit({"phase": "bf16_kernel_check", "kernel": name, "summary": f"nine sites, batch {BATCH}",
+              **{k: _sum_or_null(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}})
+    return cases
+
+
+# the argmax pair's rows at bench.py's 128 clips (inputs cold, from HBM)
+ARGMAX_BIG_BATCH = 128
+ARGMAX_BIG_SITES = (("Mixed_3b", (8, 28, 28, 192)), ("Mixed_3c", (8, 28, 28, 256)))
+
+
+def _sum_or_null(values):
+    """The sum of readings, or None where any reading is None (nothing to
+    time)."""
+    values = list(values)
+    return None if any(v is None for v in values) else sum(values)
+
+
+def argmax_rows(ap, failures) -> dict:
+    """The argmax pair against its plain versions on the card: at all nine
+    branch-3 sites at batch ``BATCH`` (inputs warm in L2) and at Mixed_3b
+    and Mixed_3c at 128 clips (cold: a 256 MB overwrite before each call).
+    Equal bits (y and the index plane; dx), device ms per call, the plain
+    version's, ``F.max_pool3d``'s in bfloat16 for the forward (none for the
+    backward) and the bound: 5 bytes per element each way at 3.35 TB/s.
+    The kernel's and the library's ms are the larger of two readings (the
+    profiler now and then drops a kernel's events); a reading of 0 fails."""
+    import torch.nn.functional as F
+
+    def ms2(fn, cold):
+        ms = max(device_ms(fn, cold=cold) for _ in range(2))
+        if ms <= 0:
+            failures.append("argmax_rows: the profiler recorded no kernel time")
+        return ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(11)
+    cases = {"argmax_pool_fwd": [], "argmax_pool_bwd": []}
+    sites = [(site, BATCH, shape, False) for site, shape, _ in FUSED_SITES]
+    sites += [(site, ARGMAX_BIG_BATCH, shape, True) for site, shape in ARGMAX_BIG_SITES]
+    for site, batch, (t, h, w_, cin), cold in sites:
+        shape = (batch, t, h, w_, cin)
+        x, g = _bf16_site_inputs(shape, gen, dev)
+        numel = x.numel()
+        ya, idx = ap.argmax_pool_fwd_cuda(x)
+        dxa = ap.argmax_pool_bwd_cuda(idx, g)
+        ya_ref, idx_ref = ap.argmax_pool_fwd_plain(x)
+        dx_ref = ap.argmax_pool_bwd_plain(idx_ref, g)
+        torch.cuda.synchronize()
+        xc = x.permute(0, 4, 1, 2, 3)
+        plan = list(ap.plan(h, w_, cin)) if hasattr(ap, "plan") else None
+        checks = (
+            ("argmax_pool_fwd", (ya, ya_ref), torch.equal(idx, idx_ref), lambda: ap.argmax_pool_fwd_cuda(x),
+             lambda: ap.argmax_pool_fwd_plain(x), lambda: F.max_pool3d(xc, 3, 1, 1)),
+            ("argmax_pool_bwd", (dxa, dx_ref), True, lambda: ap.argmax_pool_bwd_cuda(idx, g),
+             lambda: ap.argmax_pool_bwd_plain(idx_ref, g), None),
+        )
+        for name, (got, want), extra_equal, fn, plain, lib in checks:
+            bits = bool(torch.equal(got.view(torch.int16), want.view(torch.int16))) and bool(extra_equal)
+            bms, by = bound(5 * numel, 27 * 3 * numel, PEAK_BF16_FLOPS)
+            cases[name].append({
+                "site": site, "shape": list(shape), "cold": cold, "plan": plan, "equal_bits": bits,
+                "max_abs_err": (got.float() - want.float()).abs().max().item(), "tol": 0.0,
+                "ms": ms2(fn, cold), "plain_ms": device_ms(plain, reps=3),
+                "library_ms": ms2(lib, cold) if lib is not None else None,
+                "bound_ms": bms, "bound_by": by,
+            })
+            if not bits:
+                failures.append(f"{name} {site} batch {batch}: not bit-equal to the plain version")
+        del x, g, ya, idx, dxa, ya_ref, idx_ref, dx_ref, xc
     return cases
 
 
@@ -2377,4 +2513,8 @@ if __name__ == "__main__":
         sys.exit(f32_compare(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--f32-rows":
         sys.exit(f32_rows(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--argmax-compare":
+        sys.exit(argmax_compare(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--argmax-rows":
+        sys.exit(argmax_rows_child(sys.argv[2]))
     sys.exit(main())

@@ -7,6 +7,15 @@ of the bfloat16 mask search (``pool_impl='argmax'``). On CUDA tensors both
 directions run in ``csrc/argmax_pool.cu``; on CPU tensors in the plain
 versions below.
 
+The kernels tile the volume: a block takes all frames of one sample, a
+tile of positions and a chunk of channels, stages each frame of the tile
+with its halo in shared memory and walks the frames in order
+(the forward keeps the last frames' (H, W) maxima in registers, the
+backward three accumulators, so each input adds its 27 terms in key
+order). ``plan`` picks the tile from the shape: 8 channels a thread where
+C % 8 == 0 and the pointers are aligned, else the ragged instance, 1
+channel a thread, with the same bits.
+
 The forward maximises a packed word per position: the 16 value bits mapped
 to an order-preserving unsigned key, shifted left by 5, or'ed with the
 position's window key ``(t % 3) * 9 + (h % 3) * 3 + w % 3`` in padded
@@ -26,6 +35,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -86,14 +97,66 @@ def argmax_pool_bwd_plain(idx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dx
 
 
+MAX_THREADS = 224  # csrc/argmax_pool.cu kMaxThreads
+STAGE_SLOTS = 2  # halo vectors a thread stages per frame, at most (kStageSlots)
+
+
+class Plan(NamedTuple):
+    """A launch of either kernel: ``vw`` channels a thread (8: one 16-byte
+    vector; 1: the ragged instance), ``v`` vectors and ``th`` x ``tw``
+    positions of one sample's frames a block, ``threads`` threads a
+    block."""
+
+    vw: int
+    v: int
+    th: int
+    tw: int
+    threads: int
+
+
+def _round32(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+@functools.lru_cache(maxsize=None)
+def plan(h: int, w: int, c: int, vec: bool = True) -> Plan:
+    """The tile for frames of h x w positions and c channels (every block
+    walks a whole sample's frames); ``vec``: the operands allow 16-byte
+    vectors (C % 8 == 0 and aligned pointers). Channel chunks of 4-8
+    vectors that divide C where one does (up to 32 channels in the ragged
+    instance); the (th, tw) tile of at most ``MAX_THREADS // v`` positions
+    that stages and computes the fewest positions per frame (halo and
+    ragged edges counted, a computed position twice a staged one) and
+    whose halo the block's threads can stage."""
+    vw = 8 if vec and c % 8 == 0 else 1
+    nv = c // vw
+    if vw == 8:
+        v = next((d for d in (8, 7, 6, 5, 4) if nv % d == 0), min(nv, 8))
+    else:
+        v = min(nv, 32)
+    positions = max(1, MAX_THREADS // v)
+    best = None
+    for th in range(1, min(h, positions) + 1):
+        for tw in range(1, min(w, positions // th) + 1):
+            if (th + 2) * (tw + 2) * v > STAGE_SLOTS * MAX_THREADS:
+                continue
+            tiles = math.ceil(h / th) * math.ceil(w / tw)
+            cost = tiles * ((th + 2) * (tw + 2) + 2 * th * tw)
+            if best is None or (cost, tiles) < best[0]:
+                best = ((cost, tiles), th, tw)
+    _, th, tw = best
+    nhv = (th + 2) * (tw + 2) * v
+    threads = max(_round32(th * tw * v), _round32(math.ceil(nhv / STAGE_SLOTS)))
+    return Plan(vw, v, th, tw, threads)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.library("argmax_pool")
-    dims = [ctypes.c_int] * 5
-    lib.argmax_pool_fwd_bf16.argtypes = [ctypes.c_void_p] * 3 + dims + [ctypes.c_void_p]
-    lib.argmax_pool_fwd_bf16.restype = ctypes.c_int
-    lib.argmax_pool_bwd_bf16.argtypes = [ctypes.c_void_p] * 3 + dims + [ctypes.c_void_p]
-    lib.argmax_pool_bwd_bf16.restype = ctypes.c_int
+    dims = [ctypes.c_int] * 10  # b, t, h, w, c, then the plan
+    for fn in (lib.argmax_pool_fwd_bf16, lib.argmax_pool_bwd_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 3 + dims + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -115,30 +178,42 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def argmax_pool_fwd_cuda(x: torch.Tensor):
-    """Launch the forward kernel on bfloat16 x; returns (y, idx). Counts in
+def _plan_for(shape, ptrs, given):
+    """``given``, or the plan for ``shape`` with 16-byte vectors where every
+    (pointer, alignment) of ``ptrs`` allows them."""
+    if given is not None:
+        return Plan(*given)
+    return plan(*shape[2:], vec=all(p % a == 0 for p, a in ptrs))
+
+
+def argmax_pool_fwd_cuda(x: torch.Tensor, tile: Plan = None):
+    """Launch the forward kernel on bfloat16 x; returns (y, idx). ``tile``
+    overrides the plan (the tests force each instance). Counts in
     ``argmax_pool_fwd_cuda.launches``."""
     _check_cuda_operands(x)
     y = torch.empty_like(x)
     idx = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
     if x.numel() == 0:
         return y, idx
-    rc = _lib().argmax_pool_fwd_bf16(x.data_ptr(), y.data_ptr(), idx.data_ptr(), *x.shape, _stream(x))
+    p = _plan_for(x.shape, ((x.data_ptr(), 16), (y.data_ptr(), 16), (idx.data_ptr(), 8)), tile)
+    rc = _lib().argmax_pool_fwd_bf16(x.data_ptr(), y.data_ptr(), idx.data_ptr(), *x.shape, *p, _stream(x))
     if rc != 0:
-        raise RuntimeError(f"argmax_pool_fwd_bf16 launch failed with CUDA error {rc}")
+        raise RuntimeError(f"argmax_pool_fwd_bf16 launch failed with CUDA error {rc} ({p})")
     argmax_pool_fwd_cuda.launches += 1
     return y, idx
 
 
-def argmax_pool_bwd_cuda(idx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Launch the backward kernel; counts in ``argmax_pool_bwd_cuda.launches``."""
+def argmax_pool_bwd_cuda(idx: torch.Tensor, g: torch.Tensor, tile: Plan = None) -> torch.Tensor:
+    """Launch the backward kernel; ``tile`` as for the forward. Counts in
+    ``argmax_pool_bwd_cuda.launches``."""
     _check_cuda_operands(g, (idx, torch.uint8))
     dx = torch.empty_like(g)
     if g.numel() == 0:
         return dx
-    rc = _lib().argmax_pool_bwd_bf16(idx.data_ptr(), g.data_ptr(), dx.data_ptr(), *g.shape, _stream(g))
+    p = _plan_for(g.shape, ((g.data_ptr(), 16), (dx.data_ptr(), 16), (idx.data_ptr(), 8)), tile)
+    rc = _lib().argmax_pool_bwd_bf16(idx.data_ptr(), g.data_ptr(), dx.data_ptr(), *g.shape, *p, _stream(g))
     if rc != 0:
-        raise RuntimeError(f"argmax_pool_bwd_bf16 launch failed with CUDA error {rc}")
+        raise RuntimeError(f"argmax_pool_bwd_bf16 launch failed with CUDA error {rc} ({p})")
     argmax_pool_bwd_cuda.launches += 1
     return dx
 

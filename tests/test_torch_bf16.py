@@ -71,7 +71,8 @@ def _tie_data(shape, seed):
     """Halves in [-2, 2]: tied maxima everywhere, and channel 1 a negative
     plateau, so the zero pad wins the border windows there."""
     x = np.round(np.random.RandomState(seed).randn(*shape) * 2).clip(-4, 4) / 2
-    x[..., 1] = -1.5
+    if shape[-1] > 1:
+        x[..., 1] = -1.5
     x[0, 0, 0, 0, 0] = -0.0
     return x.astype(np.float32)
 
@@ -84,7 +85,12 @@ def _jax_argmax(x, g):
     return y, np.asarray(idx), dx
 
 
-@pytest.mark.parametrize("shape", [(2, 4, 6, 6, 8), (1, 3, 5, 7, 3)])
+# edge shapes of the argmax pool: T, H or W of 1 and 2, C of 1 and 9
+ARGMAX_EDGE_SHAPES = [(2, 1, 3, 4, 1), (1, 2, 5, 2, 9), (1, 3, 1, 2, 9), (2, 2, 2, 2, 1), (1, 1, 1, 1, 9),
+                      (1, 2, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 6, 6, 8), (1, 3, 5, 7, 3)] + ARGMAX_EDGE_SHAPES)
 def test_argmax_pool_plain_forward_is_bit_equal_to_jax(shape):
     """y and the uint8 index plane: equal bits (0 of any element differ)."""
     x = _tie_data(shape, 0)
@@ -94,7 +100,7 @@ def test_argmax_pool_plain_forward_is_bit_equal_to_jax(shape):
     np.testing.assert_array_equal(idx.numpy(), idx_ref)
 
 
-@pytest.mark.parametrize("shape", [(2, 4, 6, 6, 8), (1, 3, 5, 7, 3)])
+@pytest.mark.parametrize("shape", [(2, 4, 6, 6, 8), (1, 3, 5, 7, 3)] + ARGMAX_EDGE_SHAPES)
 def test_argmax_pool_plain_backward_is_bit_equal_to_jax(shape):
     """dx through the autograd wrapper: equal bits (the key-order sum,
     rounded to bfloat16 after every add as XLA's bfloat16 adds are)."""
@@ -104,6 +110,71 @@ def test_argmax_pool_plain_backward_is_bit_equal_to_jax(shape):
     xt = _bf16(x).requires_grad_(True)
     (dx,) = torch.autograd.grad(tap.argmax_pool(xt), xt, _bf16(g))
     np.testing.assert_array_equal(_bits(dx), _bits(dx_ref))
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 4, 5, 2), (2, 2, 3, 1, 9)])
+def test_argmax_pool_plain_backward_nan_and_inf_cotangents_match_jax(shape):
+    """An inf and a NaN in the cotangent: the same elements come out NaN in
+    both packages (an unselected inf or NaN times the 0.0 mask is NaN), and
+    the others keep equal bits."""
+    x = _tie_data(shape, 4)
+    g = (np.random.RandomState(5).randn(*shape) * 3.3).astype(np.float32)
+    g[0, 1, 2, 0, 0] = np.inf
+    g[0, 0, 1, 0, 1] = np.nan
+    _, _, dx_ref = _jax_argmax(x, g)
+    xt = _bf16(x).requires_grad_(True)
+    (dx,) = torch.autograd.grad(tap.argmax_pool(xt), xt, _bf16(g))
+    nan = torch.isnan(dx.float()).numpy()
+    np.testing.assert_array_equal(nan, np.isnan(np.asarray(dx_ref, np.float32)))
+    assert nan.sum() > 1
+    np.testing.assert_array_equal(_bits(dx)[~nan], _bits(dx_ref)[~nan])
+
+
+def test_xla_cpu_flushes_subnormal_cotangents_the_port_keeps_them():
+    """Known divergence, not a port fault: XLA's CPU backend flushes
+    subnormals to zero (float32 and bfloat16), so JAX's argmax VJP maps a
+    cotangent of all 1e-39 to a dx of all 0; the port's plain version adds
+    the subnormal and keeps it, and the CUDA kernels are held to the plain
+    version (tests/test_torch_gpu.py). This test asserts the gap itself."""
+    shape = (1, 3, 4, 5, 2)
+    x = _tie_data(shape, 6)
+    g = np.full(shape, 1e-39, np.float32)
+    _, _, dx_ref = _jax_argmax(x, g)
+    assert not np.asarray(dx_ref, np.float32).any()
+    xt = _bf16(x).requires_grad_(True)
+    (dx,) = torch.autograd.grad(tap.argmax_pool(xt), xt, _bf16(g))
+    sub = float(_bf16(g).flatten()[0])
+    assert 0 < sub < float(torch.finfo(torch.bfloat16).tiny)
+    assert dx.float().max().item() >= sub and dx.float().min().item() >= 0
+
+
+ARGMAX_PLAN_SHAPES = {
+    **{f"{site}_b{b}": (b, *shape) for b in (4, 128) for site, shape in (
+        ("Mixed_3b", (8, 28, 28, 192)), ("Mixed_3c", (8, 28, 28, 256)), ("Mixed_4b", (4, 14, 14, 480)),
+        ("Mixed_4c", (4, 14, 14, 512)), ("Mixed_4f", (4, 14, 14, 528)), ("Mixed_5b", (2, 7, 7, 832)))},
+    "c1": (2, 3, 5, 7, 1), "c3": (1, 3, 5, 7, 3), "c17": (1, 3, 9, 10, 17), "c1001": (1, 2, 64, 1, 1001),
+    "thw1": (3, 1, 1, 1, 24), "w_strip": (3, 5, 1, 64, 8), "tall": (1, 2, 300, 3, 16),
+}
+
+
+@pytest.mark.parametrize("vec", [True, False], ids=["vec", "unaligned"])
+@pytest.mark.parametrize("shape", list(ARGMAX_PLAN_SHAPES.values()), ids=list(ARGMAX_PLAN_SHAPES))
+def test_argmax_plan_fits_the_kernels(shape, vec):
+    """The tile plan (CPU only): what csrc/argmax_pool.cu's plan_launch
+    accepts (thread count a multiple of 32, at most MAX_THREADS, one
+    thread per computed (position, vector), at most STAGE_SLOTS halo
+    vectors a thread), 8 channels a thread exactly where C % 8 == 0 and the
+    operands are aligned, and whole chunks of 4-8 vectors at every
+    main-path width."""
+    _, _, h, w, c = shape
+    p = tap.plan(h, w, c, vec=vec)
+    assert p.vw == (8 if vec and c % 8 == 0 else 1)
+    nv = c // p.vw
+    assert 1 <= p.v <= nv and p.th <= h and p.tw <= w
+    assert p.threads % 32 == 0 and p.th * p.tw * p.v <= p.threads <= tap.MAX_THREADS
+    assert (p.th + 2) * (p.tw + 2) * p.v <= tap.STAGE_SLOTS * p.threads
+    if vec and c in (192, 256, 480, 512, 528, 832):
+        assert nv % p.v == 0 and 4 <= p.v <= 8
 
 
 def test_argmax_backward_keeps_the_gradients_mass_on_plateaus():

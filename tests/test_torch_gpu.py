@@ -437,28 +437,150 @@ def test_bf16_maxpool_kernels_match_plain_bits(cuda_device, shape):
     assert torch.equal(dx.view(torch.int16), tpool.maxpool3d_s1_bwd_bf16_plain(x, y, g).view(torch.int16))
 
 
-@pytest.mark.parametrize("shape", [(1, 3, 5, 7, 3), (4, 8, 28, 28, 192)])
-def test_argmax_pool_kernels_match_plain_bits(cuda_device, shape):
-    """Forward (y and the index plane) and backward: equal bits, on tied
-    halves with a negative plateau where the zero pad wins."""
-    gen = torch.Generator().manual_seed(2)
+# the argmax pair's shapes: the nine branch-3 sites at batch 4, Mixed_3b at
+# 128 clips, ragged channels, and T, H or W of 1 and 2
+ARGMAX_SHAPES = {
+    "Mixed_3b": (4, 8, 28, 28, 192), "Mixed_3c": (4, 8, 28, 28, 256), "Mixed_4b": (4, 4, 14, 14, 480),
+    "Mixed_4c": (4, 4, 14, 14, 512), "Mixed_4d": (4, 4, 14, 14, 512), "Mixed_4e": (4, 4, 14, 14, 512),
+    "Mixed_4f": (4, 4, 14, 14, 528), "Mixed_5b": (4, 2, 7, 7, 832), "Mixed_5c": (4, 2, 7, 7, 832),
+    "Mixed_3b_b128": (128, 8, 28, 28, 192),
+    "c1": (2, 3, 5, 7, 1), "c3": (1, 3, 5, 7, 3), "c9": (2, 4, 6, 5, 9), "c17": (1, 3, 9, 10, 17),
+    "t1": (2, 1, 6, 7, 16), "t2": (2, 2, 6, 7, 16), "h1": (2, 4, 1, 9, 16), "h2": (2, 4, 2, 9, 8),
+    "w1": (2, 4, 9, 1, 16), "w2": (2, 4, 9, 2, 8), "thw1": (3, 1, 1, 1, 24), "thw2_c3": (2, 2, 2, 2, 3),
+}
+
+
+def _argmax_data(shape, seed, dev):
+    """Tied halves in [-2, 2]; channel 1 a negative plateau (the zero pad
+    wins its border windows); -0.0 scattered (it loses to the pad's +0.0);
+    a cotangent with tied magnitudes."""
+    gen = torch.Generator().manual_seed(seed)
     x = torch.round(torch.randn(shape, generator=gen) * 2).clamp(-4, 4) / 2
-    x[..., 1] = -1.5
-    x = x.bfloat16().to(cuda_device)
-    g = torch.randn(shape, generator=gen).bfloat16().to(cuda_device)
-    y, idx = tap.argmax_pool_fwd_cuda(x)
-    dx = tap.argmax_pool_bwd_cuda(idx, g)
+    if shape[-1] > 1:
+        x[..., 1] = -1.5
+    x = x.bfloat16()
+    x.view(torch.int16)[torch.rand(shape, generator=gen) < 0.05] = -32768  # -0.0
+    g = (torch.randn(shape, generator=gen) * 3.3).bfloat16()
+    return x.to(dev), g.to(dev)
+
+
+def _nan_aware_equal(a, b):
+    """Equal bits where neither is NaN, and NaN at the same elements."""
+    na, nb = torch.isnan(a.float()), torch.isnan(b.float())
+    return bool(torch.equal(na, nb)) and bool(torch.equal(a.view(torch.int16)[~na], b.view(torch.int16)[~nb]))
+
+
+def _check_argmax(x, g, tile=None):
+    y, idx = tap.argmax_pool_fwd_cuda(x, tile)
+    dx = tap.argmax_pool_bwd_cuda(idx, g, tile)
     torch.cuda.synchronize()
     y_ref, idx_ref = tap.argmax_pool_fwd_plain(x)
     assert torch.equal(y.view(torch.int16), y_ref.view(torch.int16))
     assert torch.equal(idx, idx_ref)
-    assert torch.equal(dx.view(torch.int16), tap.argmax_pool_bwd_plain(idx_ref, g).view(torch.int16))
+    assert _nan_aware_equal(dx, tap.argmax_pool_bwd_plain(idx_ref, g))
+    return y, idx, dx
+
+
+@pytest.mark.parametrize("shape", list(ARGMAX_SHAPES.values()), ids=list(ARGMAX_SHAPES))
+def test_argmax_pool_kernels_match_plain_bits(cuda_device, shape):
+    """Forward (y and the index plane) and backward: equal bits, on tied
+    halves with a negative plateau where the zero pad wins and -0.0 that
+    loses to it, at the planned instance."""
+    x, g = _argmax_data(shape, 2, cuda_device)
+    _check_argmax(x, g)
+
+
+def _tile(vw, v, th, tw):
+    """A forced plan with the fewest threads the kernels take for it."""
+    nhv = (th + 2) * (tw + 2) * v
+    return tap.Plan(vw, v, th, tw, max(-(-th * tw * v // 32), -(-nhv // (32 * tap.STAGE_SLOTS))) * 32)
+
+
+ARGMAX_TILES = {  # forced plans: (shape, (vw, v, th, tw)); the ragged instance on aligned data too
+    "vw1_Mixed_4b": ((2, 4, 14, 14, 480), (1, 16, 2, 4)),
+    "vw1_3x3": ((2, 5, 9, 10, 16), (1, 16, 3, 3)),
+    "vw8_v1": ((2, 5, 9, 10, 16), (8, 1, 4, 3)),
+    "vw8_v2_t7": ((1, 7, 9, 10, 16), (8, 2, 2, 5)),
+    "vw8_wide_strip": ((2, 4, 3, 30, 64), (8, 4, 1, 30)),
+    "vw8_one_position": ((2, 4, 5, 6, 64), (8, 8, 1, 1)),
+    "vw8_Mixed_3b_4x7": ((2, 8, 28, 28, 192), (8, 8, 4, 7)),
+    "vw8_Mixed_5b_tile_past_edge": ((2, 2, 7, 7, 832), (8, 4, 4, 8)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ARGMAX_TILES))
+def test_argmax_pool_every_instance_gives_the_plain_bits(cuda_device, case):
+    """Each instance (8 channels a thread, the ragged 1) under tiles the
+    planner would not pick: one-vector chunks, one-position and strip
+    tiles, tiles past the volume's edge."""
+    shape, tile = ARGMAX_TILES[case]
+    x, g = _argmax_data(shape, 3, cuda_device)
+    _check_argmax(x, g, _tile(*tile))
+
+
+def test_argmax_pool_misaligned_operands_take_the_ragged_instance(cuda_device):
+    """A base one element past a 16-byte boundary: the plan falls back to 1
+    channel a thread (no fallback to the plain version), same bits."""
+    shape = (2, 4, 9, 10, 16)
+    x, g = _argmax_data(shape, 4, cuda_device)
+    xs = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda_device)[1:].view(shape)
+    gs = torch.empty(g.numel() + 1, dtype=g.dtype, device=cuda_device)[1:].view(shape)
+    xs.copy_(x)
+    gs.copy_(g)
+    assert xs.data_ptr() % 16 != 0 and xs.is_contiguous()
+    before = (tap.argmax_pool_fwd_cuda.launches, tap.argmax_pool_bwd_cuda.launches)
+    _check_argmax(xs, gs)
+    assert (tap.argmax_pool_fwd_cuda.launches, tap.argmax_pool_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 4, 5, 8), (2, 4, 14, 14, 480), (1, 3, 4, 5, 3)],
+                         ids=["small", "Mixed_4b", "ragged"])
+def test_argmax_pool_backward_nan_and_inf_cotangents(cuda_device, shape):
+    """inf and NaN in g: an unselected inf or NaN still gives NaN (g times
+    a 0.0 mask), as the plain version does; compared NaN-aware."""
+    x, g = _argmax_data(shape, 5, cuda_device)
+    g = g.clone()
+    g[0, 1, 2, 3, 0] = float("inf")
+    g[0, 0, 1, 1, -1] = float("nan")
+    g[-1, -1, -1, 0, 0] = float("-inf")
+    _, _, dx = _check_argmax(x, g)
+    assert torch.isnan(dx.float()).sum().item() > 0
+
+
+@pytest.mark.parametrize("tile", [None, (1, 8, 4, 5)], ids=["planned", "ragged_instance"])
+def test_argmax_pool_backward_keeps_subnormals(cuda_device, tile):
+    """A subnormal cotangent (1e-39) is added, not flushed to zero: the
+    kernel is held to the port's plain version (XLA's CPU backend flushes
+    it, see tests/test_torch_bf16.py)."""
+    shape = (1, 3, 4, 5, 8)
+    x, _ = _argmax_data(shape, 6, cuda_device)
+    g = torch.full(shape, 1e-39, dtype=torch.bfloat16, device=cuda_device)
+    _, _, dx = _check_argmax(x, g, tile and _tile(*tile))
+    assert dx.float().abs().max().item() > 0
+
+
+@pytest.mark.parametrize("shape", [ARGMAX_SHAPES["Mixed_3b"], ARGMAX_SHAPES["c17"]], ids=["Mixed_3b", "c17"])
+def test_argmax_pool_kernels_repeat_their_bits(cuda_device, shape):
+    """Two runs of each kernel on the same inputs: equal bits (no atomics)."""
+    x, g = _argmax_data(shape, 7, cuda_device)
+    y1, i1 = tap.argmax_pool_fwd_cuda(x)
+    y2, i2 = tap.argmax_pool_fwd_cuda(x)
+    d1 = tap.argmax_pool_bwd_cuda(i1, g)
+    d2 = tap.argmax_pool_bwd_cuda(i1, g)
+    torch.cuda.synchronize()
+    assert torch.equal(y1.view(torch.int16), y2.view(torch.int16)) and torch.equal(i1, i2)
+    assert torch.equal(d1.view(torch.int16), d2.view(torch.int16))
 
 
 def test_bf16_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     x = torch.zeros(1, 2, 3, 3, 4, device=cuda_device)
     with pytest.raises(TypeError):
         tap.argmax_pool_fwd_cuda(x)  # float32
+    with pytest.raises(RuntimeError):  # a tile the kernel refuses: raised, not run on the plain version
+        tap.argmax_pool_fwd_cuda(x.bfloat16(), (8, 1, 3, 3, 32))  # C % 8 != 0 with 8 channels a thread
+    with pytest.raises(RuntimeError):
+        tap.argmax_pool_bwd_cuda(torch.zeros(x.shape, dtype=torch.uint8, device=cuda_device), x.bfloat16(),
+                                 (1, 4, 3, 3, 32))  # too few threads for the tile
     with pytest.raises(TypeError):
         tpool.maxpool3d_s1_fwd_bf16_cuda(x)
     with pytest.raises(TypeError):
