@@ -19,7 +19,9 @@ non-zero without the final line:
    four fused branch-3 kernels at all nine branch-3 sites, per-frame
    against whole-sample too, timed beside the unfused kernel pair, whose
    bits the float32 entries must give; a summary row per entry sums the
-   nine sites.
+   nine sites. The pool pair (``pool_rows``) at all nine sites (batch 4)
+   and at Mixed_3b and Mixed_3c at 128 clips, cold: equal bits, nine-site
+   sums.
 3. small_reference: I3D at (1, 8, 32, 32, 3) on the card vs the same
    model on the CPU (plain versions), for the pool-kernel route and both
    fused routes: logits and input gradient.
@@ -59,10 +61,10 @@ non-zero without the final line:
 11. bf16_kernel_check: the bfloat16 kernels (pointwise GEMM at every
    1x1x1 conv of the I3D main path, forward and dx, with the sum over a
    search step's 40 launches and the host time per call; the bf16 pool
-   pair and the argmax pair at all nine branch-3 sites, the argmax pair
-   also at Mixed_3b and Mixed_3c at 128 clips, inputs cold, with its
-   nine-site sums; the four bf16 fused branch-3 entries
-   at all nine sites, beside the bf16 unfused pair; the bf16 gate entries
+   pair and the argmax pair at all nine branch-3 sites and at Mixed_3b
+   and Mixed_3c at 128 clips, inputs cold, with their nine-site sums; the
+   four bf16 fused branch-3 entries at all nine sites, beside the bf16
+   unfused pair; the bf16 gate entries
    at both ConvLSTM layers, beside the float32 gate kernel) against their
    plain versions, timed beside ``torch.matmul`` / ``F.max_pool3d`` in
    bfloat16.
@@ -106,13 +108,24 @@ the float32 GEMM of the checkout in DIR against this one's, in turns
     python3 chip_smoke.py --argmax-compare DIR
 
 the argmax pair's rows of ``bf16_kernel_check`` likewise
-(``argmax_compare``).
+(``argmax_compare``), and
+
+    python3 chip_smoke.py --pool-compare DIR
+
+the ``maxpool3d_s1`` pair's rows of both kernel checks, in float32 and
+bfloat16, likewise (``pool_compare``), and
+
+    python3 chip_smoke.py --pool-sweep
+
+the ``maxpool3d_s1`` pair under every candidate tile and register cap
+(``pool_sweep``).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -358,12 +371,12 @@ def phase_kernel_check(pw, pool, failures) -> dict:
     per search step and the plan; then the sum over a step's 40 launches
     and over the 22 that the fused routes still make (no b3b). Then one
     clip's batch and ragged shapes, with and without bias and ReLU. The
-    pool pair at two sites."""
+    pool pair as ``pool_rows`` gives it, with its nine-site sums."""
     from ivf_tpu_torch.precision import reference_numerics
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    cases = {"pointwise_conv": [], "maxpool3d_s1_fwd": [], "maxpool3d_s1_bwd": []}
+    cases = {"pointwise_conv": []}
     b = BATCH
     keys = ("ms", "library_ms", "plain_ms", "bound_ms")
     step = {k: 0.0 for k in keys} | {"launches": 0}
@@ -422,36 +435,11 @@ def phase_kernel_check(pw, pool, failures) -> dict:
             if not err <= tol:
                 failures.append(f"pointwise_conv {site} relu={relu} bias={use_bias}: err {err} > {tol}")
 
-    for site, shape in (("Mixed_3b", (b, 8, 28, 28, 192)), ("Mixed_5b", (b, 2, 7, 7, 832))):
-        x = _ties(shape, gen, dev)
-        g = torch.randn(shape, generator=gen).to(dev)
-        y = pool.maxpool3d_s1_fwd_cuda(x)
-        dx = pool.maxpool3d_s1_bwd_cuda(x, y, g)
-        y_ref = pool.maxpool3d_s1_fwd_plain(x)
-        dx_ref = pool.maxpool3d_s1_bwd_plain(x, y, g)
-        torch.cuda.synchronize()
-        numel = x.numel()
-        xc = x.permute(0, 4, 1, 2, 3)
-        for name, err, tol, fn, plain, lib, nbytes, ops in (
-            ("maxpool3d_s1_fwd", (y - y_ref).abs().max().item(), 0.0,
-             lambda: pool.maxpool3d_s1_fwd_cuda(x), lambda: pool.maxpool3d_s1_fwd_plain(x),
-             lambda: torch.nn.functional.max_pool3d(xc, 3, 1, 1), 8 * numel, 26 * numel),
-            ("maxpool3d_s1_bwd", (dx - dx_ref).abs().max().item(), 1e-6,
-             lambda: pool.maxpool3d_s1_bwd_cuda(x, y, g),
-             lambda: pool.maxpool3d_s1_bwd_plain(x, y, g), None, 16 * numel, 54 * numel),
-        ):
-            bms, by = bound(nbytes, ops)
-            cases[name].append({
-                "site": site, "shape": list(shape), "max_abs_err": err, "tol": tol,
-                "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain, reps=5),
-                "library_ms": cuda_ms(lib) if lib is not None else None,
-                "bound_ms": bms, "bound_by": by,
-            })
-            if not err <= tol:
-                failures.append(f"{name} {site}: err {err} > {tol}")
+    cases.update(pool_rows(pool, failures, torch.float32))
     for name, rows in cases.items():
         for row in rows:
             emit({"phase": "kernel_check", "kernel": name, **row})
+    _nine_site_sums("kernel_check", cases, ("maxpool3d_s1_fwd", "maxpool3d_s1_bwd"))
     return cases
 
 
@@ -1688,20 +1676,18 @@ def f32_compare(other: str) -> int:
     return 0
 
 
-def argmax_compare(other: str) -> int:
-    """``python3 chip_smoke.py --argmax-compare DIR``: the argmax pair's rows
-    of ``phase_bf16_kernel_check`` (``argmax_rows``: the nine branch-3 sites
-    at batch 4, Mixed_3b and Mixed_3c at 128) on the checkout in DIR and on
-    this one, in turns (``_turns``): per row the mean device ms of each
-    side's two turns, ``F.max_pool3d``'s (forward) and the bound, and
-    whether every turn gave the plain version's bits; then the nine-site
-    sums at batch 4."""
+def _compare_rows(other: str, phase: str, child_flag: str, row_phase: str) -> int:
+    """The rows a ``child_flag`` child prints as ``row_phase`` on the
+    checkout in ``other`` and on this one, in turns (``_turns``): per row
+    (kernel, site, batch) the mean device ms of each side's two turns,
+    the library's (this side) and the bound, and whether every turn gave
+    the plain version's bits; then the nine-site sums at batch 4."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    emit({"phase": "argmax_compare", "other": str(Path(other).resolve()), "nvidia_smi": nvidia_smi()})
-    sides = _turns(other, "--argmax-rows", lambda r: (r["kernel"], r["site"], r["shape"][0]) if (
-        r.get("phase") == "argmax_rows" and "ms" in r) else None)
+    emit({"phase": phase, "other": str(Path(other).resolve()), "nvidia_smi": nvidia_smi()})
+    sides = _turns(other, child_flag, lambda r: (r["kernel"], r["site"], r["shape"][0]) if (
+        r.get("phase") == row_phase and "ms" in r) else None)
     if sides is None:
         return 1
     sums = {}
@@ -1712,15 +1698,187 @@ def argmax_compare(other: str) -> int:
                    "library_ms": row["library_ms"] and _turn_mean(sides["this"], key, "library_ms"),
                    "bound_ms": row["bound_ms"],
                    "equal_bits": all(r[key]["equal_bits"] for side in sides.values() for r in side)}
-        emit({"phase": "argmax_compare", "kernel": name, "site": site, "shape": row["shape"], "cold": row["cold"],
+        if "events_ms" in row:  # the rows' second timer (pool_rows)
+            cmp_row.update({
+                "other_events_ms": _turn_mean(sides["other"], key, "events_ms"),
+                "this_events_ms": _turn_mean(sides["this"], key, "events_ms"),
+                "library_events_ms": row["library_events_ms"] and _turn_mean(sides["this"], key,
+                                                                             "library_events_ms")})
+        emit({"phase": phase, "kernel": name, "site": site, "shape": row["shape"], "cold": row["cold"],
               "plan": row["plan"], **cmp_row, "this_turns_ms": [r[key]["ms"] for r in sides["this"]],
               "other_turns_ms": [r[key]["ms"] for r in sides["other"]]})
         if batch == BATCH:
             sums.setdefault(name, []).append(cmp_row)
     for name, rows in sums.items():
-        emit({"phase": "argmax_compare", "kernel": name, "summary": f"nine sites, batch {BATCH}",
-              **{k: _sum_or_null(r[k] for r in rows) for k in ("other_ms", "this_ms", "library_ms", "bound_ms")}})
+        emit({"phase": phase, "kernel": name, "summary": f"nine sites, batch {BATCH}",
+              **{k: _sum_or_null(r[k] for r in rows) for k in rows[0] if k.endswith("_ms")}})
     return 0
+
+
+def argmax_compare(other: str) -> int:
+    """``python3 chip_smoke.py --argmax-compare DIR``: the argmax pair's rows
+    of ``phase_bf16_kernel_check`` (``argmax_rows``: the nine branch-3 sites
+    at batch 4, Mixed_3b and Mixed_3c at 128) on the checkout in DIR and on
+    this one (``_compare_rows``)."""
+    return _compare_rows(other, "argmax_compare", "--argmax-rows", "argmax_rows")
+
+
+def pool_compare(other: str) -> int:
+    """``python3 chip_smoke.py --pool-compare DIR``: the ``maxpool3d_s1``
+    pair's rows of ``phase_kernel_check`` and ``phase_bf16_kernel_check``
+    (``pool_rows`` in float32 and bfloat16: the nine branch-3 sites at
+    batch 4, Mixed_3b and Mixed_3c at 128) on the checkout in DIR and on
+    this one (``_compare_rows``)."""
+    return _compare_rows(other, "pool_compare", "--pool-rows", "pool_rows")
+
+
+# (forward, backward) blocks an SM of the variant builds --pool-sweep times
+POOL_SWEEP_CAPS = ((2, 3), (3, 3), (4, 3), (5, 3), (6, 3), (5, 2), (5, 4))
+_POOL_CAPS_LINE = re.compile(r"constexpr int kFwdMinBlocks = \d+, kBwdMinBlocks = \d+;")
+
+
+def _pool_cap_builds(pool) -> dict:
+    """``csrc/maxpool3d.cu`` built once per cap pair of
+    ``POOL_SWEEP_CAPS`` (its ``kFwdMinBlocks`` / ``kBwdMinBlocks`` line
+    rewritten) into ``_build/``, all in parallel: {caps: (bound library,
+    ptxas lines of each kernel: registers and spills)}."""
+    import ctypes
+
+    from ivf_tpu_torch.ops.kernels import build
+
+    src = (build.CSRC_DIR / "maxpool3d.cu").read_text()
+    if len(_POOL_CAPS_LINE.findall(src)) != 1:
+        raise RuntimeError("csrc/maxpool3d.cu: no single kFwdMinBlocks / kBwdMinBlocks line to rewrite")
+    build.BUILD_DIR.mkdir(exist_ok=True)
+    procs = {}
+    for fwd, bwd in POOL_SWEEP_CAPS:
+        stem = build.BUILD_DIR / f"maxpool3d_caps{fwd}{bwd}"
+        Path(f"{stem}.cu").write_text(_POOL_CAPS_LINE.sub(
+            f"constexpr int kFwdMinBlocks = {fwd}, kBwdMinBlocks = {bwd};", src))
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC_DIR), "-o", f"{stem}.so", f"{stem}.cu"]
+        procs[(fwd, bwd)] = (stem, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                                    text=True))
+    libs = {}
+    for caps, (stem, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {stem}.cu:\n{out}")
+        ptxas, kernel = {}, None
+        for line in out.splitlines():
+            m = re.search(r"Compiling entry function '\w*?(pool_(?:fwd|bwd)I\w+?)E", line)
+            if m:
+                kernel = m[1]
+            elif kernel and ("registers" in line or "spill" in line):
+                ptxas.setdefault(kernel, []).append(line.split(":", 1)[-1].strip())
+        libs[caps] = (pool.bind(ctypes.CDLL(f"{stem}.so")), ptxas)
+    return libs
+
+
+def pool_sweep() -> int:
+    """``python3 chip_smoke.py --pool-sweep``: the ``maxpool3d_s1`` pair in
+    both dtypes, launched directly: under every candidate tile on the
+    checkout's build at Mixed_3b, 4b, 4c and 5b at batch ``BATCH`` (warm)
+    and Mixed_3b at 128 clips (cold), and under each register cap of
+    ``POOL_SWEEP_CAPS`` (variant builds, ``_pool_cap_builds``) with the
+    planned tile at Mixed_3b at 4 and 128 clips and Mixed_4c at 4. Device
+    ms per call (the larger of two readings) and equal bits to the plain
+    version for every tile and build. Candidate tiles: the plan, and
+    chunks of 1, 2, 3, 4, 6 or 8 vectors that divide C, each with the
+    ``argmax_pool.best_tile`` of 224, 112 or 64 positions over the chunk.
+    The data behind ``maxpool3d.plan`` and the caps of
+    ``csrc/maxpool3d.cu`` (~1 min)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from ivf_tpu_torch.ops.kernels import argmax_pool as ap, maxpool3d as pool
+
+    dev, failures = torch.device("cuda"), []
+    gen = torch.Generator().manual_seed(14)
+    emit({"phase": "pool_sweep", "nvidia_smi": nvidia_smi()})
+    builds = _pool_cap_builds(pool)
+    for caps, (_, ptxas) in builds.items():
+        emit({"phase": "pool_sweep", "caps": list(caps), "ptxas": ptxas})
+    site_shapes = {site: shape for site, shape, _ in FUSED_SITES}
+    cases = [(site, BATCH, False) for site in ("Mixed_3b", "Mixed_4b", "Mixed_4c", "Mixed_5b")]
+    cases.append(("Mixed_3b", BIG_BATCH, True))
+    for site, batch, cold in cases:
+        t, h, w_, cin = site_shapes[site]
+        shape = (batch, t, h, w_, cin)
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            dt, iview = ("bf16", torch.int16) if bf16 else ("f32", torch.int32)
+            x = _ties(shape, gen, dev).to(dtype)
+            g = torch.randn(shape, generator=gen).to(dtype).to(dev)
+            y_ref = pool.maxpool3d_s1_fwd_plain(x)
+            dx_ref = (pool.maxpool3d_s1_bwd_bf16_plain if bf16 else pool.maxpool3d_s1_bwd_plain)(x, y_ref, g)
+            y, dx = torch.empty_like(x), torch.empty_like(x)
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def timed(lib, tile, label):
+                def fwd():
+                    if getattr(lib, f"maxpool3d_s1_fwd_{dt}")(x.data_ptr(), y.data_ptr(), *shape, *tile, stream):
+                        raise RuntimeError(f"maxpool3d_s1_fwd_{dt} refused {tile}")
+
+                def bwd():
+                    if getattr(lib, f"maxpool3d_s1_bwd_{dt}")(x.data_ptr(), y_ref.data_ptr(), g.data_ptr(),
+                                                              dx.data_ptr(), *shape, *tile, stream):
+                        raise RuntimeError(f"maxpool3d_s1_bwd_{dt} refused {tile}")
+
+                fwd()
+                bwd()
+                torch.cuda.synchronize()
+                bits = bool(torch.equal(y.view(iview), y_ref.view(iview))) and bool(
+                    torch.equal(dx.view(iview), dx_ref.view(iview)))
+                if not bits:
+                    failures.append(f"{label}: not bit-equal to the plain version")
+                return {"fwd_ms": _ms2(fwd, cold, failures, label), "bwd_ms": _ms2(bwd, cold, failures, label),
+                        "equal_bits": bits}
+
+            planned = pool.plan(h, w_, cin, bf16)
+            nv = cin // planned.vw
+            tiles = {planned}
+            for v in (1, 2, 3, 4, 6, 8):
+                if nv % v == 0:
+                    tiles |= {ap.tile_plan(planned.vw, v, *ap.best_tile(h, w_, v, p // v))
+                              for p in (224, 112, 64) if p >= v}
+            rows = {tile: {"plan": list(tile), **timed(pool._lib(), tile, f"{site} b{batch} {dt} {tile}")}
+                    for tile in sorted(tiles)}
+            for tile, row in rows.items():
+                emit({"phase": "pool_sweep", "site": site, "batch": batch, "dtype": dt, "planned": tile == planned,
+                      **row})
+            emit({"phase": "pool_sweep", "site": site, "batch": batch, "dtype": dt, "summary": "tiles",
+                  "planned": rows[planned],
+                  **{f"best_{d}": min(rows.values(), key=lambda r, d=d: r[f"{d}_ms"]) for d in ("fwd", "bwd")}})
+            if site in ("Mixed_3b", "Mixed_4c"):
+                for caps, (lib, _) in builds.items():
+                    emit({"phase": "pool_sweep", "site": site, "batch": batch, "dtype": dt, "caps": list(caps),
+                          "plan": list(planned), **timed(lib, planned, f"{site} b{batch} {dt} caps {caps}")})
+            del x, g, y_ref, dx_ref, y, dx
+    for f in failures:
+        print(f"chip_smoke FAILED: {f}", file=sys.stderr)
+    return 1 if failures else 0
+
+
+def _rows_child(root: str, module: str, phase: str, rows) -> int:
+    """A child of ``_compare_rows``: builds ``csrc/<module>.cu`` of the
+    checkout at ``root``, imports its ``ivf_tpu_torch.ops.kernels.<module>``
+    and prints as ``phase`` every row of the case dicts that
+    ``rows(kernels, failures)`` yields."""
+    import importlib
+
+    sys.path.insert(0, str(Path(root).resolve()))
+    from ivf_tpu_torch.ops.kernels import build
+
+    build.build([module])
+    kernels = importlib.import_module(f"ivf_tpu_torch.ops.kernels.{module}")
+    failures: list = []
+    for cases in rows(kernels, failures):
+        for name, case_rows in cases.items():
+            for row in case_rows:
+                emit({"phase": phase, "kernel": name, **row})
+    for f in failures:
+        print(f"chip_smoke FAILED: {f}", file=sys.stderr)
+    return 1 if failures else 0
 
 
 def f32_rows(root: str) -> int:
@@ -1734,22 +1892,6 @@ def f32_rows(root: str) -> int:
         pw.f32_plan = lambda *args, **kwargs: None
     failures: list = []
     phase_kernel_check(pw, pool, failures)
-    return 1 if failures else 0
-
-
-def argmax_rows_child(root: str) -> int:
-    """The child of ``argmax_compare``: ``argmax_rows`` on the
-    ``ivf_tpu_torch`` of the checkout at ``root``."""
-    sys.path.insert(0, str(Path(root).resolve()))
-    from ivf_tpu_torch.ops.kernels import argmax_pool as ap, build
-
-    build.build(["argmax_pool"])
-    failures: list = []
-    for name, rows in argmax_rows(ap, failures).items():
-        for row in rows:
-            emit({"phase": "argmax_rows", "kernel": name, **row})
-    for f in failures:
-        print(f"chip_smoke FAILED: {f}", file=sys.stderr)
     return 1 if failures else 0
 
 
@@ -1876,14 +2018,13 @@ def phase_bf16_kernel_check(pw, pool, ap, failures) -> dict:
     column-major view of the (Cout, Cin) weight, bias, ReLU) and dx (its
     transpose, row-major), within one bf16 ulp of the largest output, with
     the sum over a search step's 40 launches and the host time per call;
-    the bf16 pool pair and the argmax pair at all nine branch-3 sites
-    (equal bits; the argmax pair also at 128 clips, ``argmax_rows``).
+    the bf16 pool pair (``pool_rows``) and the argmax pair
+    (``argmax_rows``) at all nine branch-3 sites and at Mixed_3b and
+    Mixed_3c at 128 clips, cold, with equal bits and nine-site sums.
     Device time per call (inputs warm in L2), the plain
     version's, one PyTorch call's in bfloat16 (``torch.matmul``,
     ``F.max_pool3d``; none for the two backwards), and the bound: bytes at
     3.35 TB/s against bf16 operations at 989 TFLOP/s."""
-    import torch.nn.functional as F
-
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(10)
     cases = {n: [] for n in BF16_COUNTERS}
@@ -1928,49 +2069,38 @@ def phase_bf16_kernel_check(pw, pool, ap, failures) -> dict:
     }
     emit({"phase": "bf16_kernel_check", "kernel": "pointwise_conv_bf16", "summary": "per search step",
           "batch": BATCH, **step})
-    for site, (t, h, w_, cin), _ in FUSED_SITES:
-        shape = (BATCH, t, h, w_, cin)
-        x, g = _bf16_site_inputs(shape, gen, dev)
-        numel = x.numel()
-        y = pool.maxpool3d_s1_fwd_bf16_cuda(x)
-        dx = pool.maxpool3d_s1_bwd_bf16_cuda(x, y, g)
-        torch.cuda.synchronize()
-        xc = x.permute(0, 4, 1, 2, 3)
-        lib_fwd = lambda: F.max_pool3d(xc, 3, 1, 1)  # noqa: E731
-        checks = (
-            ("maxpool3d_s1_fwd_bf16", (y, pool.maxpool3d_s1_fwd_plain(x)),
-             lambda: pool.maxpool3d_s1_fwd_bf16_cuda(x), lambda: pool.maxpool3d_s1_fwd_plain(x), lib_fwd,
-             4 * numel, 26 * numel),
-            ("maxpool3d_s1_bwd_bf16", (dx, pool.maxpool3d_s1_bwd_bf16_plain(x, y, g)),
-             lambda: pool.maxpool3d_s1_bwd_bf16_cuda(x, y, g), lambda: pool.maxpool3d_s1_bwd_bf16_plain(x, y, g),
-             None, 8 * numel, 54 * numel),
-        )
-        for name, (got, want), fn, plain, lib, nbytes, ops in checks:
-            torch.cuda.synchronize()
-            bits = bool(torch.equal(got.view(torch.int16), want.view(torch.int16)))
-            bms, by = bound(nbytes, ops, PEAK_BF16_FLOPS)
-            cases[name].append({
-                "site": site, "shape": list(shape), "equal_bits": bits,
-                "max_abs_err": (got.float() - want.float()).abs().max().item(), "tol": 0.0,
-                "ms": device_ms(fn), "plain_ms": device_ms(plain, reps=3),
-                "library_ms": device_ms(lib) if lib is not None else None, "bound_ms": bms, "bound_by": by,
-            })
-            if not bits:
-                failures.append(f"{name} {site}: not bit-equal to the plain version")
+    cases.update(pool_rows(pool, failures, torch.bfloat16))
     cases.update(argmax_rows(ap, failures))
     for name, rows in cases.items():
         for row in rows:
             emit({"phase": "bf16_kernel_check", "kernel": name, **row})
-    for name in ("argmax_pool_fwd", "argmax_pool_bwd"):
-        rows = [r for r in cases[name] if r["shape"][0] == BATCH]
-        emit({"phase": "bf16_kernel_check", "kernel": name, "summary": f"nine sites, batch {BATCH}",
-              **{k: _sum_or_null(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}})
+    _nine_site_sums("bf16_kernel_check", cases, ("maxpool3d_s1_fwd_bf16", "maxpool3d_s1_bwd_bf16",
+                                                  "argmax_pool_fwd", "argmax_pool_bwd"))
     return cases
 
 
-# the argmax pair's rows at bench.py's 128 clips (inputs cold, from HBM)
-ARGMAX_BIG_BATCH = 128
-ARGMAX_BIG_SITES = (("Mixed_3b", (8, 28, 28, 192)), ("Mixed_3c", (8, 28, 28, 256)))
+def _nine_site_sums(phase: str, cases: dict, names) -> None:
+    """One summary line per kernel: its rows at batch ``BATCH`` (the nine
+    branch-3 sites) summed; ``library_ms`` null where a row has none."""
+    for name in names:
+        rows = [r for r in cases[name] if r["shape"][0] == BATCH]
+        emit({"phase": phase, "kernel": name, "summary": f"nine sites, batch {BATCH}",
+              **{k: _sum_or_null(r[k] for r in rows) for k in rows[0] if k == "ms" or k.endswith("_ms")}})
+
+
+# the pool pairs' rows (argmax, maxpool3d) at bench.py's 128 clips (inputs
+# cold, from HBM)
+BIG_BATCH = 128
+BIG_SITES = (("Mixed_3b", (8, 28, 28, 192)), ("Mixed_3c", (8, 28, 28, 256)))
+
+
+def _ms2(fn, cold, failures, label):
+    """The larger of two ``device_ms`` readings (the profiler now and then
+    drops a kernel's events); a reading of 0 fails."""
+    ms = max(device_ms(fn, cold=cold) for _ in range(2))
+    if ms <= 0:
+        failures.append(f"{label}: the profiler recorded no kernel time")
+    return ms
 
 
 def _sum_or_null(values):
@@ -1991,17 +2121,11 @@ def argmax_rows(ap, failures) -> dict:
     profiler now and then drops a kernel's events); a reading of 0 fails."""
     import torch.nn.functional as F
 
-    def ms2(fn, cold):
-        ms = max(device_ms(fn, cold=cold) for _ in range(2))
-        if ms <= 0:
-            failures.append("argmax_rows: the profiler recorded no kernel time")
-        return ms
-
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(11)
     cases = {"argmax_pool_fwd": [], "argmax_pool_bwd": []}
     sites = [(site, BATCH, shape, False) for site, shape, _ in FUSED_SITES]
-    sites += [(site, ARGMAX_BIG_BATCH, shape, True) for site, shape in ARGMAX_BIG_SITES]
+    sites += [(site, BIG_BATCH, shape, True) for site, shape in BIG_SITES]
     for site, batch, (t, h, w_, cin), cold in sites:
         shape = (batch, t, h, w_, cin)
         x, g = _bf16_site_inputs(shape, gen, dev)
@@ -2025,13 +2149,77 @@ def argmax_rows(ap, failures) -> dict:
             cases[name].append({
                 "site": site, "shape": list(shape), "cold": cold, "plan": plan, "equal_bits": bits,
                 "max_abs_err": (got.float() - want.float()).abs().max().item(), "tol": 0.0,
-                "ms": ms2(fn, cold), "plain_ms": device_ms(plain, reps=3),
-                "library_ms": ms2(lib, cold) if lib is not None else None,
+                "ms": _ms2(fn, cold, failures, name), "plain_ms": device_ms(plain, reps=3),
+                "library_ms": _ms2(lib, cold, failures, name) if lib is not None else None,
                 "bound_ms": bms, "bound_by": by,
             })
             if not bits:
                 failures.append(f"{name} {site} batch {batch}: not bit-equal to the plain version")
         del x, g, ya, idx, dxa, ya_ref, idx_ref, dx_ref, xc
+    return cases
+
+
+def pool_rows(pool, failures, dtype) -> dict:
+    """The ``maxpool3d_s1`` pair in ``dtype`` against its plain versions on
+    the card: at all nine branch-3 sites at batch ``BATCH`` (inputs warm in
+    L2) and at Mixed_3b and Mixed_3c at 128 clips (cold: a 256 MB overwrite
+    before each call). Equal bits (y and dx as int views), device ms per
+    call, the plain version's, ``F.max_pool3d``'s in ``dtype`` for the
+    forward (none for the every-tie backward), the plan, and the bound:
+    2 (forward) or 4 (backward) tensors of ``dtype`` at 3.35 TB/s against
+    26 compares or 27 compares and adds an element. The kernel's and the
+    library's ms are the larger of two readings (the profiler now and then
+    drops a kernel's events); a reading of 0 fails. ``events_ms`` and
+    ``library_events_ms``: the same calls under ``cuda_ms`` (CUDA events
+    around 20 back-to-back calls, the host's dispatch gaps included), the
+    timer of these rows before the staged kernels; at 128 clips the
+    inputs (0.3-0.8 GB) do not fit in L2 without an overwrite."""
+    import torch.nn.functional as F
+
+    bf16 = dtype == torch.bfloat16
+    sfx, es, iview = ("_bf16", 2, torch.int16) if bf16 else ("", 4, torch.int32)
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+    fwd, bwd = getattr(pool, f"maxpool3d_s1_fwd{sfx}_cuda"), getattr(pool, f"maxpool3d_s1_bwd{sfx}_cuda")
+    plain_bwd = pool.maxpool3d_s1_bwd_bf16_plain if bf16 else pool.maxpool3d_s1_bwd_plain
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(12)
+    cases = {f"maxpool3d_s1_fwd{sfx}": [], f"maxpool3d_s1_bwd{sfx}": []}
+    sites = [(site, BATCH, shape, False) for site, shape, _ in FUSED_SITES]
+    sites += [(site, BIG_BATCH, shape, True) for site, shape in BIG_SITES]
+    for site, batch, (t, h, w_, cin), cold in sites:
+        shape = (batch, t, h, w_, cin)
+        x = _ties(shape, gen, dev).to(dtype)
+        g = torch.randn(shape, generator=gen).to(dtype).to(dev)
+        numel = x.numel()
+        y = fwd(x)
+        dx = bwd(x, y, g)
+        y_ref = pool.maxpool3d_s1_fwd_plain(x)
+        dx_ref = plain_bwd(x, y_ref, g)
+        torch.cuda.synchronize()
+        xc = x.permute(0, 4, 1, 2, 3)
+        # a checkout from before the staged kernels has no plan (--pool-compare
+        # against it); the shim goes when no such comparison is wanted
+        plan = list(pool.plan(h, w_, cin, bf16)) if hasattr(pool, "plan") else None
+        checks = (
+            (f"maxpool3d_s1_fwd{sfx}", (y, y_ref), lambda: fwd(x), lambda: pool.maxpool3d_s1_fwd_plain(x),
+             lambda: F.max_pool3d(xc, 3, 1, 1), 2 * es * numel, 26 * numel),
+            (f"maxpool3d_s1_bwd{sfx}", (dx, dx_ref), lambda: bwd(x, y, g), lambda: plain_bwd(x, y, g), None,
+             4 * es * numel, 54 * numel),
+        )
+        for name, (got, want), fn, plain, lib, nbytes, ops in checks:
+            bits = bool(torch.equal(got.view(iview), want.view(iview)))
+            bms, by = bound(nbytes, ops, peak)
+            cases[name].append({
+                "site": site, "shape": list(shape), "cold": cold, "plan": plan, "equal_bits": bits,
+                "max_abs_err": (got.float() - want.float()).abs().max().item(), "tol": 0.0,
+                "ms": _ms2(fn, cold, failures, name), "plain_ms": device_ms(plain, reps=3),
+                "library_ms": _ms2(lib, cold, failures, name) if lib is not None else None,
+                "events_ms": cuda_ms(fn), "library_events_ms": cuda_ms(lib) if lib is not None else None,
+                "bound_ms": bms, "bound_by": by,
+            })
+            if not bits:
+                failures.append(f"{name} {site} batch {batch}: not bit-equal to the plain version")
+        del x, g, y, dx, y_ref, dx_ref, xc
     return cases
 
 
@@ -2421,6 +2609,8 @@ def kernels_line(cases: dict, launches: dict) -> dict:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "at": {"site": site, "shape": row["shape"]},
         }
+        if "events_ms" in row:  # the pool pair's second timer (pool_rows)
+            entry.update({"events_ms": row["events_ms"], "library_events_ms": row["library_events_ms"]})
         if name.startswith("fused_pool_conv"):
             entry.update({
                 "cold_ms": row["cold_ms"], "unfused_kernel_pair_ms": row["pair_ms"],
@@ -2516,5 +2706,13 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--argmax-compare":
         sys.exit(argmax_compare(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--argmax-rows":
-        sys.exit(argmax_rows_child(sys.argv[2]))
+        sys.exit(_rows_child(sys.argv[2], "argmax_pool", "argmax_rows",
+                             lambda ap, failures: [argmax_rows(ap, failures)]))
+    if sys.argv[1:] == ["--pool-sweep"]:
+        sys.exit(pool_sweep())
+    if len(sys.argv) == 3 and sys.argv[1] == "--pool-compare":
+        sys.exit(pool_compare(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--pool-rows":
+        sys.exit(_rows_child(sys.argv[2], "maxpool3d", "pool_rows", lambda pool, failures: (
+            pool_rows(pool, failures, dtype) for dtype in (torch.float32, torch.bfloat16))))
     sys.exit(main())

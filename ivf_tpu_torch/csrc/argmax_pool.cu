@@ -65,43 +65,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "staged_pool.cuh"
+
 namespace {
 
-constexpr int kMaxThreads = 224;  // argmax_pool.MAX_THREADS
-constexpr int kStageSlots = 2;    // halo vectors a thread stages per frame, at most (argmax_pool.STAGE_SLOTS)
 // blocks an SM must hold: caps the registers (65536 / (224 x 4) = 73 in
 // the forward, 97 in the backward), since a block's frame steps wait on
 // loads and the SM hides that latency with other blocks
 constexpr int kFwdMinBlocks = 4, kBwdMinBlocks = 3;
-
-struct Args {
-  int t, h, w, c;  // the volume (the sample is blockIdx.y)
-  int th, tw, v;   // tile: rows, columns, channel vectors
-  int nw, nc;      // tiles along W, channel chunks
-};
-
-// where this block sits, and how its halo tile is laid out
-struct Tile {
-  int b, h0, w0, c0;  // sample, first row, column, channel
-  int nhv;            // halo vectors
-  long long frame;    // elements per frame
-};
-
-template <int VW>
-__device__ __forceinline__ Tile tile_of(const Args& a) {
-  Tile g;
-  int bx = blockIdx.x;
-  const int ci = bx % a.nc;
-  bx /= a.nc;
-  const int wi = bx % a.nw, hi = bx / a.nw;
-  g.b = blockIdx.y;
-  g.h0 = hi * a.th;
-  g.w0 = wi * a.tw;
-  g.c0 = ci * a.v * VW;
-  g.nhv = (a.th + 2) * (a.tw + 2) * a.v;
-  g.frame = static_cast<long long>(a.h) * a.w * a.c;
-  return g;
-}
 
 // One staged halo vector of a thread: its offset inside a frame, whether it
 // lies in the volume, and the (h, w) part of its window key.
@@ -458,31 +429,6 @@ argmax_bwd(const uint8_t* __restrict__ idx, const uint16_t* __restrict__ gy, uin
 // host
 // ---------------------------------------------------------------------------
 
-struct Launch {
-  Args a;
-  dim3 grid;
-  int threads, nhv;
-};
-
-int plan_launch(int b, int t, int h, int w, int c, int vw, int v, int th, int tw, int threads, Launch* out) {
-  if (b <= 0 || t <= 0 || h <= 0 || w <= 0 || c <= 0 || v <= 0 || th <= 0 || tw <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if ((vw != 8 && vw != 1) || (vw == 8 && c % 8 != 0)) return static_cast<int>(cudaErrorInvalidValue);
-  if (static_cast<long long>(h) * w * c > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  const long long nhv = static_cast<long long>(th + 2) * (tw + 2) * v;
-  if (threads % 32 != 0 || threads > kMaxThreads || threads < th * tw * v || nhv > kStageSlots * threads) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
-  const long long nh = (h + th - 1) / th, nw = (w + tw - 1) / tw, nc = (c / vw + v - 1) / v;
-  if (nh * nw * nc > 0x7FFFFFFFLL || b > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  out->a = Args{t, h, w, c, th, tw, v, static_cast<int>(nw), static_cast<int>(nc)};
-  out->grid = dim3(static_cast<unsigned>(nh * nw * nc), static_cast<unsigned>(b));
-  out->threads = threads;
-  out->nhv = static_cast<int>(nhv);
-  return 0;
-}
-
 // dynamic shared memory above the default 48 KB needs the kernel's consent
 template <typename Kernel>
 int allow_smem(Kernel kernel, size_t smem) {
@@ -490,8 +436,6 @@ int allow_smem(Kernel kernel, size_t smem) {
   return static_cast<int>(
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
-
-bool aligned(const void* p, uintptr_t n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
 
 }  // namespace
 
@@ -503,7 +447,7 @@ bool aligned(const void* p, uintptr_t n) { return reinterpret_cast<uintptr_t>(p)
 extern "C" int argmax_pool_fwd_bf16(const void* x, void* y, void* idx, int b, int t, int h, int w, int c,
                                     int vw, int v, int th, int tw, int threads, void* stream) {
   Launch l;
-  const int rc = plan_launch(b, t, h, w, c, vw, v, th, tw, threads, &l);
+  const int rc = plan_launch(b, t, h, w, c, vw, 8, v, th, tw, threads, &l);
   if (rc != 0) return rc;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(2) * l.nhv * vw * 4;
@@ -531,7 +475,7 @@ extern "C" int argmax_pool_fwd_bf16(const void* x, void* y, void* idx, int b, in
 extern "C" int argmax_pool_bwd_bf16(const void* idx, const void* gy, void* dx, int b, int t, int h, int w,
                                     int c, int vw, int v, int th, int tw, int threads, void* stream) {
   Launch l;
-  const int rc = plan_launch(b, t, h, w, c, vw, v, th, tw, threads, &l);
+  const int rc = plan_launch(b, t, h, w, c, vw, 8, v, th, tw, threads, &l);
   if (rc != 0) return rc;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(2) * l.nhv * vw * 3;

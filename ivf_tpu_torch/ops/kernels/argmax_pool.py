@@ -97,13 +97,15 @@ def argmax_pool_bwd_plain(idx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dx
 
 
-MAX_THREADS = 224  # csrc/argmax_pool.cu kMaxThreads
-STAGE_SLOTS = 2  # halo vectors a thread stages per frame, at most (kStageSlots)
+# kMaxThreads and kStageSlots of csrc/argmax_pool.cu and csrc/maxpool3d.cu
+MAX_THREADS = 224
+STAGE_SLOTS = 2  # halo vectors a thread stages per frame, at most
 
 
 class Plan(NamedTuple):
-    """A launch of either kernel: ``vw`` channels a thread (8: one 16-byte
-    vector; 1: the ragged instance), ``v`` vectors and ``th`` x ``tw``
+    """A launch of the staged pool kernels (this pair and the
+    ``maxpool3d_s1`` pair): ``vw`` channels a thread (one 16-byte vector,
+    or 1: the ragged instance), ``v`` vectors and ``th`` x ``tw``
     positions of one sample's frames a block, ``threads`` threads a
     block."""
 
@@ -118,23 +120,19 @@ def _round32(n: int) -> int:
     return -(-n // 32) * 32
 
 
-@functools.lru_cache(maxsize=None)
-def plan(h: int, w: int, c: int, vec: bool = True) -> Plan:
-    """The tile for frames of h x w positions and c channels (every block
-    walks a whole sample's frames); ``vec``: the operands allow 16-byte
-    vectors (C % 8 == 0 and aligned pointers). Channel chunks of 4-8
-    vectors that divide C where one does (up to 32 channels in the ragged
-    instance); the (th, tw) tile of at most ``MAX_THREADS // v`` positions
-    that stages and computes the fewest positions per frame (halo and
-    ragged edges counted, a computed position twice a staged one) and
-    whose halo the block's threads can stage."""
-    vw = 8 if vec and c % 8 == 0 else 1
-    nv = c // vw
-    if vw == 8:
-        v = next((d for d in (8, 7, 6, 5, 4) if nv % d == 0), min(nv, 8))
-    else:
-        v = min(nv, 32)
-    positions = max(1, MAX_THREADS // v)
+def tile_plan(vw: int, v: int, th: int, tw: int) -> Plan:
+    """The launch of a (th x tw positions, v vectors of vw channels) tile
+    with the fewest threads the kernels take for it: one a computed
+    (position, vector), and at most ``STAGE_SLOTS`` halo vectors each."""
+    nhv = (th + 2) * (tw + 2) * v
+    return Plan(vw, v, th, tw, max(_round32(th * tw * v), _round32(math.ceil(nhv / STAGE_SLOTS))))
+
+
+def best_tile(h: int, w: int, v: int, positions: int) -> tuple:
+    """The (th, tw) tile of at most ``positions`` positions of an h x w
+    frame that stages and computes the fewest positions per frame (halo
+    and ragged edges counted, a computed position twice a staged one) and
+    whose halo of v vectors a block's threads can stage."""
     best = None
     for th in range(1, min(h, positions) + 1):
         for tw in range(1, min(w, positions // th) + 1):
@@ -144,10 +142,25 @@ def plan(h: int, w: int, c: int, vec: bool = True) -> Plan:
             cost = tiles * ((th + 2) * (tw + 2) + 2 * th * tw)
             if best is None or (cost, tiles) < best[0]:
                 best = ((cost, tiles), th, tw)
-    _, th, tw = best
-    nhv = (th + 2) * (tw + 2) * v
-    threads = max(_round32(th * tw * v), _round32(math.ceil(nhv / STAGE_SLOTS)))
-    return Plan(vw, v, th, tw, threads)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def plan(h: int, w: int, c: int, vec: bool = True, wide: int = 8) -> Plan:
+    """The tile for frames of h x w positions and c channels (every block
+    walks a whole sample's frames); ``vec``: the operands allow 16-byte
+    vectors of ``wide`` channels (8 bfloat16, 4 float32 in
+    ``maxpool3d.plan``), used where C % wide == 0. Channel chunks of 4-8
+    vectors that divide C where one does (up to 32 channels in the ragged
+    instance); the ``best_tile`` of at most ``MAX_THREADS // v``
+    positions."""
+    vw = wide if vec and c % wide == 0 else 1
+    nv = c // vw
+    if vw > 1:
+        v = next((d for d in (8, 7, 6, 5, 4) if nv % d == 0), min(nv, 8))
+    else:
+        v = min(nv, 32)
+    return tile_plan(vw, v, *best_tile(h, w, v, max(1, MAX_THREADS // v)))
 
 
 @functools.lru_cache(maxsize=None)

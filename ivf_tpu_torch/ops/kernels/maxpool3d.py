@@ -5,8 +5,9 @@ Inception branch-3 pool. On CUDA tensors both directions run in
 ``csrc/maxpool3d.cu``; on CPU tensors in the plain versions below. The
 backward is the exact 27-term gather
 
-    dx[t,h,w] = sum over in-range neighbours n of (x[t,h,w] == y[n]) * g[n]
+    dx[t,h,w] = sum over in-range neighbours n of (x[t,h,w] == y[n] ? g[n] : 0)
 
+(a select: an inf or NaN cotangent at an unselected neighbour adds +0),
 which credits EVERY tied maximum, where ``F.max_pool3d``'s backward (and
 XLA's select_and_scatter) routes each window's gradient to one of them.
 The two agree where every window's maximum is unique. On a plateau a
@@ -21,6 +22,16 @@ follows the Pallas kernel's bfloat16 arithmetic: the tie test on the exact
 float32 upcast, and bfloat16 sums in its order -- per frame the centre
 term, then the 8 spatial neighbours; frame t, plus frame t-1, plus frame
 t+1 -- rounded after every add (``maxpool3d_s1_bwd_bf16_plain``).
+
+The kernels give the plain versions' bits. They tile the volume as the
+argmax pair does (``argmax_pool.py``): a block takes all frames of one
+sample, a tile of positions and a chunk of channels, stages each frame of
+the tile with its halo in shared memory and walks the frames in order
+(the forward scans W, then H, then the last three frames; the backward
+keeps three frames of x and its running sums, so each input adds its
+terms in order). ``plan`` picks the tile: a 16-byte vector a thread (4
+float32 or 8 bfloat16 channels) where C allows it and the pointers are
+aligned, else the ragged instance, 1 channel a thread, with the same bits.
 """
 
 from __future__ import annotations
@@ -32,7 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from ivf_tpu_torch.ops.conv import max_pool3d_same
-from ivf_tpu_torch.ops.kernels import build
+from ivf_tpu_torch.ops.kernels import argmax_pool, build
+from ivf_tpu_torch.ops.kernels.argmax_pool import Plan
 
 _PAD = (0, 0, 1, 1, 1, 1, 1, 1)  # zero halo of one voxel on T, H, W
 
@@ -89,10 +101,19 @@ def maxpool3d_s1_bwd_bf16_plain(
     return centre + prev + nxt
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = build.library("maxpool3d")
-    dims = [ctypes.c_int] * 5
+def plan(h: int, w: int, c: int, bf16: bool, vec: bool = True) -> Plan:
+    """The tile for frames of h x w positions and c channels: the argmax
+    pair's plan (``argmax_pool.plan``), whose staging these kernels share,
+    with 16-byte vectors of 8 bfloat16 or 4 float32 channels where C allows
+    and ``vec`` (aligned operands), else 1 channel a thread."""
+    return argmax_pool.plan(h, w, c, vec, wide=8 if bf16 else 4)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of the four entry points of a build of
+    ``csrc/maxpool3d.cu`` (``chip_smoke.py --pool-sweep`` binds variant
+    builds too)."""
+    dims = [ctypes.c_int] * 10  # b, t, h, w, c, then the plan
     for dtype in ("f32", "bf16"):
         fwd = getattr(lib, f"maxpool3d_s1_fwd_{dtype}")
         fwd.argtypes = [ctypes.c_void_p] * 2 + dims + [ctypes.c_void_p]
@@ -101,6 +122,11 @@ def _lib() -> ctypes.CDLL:
         bwd.argtypes = [ctypes.c_void_p] * 4 + dims + [ctypes.c_void_p]
         bwd.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return bind(build.library("maxpool3d"))
 
 
 def _check_cuda_operands(x: torch.Tensor, *others: torch.Tensor, dtype=torch.float32) -> None:
@@ -117,52 +143,57 @@ def _check_cuda_operands(x: torch.Tensor, *others: torch.Tensor, dtype=torch.flo
             raise ValueError("maxpool3d_s1: operands must be contiguous (B, T, H, W, C)")
 
 
-def _launch(symbol: str, dtype, out_like: torch.Tensor, *operands: torch.Tensor) -> torch.Tensor:
+def _launch(symbol: str, dtype, operands, tile: Plan = None) -> torch.Tensor:
     """Check the operands, launch ``symbol`` on them into a new tensor
-    shaped like ``out_like`` and return it; raises on a launch error."""
+    shaped like the first under ``tile`` (default: the plan, 16-byte
+    vectors where every pointer allows them) and return it; raises on a
+    shape, tile or launch the kernel refuses."""
     _check_cuda_operands(*operands, dtype=dtype)
-    out = torch.empty_like(out_like)
+    out = torch.empty_like(operands[0])
     if out.numel() == 0:
         return out
-    rc = getattr(_lib(), symbol)(
-        *(t.data_ptr() for t in operands), out.data_ptr(), *out.shape,
-        torch.cuda.current_stream(out.device).cuda_stream,
-    )
+    ptrs = [t.data_ptr() for t in (*operands, out)]
+    if tile is None:
+        vec = all(p % 16 == 0 for p in ptrs)
+        tile = plan(*out.shape[2:], bf16=dtype == torch.bfloat16, vec=vec)
+    rc = getattr(_lib(), symbol)(*ptrs, *out.shape, *tile, torch.cuda.current_stream(out.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{symbol} launch failed with CUDA error {rc}")
+        raise RuntimeError(f"{symbol} launch failed with CUDA error {rc} ({Plan(*tile)})")
     return out
 
 
-def maxpool3d_s1_fwd_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Launch the forward kernel; counts in ``maxpool3d_s1_fwd_cuda.launches``."""
-    y = _launch("maxpool3d_s1_fwd_f32", torch.float32, x, x)
+def maxpool3d_s1_fwd_cuda(x: torch.Tensor, tile: Plan = None) -> torch.Tensor:
+    """Launch the forward kernel; ``tile`` overrides the plan (the tests
+    force each instance). Counts in ``maxpool3d_s1_fwd_cuda.launches``."""
+    y = _launch("maxpool3d_s1_fwd_f32", torch.float32, (x,), tile)
     maxpool3d_s1_fwd_cuda.launches += 1
     return y
 
 
 def maxpool3d_s1_bwd_cuda(
-    x: torch.Tensor, y: torch.Tensor, g: torch.Tensor
+    x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, tile: Plan = None
 ) -> torch.Tensor:
-    """Launch the backward kernel; counts in ``maxpool3d_s1_bwd_cuda.launches``."""
-    dx = _launch("maxpool3d_s1_bwd_f32", torch.float32, x, x, y, g)
+    """Launch the backward kernel; ``tile`` as for the forward. Counts in
+    ``maxpool3d_s1_bwd_cuda.launches``."""
+    dx = _launch("maxpool3d_s1_bwd_f32", torch.float32, (x, y, g), tile)
     maxpool3d_s1_bwd_cuda.launches += 1
     return dx
 
 
-def maxpool3d_s1_fwd_bf16_cuda(x: torch.Tensor) -> torch.Tensor:
+def maxpool3d_s1_fwd_bf16_cuda(x: torch.Tensor, tile: Plan = None) -> torch.Tensor:
     """Launch the bfloat16 forward kernel; counts in
     ``maxpool3d_s1_fwd_bf16_cuda.launches``."""
-    y = _launch("maxpool3d_s1_fwd_bf16", torch.bfloat16, x, x)
+    y = _launch("maxpool3d_s1_fwd_bf16", torch.bfloat16, (x,), tile)
     maxpool3d_s1_fwd_bf16_cuda.launches += 1
     return y
 
 
 def maxpool3d_s1_bwd_bf16_cuda(
-    x: torch.Tensor, y: torch.Tensor, g: torch.Tensor
+    x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, tile: Plan = None
 ) -> torch.Tensor:
     """Launch the bfloat16 backward kernel; counts in
     ``maxpool3d_s1_bwd_bf16_cuda.launches``."""
-    dx = _launch("maxpool3d_s1_bwd_bf16", torch.bfloat16, x, x, y, g)
+    dx = _launch("maxpool3d_s1_bwd_bf16", torch.bfloat16, (x, y, g), tile)
     maxpool3d_s1_bwd_bf16_cuda.launches += 1
     return dx
 

@@ -160,7 +160,7 @@ ARGMAX_PLAN_SHAPES = {
 @pytest.mark.parametrize("vec", [True, False], ids=["vec", "unaligned"])
 @pytest.mark.parametrize("shape", list(ARGMAX_PLAN_SHAPES.values()), ids=list(ARGMAX_PLAN_SHAPES))
 def test_argmax_plan_fits_the_kernels(shape, vec):
-    """The tile plan (CPU only): what csrc/argmax_pool.cu's plan_launch
+    """The tile plan (CPU only): what plan_launch (csrc/staged_pool.cuh)
     accepts (thread count a multiple of 32, at most MAX_THREADS, one
     thread per computed (position, vector), at most STAGE_SLOTS halo
     vectors a thread), 8 channels a thread exactly where C % 8 == 0 and the

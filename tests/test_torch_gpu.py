@@ -68,14 +68,15 @@ def test_pointwise_kernel_matches_plain(cuda_device, n, cin, cout, relu, use_bia
 
 @pytest.mark.parametrize("shape", [(2, 3, 4, 5, 6), (4, 2, 7, 7, 832)])
 def test_maxpool_kernels_match_plain(cuda_device, shape):
-    """Forward bit-exact; backward within 1e-6."""
+    """Forward and backward bit-exact: the backward adds its 27 terms in
+    the plain version's (dt, dh, dw) order."""
     x = _ties(shape, 6).to(cuda_device)
     g = torch.randn(shape, generator=torch.Generator().manual_seed(1)).to(cuda_device)
     y = tpool.maxpool3d_s1_fwd_cuda(x)
     dx = tpool.maxpool3d_s1_bwd_cuda(x, y, g)
     torch.cuda.synchronize()
-    assert torch.equal(y, tpool.maxpool3d_s1_fwd_plain(x))
-    assert (dx - tpool.maxpool3d_s1_bwd_plain(x, y, g)).abs().max().item() <= 1e-6
+    assert torch.equal(y.view(torch.int32), tpool.maxpool3d_s1_fwd_plain(x).view(torch.int32))
+    assert torch.equal(dx.view(torch.int32), tpool.maxpool3d_s1_bwd_plain(x, y, g).view(torch.int32))
 
 
 FUSED = {
@@ -437,6 +438,174 @@ def test_bf16_maxpool_kernels_match_plain_bits(cuda_device, shape):
     assert torch.equal(dx.view(torch.int16), tpool.maxpool3d_s1_bwd_bf16_plain(x, y, g).view(torch.int16))
 
 
+# the pool pair's shapes: the nine branch-3 sites at batch 2, ragged
+# channels (6, 130), and T, H or W of 1 and 2
+POOL_SHAPES = {
+    "Mixed_3b": (2, 8, 28, 28, 192), "Mixed_3c": (2, 8, 28, 28, 256), "Mixed_4b": (2, 4, 14, 14, 480),
+    "Mixed_4c": (2, 4, 14, 14, 512), "Mixed_4d": (2, 4, 14, 14, 512), "Mixed_4e": (2, 4, 14, 14, 512),
+    "Mixed_4f": (2, 4, 14, 14, 528), "Mixed_5b": (2, 2, 7, 7, 832), "Mixed_5c": (2, 2, 7, 7, 832),
+    "c6": (2, 3, 5, 7, 6), "c130": (1, 2, 3, 3, 130),
+    "t1": (2, 1, 6, 7, 16), "t2": (2, 2, 6, 7, 16), "h1": (2, 4, 1, 9, 16), "h2": (2, 4, 2, 9, 8),
+    "w1": (2, 4, 9, 1, 16), "w2": (2, 4, 9, 2, 8), "thw1": (3, 1, 1, 1, 24), "thw2_c3": (2, 2, 2, 2, 3),
+}
+POOL = {  # dtype -> (forward, backward, plain backward, integer view)
+    "f32": (tpool.maxpool3d_s1_fwd_cuda, tpool.maxpool3d_s1_bwd_cuda, tpool.maxpool3d_s1_bwd_plain, torch.int32),
+    "bf16": (tpool.maxpool3d_s1_fwd_bf16_cuda, tpool.maxpool3d_s1_bwd_bf16_cuda,
+             tpool.maxpool3d_s1_bwd_bf16_plain, torch.int16),
+}
+
+
+def _pool_data(shape, seed, dtype, dev):
+    """Tied halves in [-2, 2], a third of them post-ReLU zeros; channel 1 a
+    negative plateau (the zero pad wins its border windows); -0.0
+    scattered; a cotangent with tied magnitudes."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.round(torch.randn(shape, generator=gen) * 2).clamp(-4, 4) / 2
+    x = torch.where(torch.rand(shape, generator=gen) < 0.3, torch.relu(x), x)
+    if shape[-1] > 1:
+        x[..., 1] = -1.5
+    x[torch.rand(shape, generator=gen) < 0.05] = -0.0
+    g = torch.round(torch.randn(shape, generator=gen) * 8) / 4
+    return x.to(dtype).to(dev), g.to(dtype).to(dev)
+
+
+def _check_pool(dt, x, g, tile=None):
+    """Both kernels against the plain versions, bit for bit (int views:
+    NaN payloads and the sign of zero included); each launches once."""
+    fwd, bwd, plain_bwd, iview = POOL[dt]
+    before = (fwd.launches, bwd.launches)
+    y = fwd(x, tile)
+    dx = bwd(x, y, g, tile)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    y_ref = tpool.maxpool3d_s1_fwd_plain(x)
+    assert torch.equal(y.view(iview), y_ref.view(iview))
+    assert torch.equal(dx.view(iview), plain_bwd(x, y_ref, g).view(iview))
+    return y, dx
+
+
+def _dtype(dt):
+    return torch.bfloat16 if dt == "bf16" else torch.float32
+
+
+@pytest.mark.parametrize("case", list(POOL_SHAPES))
+@pytest.mark.parametrize("dt", sorted(POOL))
+def test_maxpool_kernels_give_the_plain_bits(cuda_device, dt, case):
+    """The planned instance (16-byte vectors where C allows, else the
+    ragged one) at the nine branch-3 sites and ragged shapes."""
+    x, g = _pool_data(POOL_SHAPES[case], 2, _dtype(dt), cuda_device)
+    _check_pool(dt, x, g)
+
+
+POOL_TILES = {  # forced plans: (shape, (vw, v, th, tw)), vw 0 the dtype's vector width
+    "vec_v1": ((2, 5, 9, 10, 16), (0, 1, 4, 3)),
+    "vec_v2_t7": ((1, 7, 9, 10, 16), (0, 2, 2, 5)),
+    "vec_wide_strip": ((2, 4, 3, 30, 64), (0, 4, 1, 30)),
+    "vec_one_position": ((2, 4, 5, 6, 64), (0, 8, 1, 1)),
+    "vec_Mixed_5b_tile_past_edge": ((2, 2, 7, 7, 832), (0, 4, 4, 8)),
+    "ragged_on_aligned_Mixed_4b": ((2, 4, 14, 14, 480), (1, 16, 2, 4)),
+    "ragged_3x3": ((2, 5, 9, 10, 16), (1, 16, 3, 3)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(POOL_TILES))
+@pytest.mark.parametrize("dt", sorted(POOL))
+def test_maxpool_every_instance_gives_the_plain_bits(cuda_device, dt, case):
+    """Each instance (a 16-byte vector a thread, the ragged 1 channel)
+    under tiles the planner would not pick: one-vector chunks, strips, one
+    position, tiles past the volume's edge, the ragged instance on aligned
+    data."""
+    shape, (vw, v, th, tw) = POOL_TILES[case]
+    x, g = _pool_data(shape, 3, _dtype(dt), cuda_device)
+    _check_pool(dt, x, g, tap.tile_plan(vw or (8 if dt == "bf16" else 4), v, th, tw))
+
+
+@pytest.mark.parametrize("dt", sorted(POOL))
+def test_maxpool_misaligned_operands_take_the_ragged_instance(cuda_device, dt):
+    """Bases one element past a 16-byte boundary: the plan falls back to 1
+    channel a thread (no fallback to the plain version), same bits."""
+    shape = (2, 4, 9, 10, 16)
+    x, g = _pool_data(shape, 4, _dtype(dt), cuda_device)
+    xs, gs = (torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)[1:].view(shape) for t in (x, g))
+    xs.copy_(x)
+    gs.copy_(g)
+    assert xs.data_ptr() % 16 != 0 and xs.is_contiguous()
+    _check_pool(dt, xs, gs)
+
+
+@pytest.mark.parametrize("tile", [None, (1, 8, 4, 5)], ids=["planned", "ragged_instance"])
+@pytest.mark.parametrize("dt", sorted(POOL))
+def test_maxpool_kernels_keep_nan_inf_and_signed_zero_bits(cuda_device, dt, tile):
+    """+-0, NaN and +-inf in x, inf and NaN in g: the forward selects the
+    plain version's element (the last NaN, else the first maximum, the
+    sign of zero included), and an unselected inf or NaN cotangent adds
+    +0 (a select, not a multiply); bits compared as int views."""
+    shape = (2, 3, 5, 7, 8)
+    x, g = _pool_data(shape, 5, torch.float32, "cpu")
+    xf, gf = x.view(-1), g.view(-1)
+    n = xf.numel()
+    xf[n // 5] = xf[n // 3] = float("nan")
+    xf[n // 2], xf[2 * n // 3] = float("inf"), float("-inf")
+    gf[n // 7], gf[n // 4], gf[3 * n // 4] = float("inf"), float("nan"), float("-inf")
+    gf[torch.rand(n, generator=torch.Generator().manual_seed(9)) < 0.05] = -0.0
+    x, g = x.to(_dtype(dt)).to(cuda_device), g.to(_dtype(dt)).to(cuda_device)
+    y, dx = _check_pool(dt, x, g, tile and tap.tile_plan(*tile))
+    assert torch.isnan(y.float()).any() and not torch.isfinite(dx.float()).all()
+
+
+@pytest.mark.parametrize("tile", [None, (1, 8, 4, 5)], ids=["planned", "ragged_instance"])
+@pytest.mark.parametrize("dt", sorted(POOL))
+def test_maxpool_backward_keeps_subnormals(cuda_device, dt, tile):
+    """A subnormal cotangent (+-1e-39) is added, not flushed to zero."""
+    shape = (1, 3, 4, 5, 8)
+    x, _ = _pool_data(shape, 6, _dtype(dt), cuda_device)
+    sign = torch.sign(torch.randn(shape, generator=torch.Generator().manual_seed(7)))
+    g = (sign * 1e-39).to(_dtype(dt)).to(cuda_device)
+    _, dx = _check_pool(dt, x, g, tile and tap.tile_plan(*tile))
+    assert dx.float().abs().max().item() > 0
+
+
+@pytest.mark.parametrize("dt", sorted(POOL))
+def test_maxpool_kernels_compare_subnormal_values_exactly(cuda_device, dt):
+    """x drawn from +-1e-39, 2e-39 (subnormal in both dtypes), +-0 and -1:
+    window maxima are subnormals or zeros, which the kernels' compares keep
+    apart (no flush to zero), as the plain version's do."""
+    shape = (2, 3, 6, 7, 16)
+    gen = torch.Generator().manual_seed(10)
+    values = torch.tensor([-1e-39, 1e-39, 2e-39, -0.0, 0.0, -1.0])
+    x = values[torch.randint(0, len(values), shape, generator=gen)]
+    g = torch.round(torch.randn(shape, generator=gen) * 8) / 4
+    _check_pool(dt, x.to(_dtype(dt)).to(cuda_device), g.to(_dtype(dt)).to(cuda_device))
+
+
+@pytest.mark.parametrize("dt", sorted(POOL))
+def test_maxpool_kernels_repeat_their_bits(cuda_device, dt):
+    """Two runs of each kernel on the same inputs: equal bits (no atomics)."""
+    fwd, bwd, _, iview = POOL[dt]
+    x, g = _pool_data(POOL_SHAPES["Mixed_3b"], 7, _dtype(dt), cuda_device)
+    y1, y2 = fwd(x), fwd(x)
+    d1, d2 = bwd(x, y1, g), bwd(x, y1, g)
+    torch.cuda.synchronize()
+    assert torch.equal(y1.view(iview), y2.view(iview)) and torch.equal(d1.view(iview), d2.view(iview))
+
+
+@pytest.mark.parametrize("dt", sorted(POOL))
+def test_maxpool_wrappers_raise_on_tiles_the_kernels_refuse(cuda_device, dt):
+    """A tile or an alignment that no instance takes raises; it is never
+    handed to the plain version."""
+    fwd, bwd, _, _ = POOL[dt]
+    vec = 8 if dt == "bf16" else 4
+    x, g = _pool_data((1, 2, 3, 3, 16), 8, _dtype(dt), cuda_device)
+    with pytest.raises(RuntimeError):  # C % vec != 0 with a vector a thread
+        fwd(x[..., : vec // 2 * 3].contiguous(), tap.Plan(vec, 1, 3, 3, 32))
+    with pytest.raises(RuntimeError):  # too few threads for the tile
+        bwd(x, x, g, tap.Plan(1, 16, 3, 3, 32))
+    xs = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda_device)[1:].view(x.shape)
+    xs.copy_(x)
+    with pytest.raises(RuntimeError):  # a misaligned base under a vector tile
+        fwd(xs, tap.Plan(vec, 1, 3, 3, 32))
+
+
 # the argmax pair's shapes: the nine branch-3 sites at batch 4, Mixed_3b at
 # 128 clips, ragged channels, and T, H or W of 1 and 2
 ARGMAX_SHAPES = {
@@ -490,12 +659,6 @@ def test_argmax_pool_kernels_match_plain_bits(cuda_device, shape):
     _check_argmax(x, g)
 
 
-def _tile(vw, v, th, tw):
-    """A forced plan with the fewest threads the kernels take for it."""
-    nhv = (th + 2) * (tw + 2) * v
-    return tap.Plan(vw, v, th, tw, max(-(-th * tw * v // 32), -(-nhv // (32 * tap.STAGE_SLOTS))) * 32)
-
-
 ARGMAX_TILES = {  # forced plans: (shape, (vw, v, th, tw)); the ragged instance on aligned data too
     "vw1_Mixed_4b": ((2, 4, 14, 14, 480), (1, 16, 2, 4)),
     "vw1_3x3": ((2, 5, 9, 10, 16), (1, 16, 3, 3)),
@@ -515,7 +678,7 @@ def test_argmax_pool_every_instance_gives_the_plain_bits(cuda_device, case):
     tiles, tiles past the volume's edge."""
     shape, tile = ARGMAX_TILES[case]
     x, g = _argmax_data(shape, 3, cuda_device)
-    _check_argmax(x, g, _tile(*tile))
+    _check_argmax(x, g, tap.tile_plan(*tile))
 
 
 def test_argmax_pool_misaligned_operands_take_the_ragged_instance(cuda_device):
@@ -555,7 +718,7 @@ def test_argmax_pool_backward_keeps_subnormals(cuda_device, tile):
     shape = (1, 3, 4, 5, 8)
     x, _ = _argmax_data(shape, 6, cuda_device)
     g = torch.full(shape, 1e-39, dtype=torch.bfloat16, device=cuda_device)
-    _, _, dx = _check_argmax(x, g, tile and _tile(*tile))
+    _, _, dx = _check_argmax(x, g, tile and tap.tile_plan(*tile))
     assert dx.float().abs().max().item() > 0
 
 

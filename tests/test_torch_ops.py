@@ -20,6 +20,7 @@ from ivf_tpu.ops.padding import same_pad_amounts as j_same_pad_amounts
 from ivf_tpu.ops.pallas.maxpool3d import pallas_maxpool3d_s1
 from ivf_tpu.ops.pallas.pointwise_conv import pallas_pointwise_conv
 from ivf_tpu_torch.ops import conv as tconv
+from ivf_tpu_torch.ops.kernels import argmax_pool as tap
 from ivf_tpu_torch.ops.kernels import maxpool3d as tpool
 from ivf_tpu_torch.ops.kernels import pointwise_conv as tpw
 from ivf_tpu_torch.ops.padding import explicit_same_padding, same_pad_amounts
@@ -234,6 +235,53 @@ def test_every_tie_backward_multiplies_the_gradient_on_a_plateau():
     x2 = _t(x).requires_grad_(True)
     (dx_native,) = torch.autograd.grad(tconv.max_pool3d_same(x2, (3, 3, 3), (1, 1, 1)), x2, _t(g))
     assert dx_native.sum().item() == g.sum()
+
+
+# (H, W, C) of the nine branch-3 pools of i3d_smth at 16x224x224, and
+# ragged shapes: channels that fill no 16-byte vector, strips, one position
+POOL_MAIN_PATH = {"Mixed_3b": (28, 28, 192), "Mixed_3c": (28, 28, 256), "Mixed_4b": (14, 14, 480),
+                  "Mixed_4c": (14, 14, 512), "Mixed_4f": (14, 14, 528), "Mixed_5b": (7, 7, 832)}
+POOL_PLAN_SHAPES = {**POOL_MAIN_PATH, "c1": (5, 7, 1), "c3": (5, 7, 3), "c6": (5, 7, 6), "c17": (9, 10, 17),
+                    "c130": (3, 3, 130), "c1001": (64, 1, 1001), "thw1": (1, 1, 24), "w_strip": (1, 64, 8),
+                    "tall": (300, 3, 16)}
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("vec", [True, False], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("shape", list(POOL_PLAN_SHAPES.values()), ids=list(POOL_PLAN_SHAPES))
+def test_maxpool_plan_fits_the_kernels(shape, vec, bf16):
+    """The tile plan (CPU only) gives what plan_launch
+    (csrc/staged_pool.cuh) accepts: a thread count that is a multiple of 32 and at most
+    MAX_THREADS, one thread per computed (position, vector), a halo of at
+    most STAGE_SLOTS vectors a thread, and shared memory within the
+    default 48 KB (the kernels ask for no more). It takes a 16-byte vector
+    a thread (4 float32 or 8 bfloat16 channels) exactly where C allows it
+    and the operands are aligned; ragged or misaligned input gets the
+    ragged instance, 1 channel a thread."""
+    h, w, c = shape
+    p = tpool.plan(h, w, c, bf16, vec=vec)
+    wide = 8 if bf16 else 4
+    assert p.vw == (wide if vec and c % wide == 0 else 1)
+    nv = c // p.vw
+    assert 1 <= p.v <= nv and 1 <= p.th <= h and 1 <= p.tw <= w
+    assert p.threads % 32 == 0 and p.th * p.tw * p.v <= p.threads <= tap.MAX_THREADS
+    nhv = (p.th + 2) * (p.tw + 2) * p.v
+    assert nhv <= tap.STAGE_SLOTS * p.threads
+    assert 4 * nhv * (16 if p.vw > 1 else 4) <= 48 * 1024  # the backward's two (y, g) frame buffers
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("site", list(POOL_MAIN_PATH))
+def test_maxpool_plan_gives_every_main_path_site_the_vector_instance(site, bf16):
+    """At every branch-3 site: 16-byte vectors, chunks of 4-8 vectors that
+    divide C, and at least 3 of 4 of the computed positions inside the
+    frame."""
+    h, w, c = POOL_MAIN_PATH[site]
+    p = tpool.plan(h, w, c, bf16)
+    assert p.vw == (8 if bf16 else 4)
+    assert (c // p.vw) % p.v == 0 and 4 <= p.v <= 8
+    computed = -(-h // p.th) * p.th * -(-w // p.tw) * p.tw
+    assert h * w >= 0.75 * computed
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
