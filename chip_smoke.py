@@ -33,8 +33,10 @@ non-zero without the final line:
    ``'tblock'``); every launch counter reset just before each run and read
    just after; outputs checked and compared.
 5. step_timing: steady wall time of one search step on each of the four
-   routes, in turns, and a profiled step of each (device time by kernel
-   group, top kernels).
+   routes, and on the pool-kernel route with the plain stem (the 7x7x7
+   stride-2 conv in place of the default space-to-depth one), in turns,
+   and a profiled step of each (device time by kernel group, top
+   kernels).
 6. clstm_small_reference: the ConvLSTM (torch family with the gate
    kernel; TF family with hard-sigmoid gates, 'valid' padding, per-layer
    BN) on the card vs the same model on the CPU: logits, input gradient.
@@ -77,8 +79,28 @@ non-zero without the final line:
 13. bf16_step_timing: device time by group per step on the four bf16
    routes beside the float32 ones at batch 4, then the bf16 default route
    at batch 32, and at 128 the default and kernel routes in turns; each
-   with its peak memory; at 4 and 128 also with the stem's input gradient
-   through cuDNN instead of the polyphase form.
+   with its peak memory; at 4 and 128 also the default route with the
+   plain stem (7x7x7 stride 2, polyphase input gradient) beside the
+   default space-to-depth stem, as step_timing does for the float32
+   kernel route.
+14. stem_s2d_check (after the kernel checks): the space-to-depth stem
+   against the plain stem at the stem's full shape (16x224x224x3 -> 64),
+   float32 and bfloat16, forward and input gradient within the CPU
+   tests' tolerances, two runs with equal bits, device ms of each form
+   at batch 4 (both dtypes) and 128 (bfloat16), peak memory, the kernels
+   the profiler names; a third form takes the s2d conv's input gradient
+   from cuDNN's backward-data conv.
+15. refill: ``find_masks`` at full width on the bfloat16 kernel route, 8
+   clips in batches of 4, 10 steps, ``early_stop`` at an eta chosen from
+   this run's own loss trajectories (``refill_eta``) so that stop steps
+   differ within each batch: monolithic, in segments of 2 without refill
+   and with it. Equal bits per clip across the three, refill re-staged
+   rows, no more segments with refill, the same stop steps.
+16. whole_search: ``find_masks`` at bench.py's setting (128 clips, 120
+   steps, bf16, targets arange(128) % 174) on the default route, the
+   kernel route and the default route with the plain stem, each after a
+   2-step warm-up: mask-steps/s, the device busy share of the run, peak
+   memory.
 
 The float32 phases set no global TF32 flag: the port's entry points pin
 exact float32 themselves (``ivf_tpu_torch/precision.py``); direct autograd
@@ -123,6 +145,7 @@ the ``maxpool3d_s1`` pair under every candidate tile and register cap
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -1129,7 +1152,7 @@ def _group(name: str) -> str:
     low = name.lower()
     # cuDNN's implicit-GEMM convs carry "xmma" too, as cuBLAS's sm80_xmma_gemm
     # does: tell them apart by "implicit_gemm"
-    if "conv" in low or "implicit_gemm" in low or "cudnn" in low:
+    if "conv" in low or "implicit_gemm" in low or "cudnn" in low or "dgrad" in low:
         return "cuDNN convolution"
     if "gemm" in low or "gemv" in low:
         return "cuBLAS matmul"
@@ -1151,13 +1174,13 @@ def phase_step_timing(api, card: str, failures) -> None:
     # the softmax saturates and the step's gradient is NaN
     weights = _scaled_weights(Config(), api)
     models = {}
-    for route in ("kernels", "plain", "fused", "fused_tblock"):
+    for route in ("kernels", "plain", "fused", "fused_tblock", "kernels_plain_stem"):
         cfg = Config()
-        for name, value in FUSED_ROUTES[route].items():
+        for name, value in FUSED_ROUTES[route.replace("_plain_stem", "")].items():
             setattr(cfg.model, name, value)
         model = api.build_model(cfg, softmax_override=True)
         model.load_state_dict(weights)
-        models[route] = model.requires_grad_(False)
+        models[route] = _stem(model.requires_grad_(False), not route.endswith("_plain_stem"))
     # one search step from the same carry on the three kernel routes (same
     # seeded weights): the fused kernels should leave every bit as it was
     from ivf_tpu_torch.interpret import mask_opt
@@ -1175,8 +1198,15 @@ def phase_step_timing(api, card: str, failures) -> None:
         for route in ("fused", "fused_tblock")}})
     if not all(torch.isfinite(c.logits).all() for c in after.values()):
         failures.append("route_step_bits: a search step gave non-finite logits")
-    turns = ("kernels", "plain", "fused", "fused_tblock", "fused_tblock", "fused", "plain", "kernels")
-    _step_timing("step_timing", models, clips, card, turns=turns)
+    turns = ("kernels", "plain", "fused", "fused_tblock", "kernels_plain_stem")
+    _step_timing("step_timing", models, clips, card, turns=turns + turns[::-1])
+
+
+def _stem(model, s2d: bool):
+    """``model`` with its stem as the space-to-depth conv or the plain one
+    (``I3D(stem_s2d=...)``; the config has no such field)."""
+    model.Conv3d_1a_7x7.s2d = s2d
+    return model
 
 
 def phase_clstm_step_timing(api, card: str, weights: dict) -> None:
@@ -1301,12 +1331,12 @@ def _step_timing(phase: str, models: dict, clips, card: str, turns, pairs: int =
 
 
 @contextmanager
-def _repairs_off(pool: bool = False, cudnn: bool = False, polyphase: bool = False):
+def _repairs_off(pool: bool = False, cudnn: bool = False):
     """Switch off the port's determinism repairs for a measurement: ``pool``
     puts back ``F.max_pool3d``'s and ``F.avg_pool3d``'s own (atomic)
     backwards, ``cudnn`` drops ``cudnn.deterministic`` from the entry
-    points' pin (its last switch), ``polyphase`` gives the strided stem's
-    input gradient back to cuDNN's backward-data conv."""
+    points' pin (its last switch). The third repair, the plain stem's
+    polyphase input gradient, is off the main path since the s2d stem."""
     from contextlib import ExitStack
     from unittest import mock
 
@@ -1329,16 +1359,12 @@ def _repairs_off(pool: bool = False, cudnn: bool = False, polyphase: bool = Fals
             stack.enter_context(mock.patch.object(precision, "_switches", lambda: switches()[:-1]))
             with precision.reference_numerics():
                 assert not torch.backends.cudnn.deterministic, "the cuDNN pin is not the last switch"
-        if polyphase:
-            stack.enter_context(mock.patch.object(
-                conv._StridedConv3dPolyphase, "apply",
-                staticmethod(lambda xp, weight, bias, strides: F.conv3d(xp, weight, bias, stride=strides))))
         yield
 
 
 REPAIR_VARIANTS = {  # name -> _repairs_off arguments
     "repaired": {}, "no_cudnn_pin": dict(cudnn=True), "no_pool_repair": dict(pool=True),
-    "no_polyphase": dict(polyphase=True), "none": dict(pool=True, cudnn=True, polyphase=True),
+    "none": dict(pool=True, cudnn=True),
 }
 
 
@@ -2527,15 +2553,16 @@ def phase_bf16_step_timing(api, card: str, weights: dict) -> None:
     """Device time by group per search step on the bfloat16 routes beside
     the float32 ones at batch 4, in turns; then the bfloat16 default route
     at batch 32 and, at 128, the default and kernel routes in turns (a few
-    steps each). At 4 and 128 also
-    the default route with the stem's input gradient through cuDNN's
-    backward-data conv instead of the polyphase form (``bf16_cudnn_dgrad``)."""
+    steps each). At 4 and 128 also the default route with the plain stem
+    (``bf16_default_plain_stem``: the 7x7x7 stride-2 conv and its
+    polyphase input gradient) beside the s2d stem."""
     from ivf_tpu_torch.config import Config
     from ivf_tpu_torch.data.synthetic import SyntheticClips
 
     ds = SyntheticClips(BATCH, CLIP_T, CLIP_HW, CLASSES, seed=1, lazy=False)
     clips = torch.stack([torch.from_numpy(ds[i][0]) for i in range(BATCH)]).cuda().float()
-    routes = {"f32_kernels": FUSED_ROUTES["kernels"], "f32_plain": {}, **BF16_ROUTES}
+    routes = {"f32_kernels": FUSED_ROUTES["kernels"], "f32_plain": {}, **BF16_ROUTES,
+              "bf16_default_plain_stem": BF16_ROUTES["bf16_default"]}
     models = {}
     for route, flags in routes.items():
         cfg = Config()
@@ -2544,13 +2571,10 @@ def phase_bf16_step_timing(api, card: str, weights: dict) -> None:
         # find_masks's own upgrade: the default bf16 route's argmax pool
         model = api.build_model(api._bf16_argmax_upgrade(cfg), softmax_override=True)
         model.load_state_dict(weights)
-        models[route] = model.requires_grad_(False)
-    models["bf16_cudnn_dgrad"] = models["bf16_default"]
-    contexts = {"bf16_cudnn_dgrad": dict(polyphase=True)}
+        models[route] = _stem(model.requires_grad_(False), not route.endswith("_plain_stem"))
     _step_timing("bf16_step_timing", models, clips, card,
                  turns=("bf16_default", "bf16_kernels", "bf16_fused", "bf16_fused_tblock", "f32_kernels",
-                        "f32_plain", "bf16_cudnn_dgrad") * 2,
-                 contexts=contexts)
+                        "f32_plain", "bf16_default_plain_stem") * 2)
     gen = torch.Generator(device="cuda").manual_seed(12)
     for batch in (32, 128):
         big = torch.randint(0, 256, (batch, CLIP_T, CLIP_HW, CLIP_HW, 3), generator=gen,
@@ -2560,10 +2584,307 @@ def phase_bf16_step_timing(api, card: str, weights: dict) -> None:
         _step_timing("bf16_step_timing", {r: models[r] for r in routes}, big, card,
                      turns=routes + routes[::-1], steps=3)
         if batch == 128:
-            pair = ("bf16_default", "bf16_cudnn_dgrad")
-            _step_timing("bf16_dgrad_timing", {r: models[r] for r in pair}, big, card,
-                         turns=pair + pair[::-1], steps=3, contexts=contexts)
+            pair = ("bf16_default", "bf16_default_plain_stem")
+            _step_timing("bf16_stem_timing", {r: models[r] for r in pair}, big, card,
+                         turns=pair + pair[::-1], steps=3)
         del big
+
+
+# the stem at its full shape: (T, H, W, Cin) -> 64 channels; batches timed
+STEM_SHAPE, STEM_OUT = (CLIP_T, CLIP_HW, CLIP_HW, 3), 64
+STEM_BATCHES = {torch.float32: (4,), torch.bfloat16: (4, 128)}
+# s2d stem against the plain stem, as a share of the plain stem's largest
+# magnitude: the tolerances of tests/test_torch_stem.py (float32 sums in
+# another order; bfloat16 two ulps at the top binade)
+STEM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
+
+
+def phase_stem_s2d_check(failures, card: str) -> None:
+    """The space-to-depth stem (``ops/conv.py::conv3d_stem_s2d``) against
+    the plain stem (``conv3d_same`` at stride 2, polyphase input gradient)
+    at the stem's full shape, inside the entry points' numerics pin: the
+    forward and the input gradient within ``STEM_TOL``, equal bits from two
+    runs of each form, device ms of both directions of each form (float32
+    at batch 4, bfloat16 at 4 and 128), peak memory, and the kernels the
+    profiler names for each. A third form, ``s2d_cudnn_dgrad``, takes the
+    s2d conv's input gradient from cuDNN's backward-data conv instead of
+    the forward conv the port uses (``_Stride1Conv3dFwdGrad``)."""
+    from unittest import mock
+
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ivf_tpu_torch import precision
+    from ivf_tpu_torch.ops import conv
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    w32 = torch.randn(STEM_OUT, 3, 7, 7, 7, generator=gen, device="cuda") * (2.0 / (3 * 343)) ** 0.5
+    b32 = torch.randn(STEM_OUT, generator=gen, device="cuda") * 0.1
+    for dtype, batches in STEM_BATCHES.items():
+        w, b = w32.to(dtype), b32.to(dtype)
+        s2d = lambda a: conv.conv3d_stem_s2d(a, w, b)  # noqa: E731
+        cudnn_dgrad = mock.patch.object(conv._Stride1Conv3dFwdGrad, "apply", staticmethod(
+            lambda xb, k, bias, pad: F.conv3d(xb, k, bias, padding=pad)))
+        forms = {"s2d": (s2d, contextlib.nullcontext()), "s2d_cudnn_dgrad": (s2d, cudnn_dgrad),
+                 "plain": (lambda a: conv.conv3d_same(a, w, (2, 2, 2), b), contextlib.nullcontext())}
+        for batch in batches:
+            x = torch.randint(0, 256, (batch, *STEM_SHAPE), generator=gen, device="cuda",
+                              dtype=torch.uint8).float().requires_grad_(True)
+            g = torch.randn(batch, *(d // 2 for d in STEM_SHAPE[:3]), STEM_OUT, generator=gen,
+                            device="cuda").to(dtype)
+            row = {"phase": "stem_s2d_check", "card": card, "dtype": str(dtype).split(".")[-1],
+                   "batch": batch, "tol": STEM_TOL[dtype]}
+            out = {}
+            with precision.reference_numerics():
+                for name, (fn, context) in forms.items():
+                    with context:
+                        runs = []
+                        for _ in range(2):
+                            y = fn(x)
+                            (dx,) = torch.autograd.grad(y, x, g)
+                            runs.append((y.detach(), dx))
+                        out[name] = runs[0]
+                        row[f"{name}_equal_bits"] = all(torch.equal(p, q) for p, q in zip(*runs))
+                        if not row[f"{name}_equal_bits"]:
+                            failures.append(f"stem {name} {dtype} b{batch}: two runs gave other bits")
+                        del runs
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats()
+                        y = fn(x)
+                        row[f"{name}_fwd_ms"] = device_ms(lambda: fn(x), reps=5, warmup=1)
+                        row[f"{name}_dx_ms"] = device_ms(
+                            lambda: torch.autograd.grad(y, x, g, retain_graph=True), reps=5, warmup=1)
+                        row[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                            torch.autograd.grad(fn(x), x, g)
+                            torch.cuda.synchronize()
+                        row[f"{name}_kernels"] = sorted(
+                            ([round((getattr(ev, "self_device_time_total", 0) or 0) / 1e3, 3), ev.count, ev.key[:100]]
+                             for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA), reverse=True)[:6]
+                        del y
+                for form in ("s2d", "s2d_cudnn_dgrad"):
+                    for k, (p, q) in enumerate(zip(out[form], out["plain"])):
+                        err = ((p.float() - q.float()).abs().max() / q.float().abs().max()).item()
+                        row[f"{form}_vs_plain_max_rel_err_" + ("fwd" if k == 0 else "dx")] = err
+                        if not err <= STEM_TOL[dtype]:
+                            failures.append(f"stem {form} vs plain {dtype} b{batch}: {err} > {STEM_TOL[dtype]}")
+            emit(row)
+            del x, g, out
+            torch.cuda.empty_cache()
+
+
+# the refill phase: 8 clips in batches of 4, REFILL_STEPS steps in segments
+# of REFILL_CHUNK, on the bfloat16 kernel route
+REFILL_CLIPS, REFILL_BATCH, REFILL_STEPS, REFILL_CHUNK = 8, 4, 10, 2
+
+
+def refill_eta(deltas, batch: int, chunk: int):
+    """An early-stop ``eta`` under which the rows stop at different steps
+    within every batch, with a segment boundary in each batch that some
+    rows have stopped by and others have not (refill re-stages rows
+    there). ``deltas[r, t - 1]`` is |loss_(t-1) - loss_t| of row r at step
+    t, as ``search_step`` forms it. The candidates are geometric midpoints
+    between neighbouring deltas (as far from each as the data allow).
+    Returns (eta, the stop step of each row, steps + 1 for none) or
+    (None, None)."""
+    import numpy as np
+
+    n, steps = deltas.shape
+    vals = np.unique(deltas[np.isfinite(deltas) & (deltas > 0)])
+    best, best_key = (None, None), None
+    for eta in np.sqrt(vals[:-1] * vals[1:]):
+        below = deltas < eta
+        stop = np.where(below.any(axis=1), below.argmax(axis=1) + 1, steps + 1)
+        groups = [stop[i : i + batch] for i in range(0, n, batch)]
+        mixed = all(any((rows <= bd).any() and (rows > bd).any() for bd in range(chunk, steps, chunk))
+                    for rows in groups)
+        key = (mixed, min(len(set(rows)) for rows in groups), len(set(stop)))
+        if mixed and (best_key is None or key > best_key):
+            best, best_key = (float(eta), stop), key
+    return best
+
+
+def _refill_deltas(api, cfg, weights, dataset):
+    """Each row's per-step loss change over REFILL_STEPS steps without early
+    stop, batch by batch, as ``find_masks`` would form it (its model, its
+    targets and central init, the entry points' numerics pin)."""
+    import numpy as np
+
+    from ivf_tpu_torch import precision
+    from ivf_tpu_torch.interpret import mask_opt
+
+    model = api.build_model(api._bf16_argmax_upgrade(cfg), softmax_override=True)
+    model.load_state_dict(weights)
+    model.requires_grad_(False)
+    score = lambda x: model(x).float()  # noqa: E731
+    out = []
+    with precision.reference_numerics():
+        for start in range(0, len(dataset), cfg.data.batch_size):
+            rows = range(start, start + cfg.data.batch_size)
+            clips = torch.stack([torch.from_numpy(dataset[i][0]) for i in rows]).cuda().float()
+            with torch.no_grad():
+                targets = score(clips).argmax(dim=-1)
+            carry = mask_opt.make_search_carry(mask_opt.init_mask_central(score, clips, targets))
+            deltas = []
+            for _ in range(cfg.mask.opt_iter):
+                before = carry.loss
+                carry = mask_opt.search_step(score, clips, targets, carry)
+                deltas.append(torch.abs(before - carry.loss))
+            out.append(torch.stack(deltas, dim=1).cpu().numpy())
+    return np.concatenate(out)
+
+
+def _by_id(run: dict) -> dict:
+    """A run's records, masks and CAMs in clip-id order (refill emits in
+    retirement order)."""
+    import numpy as np
+
+    order = np.argsort([r["video_id"] for r in run["tm"]], kind="stable")
+    return dict(run, tm=[run["tm"][i] for i in order], masks=run["masks"][order], cams=run["cams"][order])
+
+
+def phase_refill(api, counters, failures, card: str, weights: dict) -> None:
+    """Convergence refill at full width on the bfloat16 kernel route: an eta
+    tuned from this run's own loss trajectories (``refill_eta``), then the
+    monolithic search, the chunked one without refill and with it
+    (counters set to 0 before each run, read after). Required: refill on
+    and off give equal bits per clip, and the chunked search without
+    refill those of the monolithic one; refill re-staged rows, launched
+    no more segments than without it, and the stop steps agree."""
+    from ivf_tpu_torch.config import Config
+    from ivf_tpu_torch.data.synthetic import SyntheticClips
+
+    dataset = SyntheticClips(REFILL_CLIPS, CLIP_T, CLIP_HW, CLASSES, seed=3, lazy=False)
+    flags = BF16_ROUTES["bf16_kernels"]
+
+    def config(out_dir="", name="", **mask):
+        cfg = Config()
+        cfg.output_dir, cfg.model_name = out_dir, name
+        cfg.data.batch_size = REFILL_BATCH
+        cfg.mask.opt_iter = REFILL_STEPS
+        for key, value in flags.items():
+            setattr(cfg.model, key, value)
+        for key, value in mask.items():
+            setattr(cfg.mask, key, value)
+        return cfg
+
+    deltas = _refill_deltas(api, config(), weights, dataset)
+    eta, stop = refill_eta(deltas, REFILL_BATCH, REFILL_CHUNK)
+    emit({"phase": "refill_eta", "card": card, "eta": eta, "predicted_stop_steps": None if stop is None else
+          stop.tolist(), "loss_deltas": deltas.tolist()})
+    if eta is None:
+        failures.append("refill: no eta makes the stop steps differ within every batch")
+        return
+    runs = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        for label, mask in (("monolithic", {}), ("no_refill", dict(chunk_steps=REFILL_CHUNK, refill=False)),
+                            ("refill", dict(chunk_steps=REFILL_CHUNK))):
+            cfg = config(out_dir, f"refill_{label}", early_stop=True, eta=eta, **mask)
+            r = _find_masks_run(api, counters, out_dir, "", {}, weights, dataset, batch=REFILL_BATCH,
+                                steps=REFILL_STEPS, cfg=cfg)
+            runs[label] = r
+            st = r["stats"]
+            keys = ("search_launches", "segments_launched", "refill_flushes", "refill_requeued_rows",
+                    "padded_rows", "n_steps_run", "search_seconds")
+            emit({"phase": "refill", "run": label, "card": card, "clips": REFILL_CLIPS, "batch": REFILL_BATCH,
+                  "steps": REFILL_STEPS, "chunk_steps": mask.get("chunk_steps"), "eta": eta,
+                  "order": [t["video_id"] for t in r["tm"]], "launches": r["launches"],
+                  "peak_mem_gib": r["peak_gib"], **{k: st[k] for k in keys}})
+            _check_outputs(f"refill {label}", r, failures, batch=REFILL_CLIPS)
+            launches = r["launches"]
+            mine = BF16_ROUTE_KERNELS["bf16_kernels"]
+            if not (all(launches[n] > 0 for n in mine) and not any(launches[n] for n in launches if n not in mine)):
+                failures.append(f"refill {label}: launches {launches}")
+    on, off, mono = (_by_id(runs[k]) for k in ("refill", "no_refill", "monolithic"))
+    son, soff = runs["refill"]["stats"], runs["no_refill"]["stats"]
+    steps_run = {k: sorted(r["stats"]["n_steps_run"]) for k, r in runs.items()}
+    staged = runs["no_refill"]["stats"]["n_steps_run"]
+    checks = {
+        "refill_vs_no_refill_equal_bits": _equal_bits(on, off),
+        "no_refill_vs_monolithic_equal_bits": _equal_bits(off, mono),
+        "requeued_rows": son["refill_requeued_rows"] > 0 and son["refill_flushes"] > 0,
+        "segments_no_more": son["segments_launched"] <= soff["segments_launched"],
+        "stop_steps_agree": steps_run["refill"] == steps_run["no_refill"] == steps_run["monolithic"],
+        "stop_steps_differ_in_each_batch": all(
+            len(set(staged[i : i + REFILL_BATCH])) > 1 for i in range(0, REFILL_CLIPS, REFILL_BATCH)),
+    }
+    emit({"phase": "refill_compare", "card": card, **checks,
+          "predicted_n_steps_run": [min(int(s) - 1, REFILL_STEPS) for s in stop],
+          "n_steps_run_staged": staged, "segments": [son["segments_launched"], soff["segments_launched"]],
+          "refill_vs_no_refill": _diffs(on, off), "required": "equal bits; every check true"})
+    failures.extend(f"refill: {name} failed" for name, ok in checks.items() if not ok)
+
+
+# bench.py's setting (bench.py:44-64, 150-157): 128 clips, 120 steps, bf16,
+# s2d stem, folded BN, fused 1x1 trio, targets arange(128) % 174
+WHOLE_CLIPS, WHOLE_STEPS, WHOLE_WARMUP_STEPS = 128, 120, 2
+WHOLE_ROUTES = {"bf16_default": BF16_ROUTES["bf16_default"], "bf16_kernels": BF16_ROUTES["bf16_kernels"],
+                "bf16_default_plain_stem": BF16_ROUTES["bf16_default"]}
+
+
+def phase_whole_search(api, counters, failures, card: str, weights: dict) -> dict:
+    """``find_masks`` at bench.py's setting on the default and the kernel
+    route, and the default route with the plain stem: per route a short
+    warm-up run of the same shapes, then the timed run (counters set to 0
+    before it, read after) under a profiler that records the card's
+    kernels only. mask-steps/s = clips x steps / search seconds (the
+    search and finalize, device synchronized at both ends, as
+    ``find_masks`` counts them); device busy share = kernel time over the
+    run's wall time (init and Grad-CAM included); peak memory."""
+    from unittest import mock
+
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ivf_tpu_torch.config import Config
+    from ivf_tpu_torch.data.synthetic import SyntheticClips
+
+    dataset = SyntheticClips(WHOLE_CLIPS, CLIP_T, CLIP_HW, CLASSES, seed=5)  # labels i % 174
+    build, masks = api.build_model, {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        for route, flags in WHOLE_ROUTES.items():
+            def config(steps, name):
+                cfg = Config()
+                cfg.output_dir, cfg.model_name = out_dir, name
+                cfg.data.batch_size, cfg.mask.opt_iter = WHOLE_CLIPS, steps
+                cfg.mask.grad_cam_type = "true"  # targets: the labels, arange(128) % 174
+                for key, value in flags.items():
+                    setattr(cfg.model, key, value)
+                return cfg
+
+            s2d = not route.endswith("_plain_stem")
+            with mock.patch.object(api, "build_model", lambda *a, **k: _stem(build(*a, **k), s2d)):
+                _find_masks_run(api, {}, out_dir, "", {}, weights, dataset, WHOLE_CLIPS, WHOLE_WARMUP_STEPS,
+                                cfg=config(WHOLE_WARMUP_STEPS, f"warm_{route}"))
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    r = _find_masks_run(api, counters, out_dir, "", {}, weights, dataset, WHOLE_CLIPS,
+                                        WHOLE_STEPS, cfg=config(WHOLE_STEPS, f"whole_{route}"))
+            t0 = time.perf_counter()
+            device_ms_run = sum((getattr(ev, "self_device_time_total", 0) or 0) / 1e3
+                                for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+            st = r["stats"]
+            emit({"phase": "whole_search", "route": route, "stem_s2d": s2d, "flags": flags, "card": card,
+                  "clips": WHOLE_CLIPS, "steps": WHOLE_STEPS, "mask_steps_per_s": r["rate"],
+                  "search_seconds": st["search_seconds"], "init_seconds": st["init_seconds"],
+                  "wall_seconds": r["wall"], "device_ms_run": device_ms_run,
+                  "device_busy_share": device_ms_run / 1e3 / r["wall"], "peak_mem_gib": r["peak_gib"],
+                  "launches": r["launches"], "profile_read_seconds": time.perf_counter() - t0,
+                  "profiled": "CUDA activity only"})
+            _check_outputs(f"whole_search {route}", r, failures, batch=WHOLE_CLIPS)
+            if st["n_steps_run"] != [WHOLE_STEPS] * WHOLE_CLIPS:
+                failures.append(f"whole_search {route}: steps run {sorted(set(st['n_steps_run']))}")
+            mine = BF16_ROUTE_KERNELS[route.replace("_plain_stem", "")]
+            launches = r["launches"]
+            if not (all(launches[n] > 0 for n in mine) and not any(launches[n] for n in launches if n not in mine)):
+                failures.append(f"whole_search {route}: launches {launches}")
+            masks[route] = r["masks"]
+            del r, prof
+            torch.cuda.empty_cache()
+    emit({"phase": "whole_search_compare", "card": card, **{
+        f"max_mask_diff_{a}_vs_{b}": float(np.abs(masks[a] - masks[b]).max())
+        for a, b in (("bf16_kernels", "bf16_default"), ("bf16_default_plain_stem", "bf16_default"))}})
 
 
 def kernels_line(cases: dict, launches: dict) -> dict:
@@ -2623,23 +2944,16 @@ def kernels_line(cases: dict, launches: dict) -> dict:
     return {"kernels": out}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    try:
-        from ivf_tpu_torch import api
-        from ivf_tpu_torch.ops.kernels import argmax_pool as ap
-        from ivf_tpu_torch.ops.kernels import build
-        from ivf_tpu_torch.ops.kernels import fused_branch3 as fb
-        from ivf_tpu_torch.ops.kernels import fused_gates as gates
-        from ivf_tpu_torch.ops.kernels import maxpool3d as pool
-        from ivf_tpu_torch.ops.kernels import pointwise_conv as pw
-    except ImportError as exc:
-        print(f"chip_smoke: run from a checkout of the repository ({exc})", file=sys.stderr)
-        return 2
-    failures: list = []
-    counters = {
+def launch_counters() -> dict:
+    """Every CUDA wrapper of the port by name; each counts its launches in
+    its ``launches`` attribute."""
+    from ivf_tpu_torch.ops.kernels import argmax_pool as ap
+    from ivf_tpu_torch.ops.kernels import fused_branch3 as fb
+    from ivf_tpu_torch.ops.kernels import fused_gates as gates
+    from ivf_tpu_torch.ops.kernels import maxpool3d as pool
+    from ivf_tpu_torch.ops.kernels import pointwise_conv as pw
+
+    return {
         "pointwise_conv": pw.pointwise_conv_cuda,
         "maxpool3d_s1_fwd": pool.maxpool3d_s1_fwd_cuda,
         "maxpool3d_s1_bwd": pool.maxpool3d_s1_bwd_cuda,
@@ -2661,12 +2975,32 @@ def main() -> int:
         "lstm_gates_fwd_bf16": gates.lstm_gates_fwd_bf16_cuda,
         "lstm_gates_bwd_bf16": gates.lstm_gates_bwd_bf16_cuda,
     }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        from ivf_tpu_torch import api
+        from ivf_tpu_torch.ops.kernels import argmax_pool as ap
+        from ivf_tpu_torch.ops.kernels import build
+        from ivf_tpu_torch.ops.kernels import fused_branch3 as fb
+        from ivf_tpu_torch.ops.kernels import fused_gates as gates
+        from ivf_tpu_torch.ops.kernels import maxpool3d as pool
+        from ivf_tpu_torch.ops.kernels import pointwise_conv as pw
+    except ImportError as exc:
+        print(f"chip_smoke: run from a checkout of the repository ({exc})", file=sys.stderr)
+        return 2
+    failures: list = []
+    counters = launch_counters()
     info = phase_build(build)
     cases = phase_kernel_check(pw, pool, failures)
     cases.update(phase_gate_check(gates, failures))
     cases.update(phase_fused_check(fb, pool, pw, failures))
     cases.update(phase_bf16_kernel_check(pw, pool, ap, failures))
     cases.update(phase_bf16_fused_gate_check(fb, gates, pool, pw, failures))
+    phase_stem_s2d_check(failures, info["smi"])
     phase_small_reference(failures)
     launches, f32_run = phase_main_path(api, counters, failures, info["smi"])
     phase_step_timing(api, info["smi"], failures)
@@ -2679,6 +3013,8 @@ def main() -> int:
     launches.update({k: clstm_run["launches"][k] for k in ("lstm_gates_fwd", "lstm_gates_bwd")})
     launches.update(phase_clstm_bf16_main_path(api, counters, failures, info["smi"], clstm_weights, clstm_run))
     phase_clstm_step_timing(api, info["smi"], clstm_weights)
+    phase_refill(api, counters, failures, info["smi"], f32_run["weights"])
+    phase_whole_search(api, counters, failures, info["smi"], f32_run["weights"])
     if failures:
         for f in failures:
             print(f"chip_smoke FAILED: {f}", file=sys.stderr)

@@ -211,6 +211,35 @@ def finalize_search(
     )
 
 
+def search_segment(
+    score_fn: ScoreFn,
+    seqs: torch.Tensor,
+    targets: torch.Tensor,
+    carry: SearchCarry,
+    n_steps: int = 100,
+    lam1: float = 0.01,
+    lam2: float = 0.02,
+    lr: float = 0.2,
+    perturbation_type: str = "freeze",
+    early_stop: bool = False,
+    eta: float = 1e-5,
+    closed_form: bool = True,
+    eta_patience: int = 1,
+) -> SearchCarry:
+    """``n_steps`` of the search from ``carry`` -> the new carry, with no
+    read of the device in between (``ivf_tpu/interpret/mask_opt.py:211``).
+    The carry is the exact loop state, so chained segments give
+    ``find_mask_from_carry``'s bits: a frozen row keeps its logits, Adam
+    state and step count, and its loss and scores are recomputed from the
+    same logits."""
+    for _ in range(n_steps):
+        carry = search_step(
+            score_fn, seqs, targets, carry, lam1, lam2, lr, perturbation_type,
+            early_stop, eta, closed_form, eta_patience,
+        )
+    return carry
+
+
 def find_mask_from_carry(
     score_fn: ScoreFn,
     seqs: torch.Tensor,

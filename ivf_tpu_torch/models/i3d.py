@@ -1,9 +1,10 @@
 """Inception-v1 I3D, eval mode (port of ``ivf_tpu/models/i3d.py``).
 
 Same trunk table, head and knobs as the JAX model, minus what this slice
-does not run: dropout is the identity (eval), the stem is a plain 7x7x7
-stride-2 conv (the TPU's space-to-depth stem is the same math), and
-``remat``/``guided_relu``/``fuse_3x3`` are not ported. ``pool_impl``
+does not run: dropout is the identity (eval), and
+``remat``/``guided_relu``/``fuse_3x3`` are not ported. ``stem_s2d`` runs
+the 7x7x7 stride-2 stem as the space-to-depth conv, as the JAX model
+does by default. ``pool_impl``
 reaches every max pool (``ops/conv.py::max_pool3d_same``). A model cast to
 bfloat16 runs in bfloat16 from its first conv, which casts the clips, to
 the softmax, as the JAX model does.
@@ -59,7 +60,8 @@ class I3D(nn.Module):
     the pointwise kernel; ``pallas_pool`` routes the nine branch-3 pools
     through the max-pool kernel pair; ``fuse_pool_conv`` (True: per-frame,
     ``'tblock'``: whole-sample) runs each whole branch 3 through the fused
-    pool + conv kernels instead."""
+    pool + conv kernels instead. ``stem_s2d`` runs the stem as
+    ``ops/conv.py::conv3d_stem_s2d`` where the shapes allow it."""
 
     def __init__(
         self,
@@ -76,6 +78,13 @@ class I3D(nn.Module):
         pallas_pool: bool = False,
         fuse_pool_conv: object = False,
         pool_impl: str = "reduce_window",
+        # on, as in the reference (ivf_tpu/models/i3d.py:79): device ms per
+        # search step, s2d against the plain stem, on an NVIDIA H100 80GB
+        # HBM3 at 700 W (chip_smoke.py, step_timing and bf16_step_timing):
+        # float32 kernel route at batch 4 34.41 against 35.21, bfloat16
+        # default route at 4 9.56 against 12.93 and at 128 182.59 against
+        # 274.83
+        stem_s2d: bool = True,
     ):
         super().__init__()
         self.num_classes = num_classes
@@ -92,7 +101,7 @@ class I3D(nn.Module):
                 hw = spec["stride_hw"]
                 unit = Unit3D(
                     c, spec["out"], spec["kernel"], (st, hw, hw),
-                    fold_bn=fold_bn, use_pallas=use_pallas,
+                    fold_bn=fold_bn, use_pallas=use_pallas, s2d=stem_s2d,
                 )
                 setattr(self, name, unit)
                 c = spec["out"]

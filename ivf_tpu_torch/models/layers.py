@@ -23,7 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ivf_tpu_torch.ops.conv import conv3d_same, max_pool3d_same
+from ivf_tpu_torch.ops.conv import conv3d_same, conv3d_stem_s2d, max_pool3d_same
 from ivf_tpu_torch.ops.kernels.fused_branch3 import fused_pool_conv, fused_pool_conv_tblock
 from ivf_tpu_torch.ops.kernels.maxpool3d import maxpool3d_s1
 from ivf_tpu_torch.ops.kernels.pointwise_conv import pointwise_conv
@@ -90,7 +90,10 @@ class Unit3D(nn.Module):
 
     With ``use_pallas`` a 1x1x1 stride-1 conv runs through the pointwise
     kernel (``ops/kernels/pointwise_conv.py``) with the ReLU fused into its
-    epilogue when BN is folded or absent.
+    epilogue when BN is folded or absent. With ``s2d`` a 7x7x7 stride-2
+    conv on even T, H, W runs as ``conv3d_stem_s2d``, the reference's guard
+    (``ivf_tpu/models/layers.py:135-143``); any other shape takes
+    ``conv3d_same``.
     """
 
     def __init__(
@@ -104,6 +107,7 @@ class Unit3D(nn.Module):
         activation: Optional[Callable] = F.relu,
         fold_bn: bool = True,
         use_pallas: bool = False,
+        s2d: bool = False,
     ):
         super().__init__()
         self.kernel_shape = tuple(kernel_shape)
@@ -111,6 +115,7 @@ class Unit3D(nn.Module):
         self.activation = activation
         self.fold_bn = fold_bn
         self.use_pallas = use_pallas
+        self.s2d = s2d
         self.conv3d = Conv3dParams(in_channels, out_channels, kernel_shape, use_bias)
         self.bn = TorchBatchNorm(out_channels) if use_batch_norm else None
 
@@ -138,6 +143,13 @@ class Unit3D(nn.Module):
                 x.to(w.dtype).contiguous(), w.reshape(cout, cin).t(), b,
                 relu=relu_fused,
             )
+        elif (
+            self.s2d
+            and self.kernel_shape == (7, 7, 7)
+            and self.stride == (2, 2, 2)
+            and all(d % 2 == 0 for d in x.shape[1:4])
+        ):
+            x = conv3d_stem_s2d(x, w, b)
         else:
             x = conv3d_same(x, w, self.stride, b)
         if self.bn is not None and not self.folding:

@@ -49,13 +49,17 @@ class _StridedConv3dPolyphase(torch.autograd.Function):
     forward conv with s**3 times the input channels as outputs; each class
     is then copied into its own strided view of the input grid, where no
     two writes meet, so each input gradient is rounded once, in the
-    gradient's dtype. This replaces cuDNN's strided backward-data conv for
+    gradient's dtype. It now serves the plain stem only (``stem_s2d`` off,
+    or a shape the s2d guard refuses; ``conv3d_stem_s2d`` needs no
+    strided gradient). It replaces cuDNN's strided backward-data conv for
     the 7x7x7 stride-2 stem (3 input channels): cuDNN's deterministic
     choice there is a direct kernel in float32 (293-296 ms per search step
     at batch 4) and an ``indexed`` implicit GEMM in bfloat16 (208 ms at
-    batch 128), where this form takes about 18 ms of convolution and 8 ms
-    of copies, all on an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py``,
-    phases ``repair_cost`` and ``bf16_dgrad_timing``)."""
+    batch 128), where this form takes 8.5 ms in float32 at batch 4 and
+    30.7 ms in bfloat16 at 128, all on an NVIDIA H100 80GB HBM3 at 700 W
+    (``chip_smoke.py``: phase ``stem_s2d_check``, form ``plain``; cuDNN's
+    strided dgrad in its ``repair_cost`` phase while the plain stem was
+    the default)."""
 
     @staticmethod
     def forward(ctx, xp, weight, bias, strides):
@@ -96,6 +100,38 @@ class _StridedConv3dPolyphase(torch.autograd.Function):
         return dx, dw, db, None
 
 
+class _Stride1Conv3dFwdGrad(torch.autograd.Function):
+    """Stride-1 ``F.conv3d`` with symmetric padding ``p`` whose input
+    gradient is taken as the forward conv it equals: the output gradient,
+    padded by ``k - 1 - p``, convolved with the kernel flipped and its in
+    and out channels swapped. Each input gradient is one sum, rounded once
+    in the gradient's dtype, as cuDNN's backward-data conv would give it.
+    The s2d stem takes it because cuDNN's deterministic backward-data
+    choice for its shape (24 input channels, 4x4x4) in float32 is a direct
+    kernel, ``dgrad_alg1_nd_float_engine``: 15.7 ms at batch 4, where the
+    forward takes 4.1 ms (an NVIDIA H100 80GB HBM3 at 700 W,
+    ``chip_smoke.py`` phase ``stem_s2d_check``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, padding):
+        ctx.save_for_backward(x, weight)
+        ctx.has_bias, ctx.padding = bias is not None, padding
+        return F.conv3d(x, weight, bias, padding=padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            flipped = weight.flip(2, 3, 4).transpose(0, 1)
+            dx = F.conv3d(g, flipped, padding=tuple(k - 1 - ctx.padding for k in weight.shape[2:]))
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv3d_weight(x, weight.shape, g, padding=ctx.padding)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = g.sum(dim=(0, 2, 3, 4))
+        return dx, dw, db, None
+
+
 def conv3d_same(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -108,10 +144,11 @@ def conv3d_same(
     Cout), in the weight's dtype: x is cast to it first, as in the JAX
     package (bfloat16 weights take float32 clips). The symmetric part of
     the padding goes to ``F.conv3d``; only an asymmetric remainder (e.g. the (2, 3) of the 7x7x7 stride-2 stem)
-    costs an explicit ``F.pad``. The TPU's space-to-depth stem rewrite
-    (``ivf_tpu/ops/conv.py:103``) is the same math and is not ported. A
-    strided conv whose input needs a gradient takes it by polyphase
-    decomposition (``_StridedConv3dPolyphase``), deterministic and fast.
+    costs an explicit ``F.pad``. A strided conv whose input needs a
+    gradient takes it by polyphase decomposition
+    (``_StridedConv3dPolyphase``), deterministic and fast. The I3D stem
+    takes ``conv3d_stem_s2d`` instead where its guard holds
+    (``models/layers.py::Unit3D``).
     """
     x = x.to(weight.dtype)
     pads = explicit_same_padding(x.shape[1:4], weight.shape[2:], strides)
@@ -125,6 +162,46 @@ def conv3d_same(
         x = F.pad(x, _f_pad(rest))
     y = F.conv3d(_ncdhw(x), weight, bias, stride=tuple(strides), padding=sym)
     return _ndhwc(y)
+
+
+def conv3d_stem_s2d(
+    x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """The I3D stem (7x7x7, stride 2, TF-SAME) as a space-to-depth conv,
+    the counterpart of ``ivf_tpu/ops/conv.py:103-147``: the same sum of
+    products, in another order.
+
+    On even T, H, W the SAME padding of a 7-tap stride-2 window is (2, 3).
+    Zero-padding the kernel to 8 taps at the high side makes every output's
+    window a whole number of 2x2x2 input blocks, so regrouping each block
+    into channels, in (2t, 2h, 2w, C) order in the input and the kernel
+    alike, turns the stem into a 4x4x4 stride-1 conv over 8 * Cin channels
+    with padding (1, 2) on each axis. The regrouped input is written once,
+    into a zeroed buffer one block longer on each axis (the high side's
+    second pad), in the weight's dtype; the conv adds the symmetric
+    (1, 1). Its input gradient is a stride-1 forward conv
+    (``_Stride1Conv3dFwdGrad``) and the regroup's gather: no polyphase
+    form, no scatter copies. The weight
+    (the BN-folded one) is regrouped at every call, so state dicts keep
+    the 7x7x7 layout.
+
+    x: (B, T, H, W, Cin), T, H, W even; weight: (Cout, Cin, 7, 7, 7) ->
+    (B, T/2, H/2, W/2, Cout) in the weight's dtype.
+    """
+    cout, cin = weight.shape[:2]
+    b, t, h, w, _ = x.shape
+    if tuple(weight.shape[2:]) != (7, 7, 7) or t % 2 or h % 2 or w % 2:
+        raise ValueError(f"s2d stem: kernel {tuple(weight.shape[2:])} on {(t, h, w)}")
+    k8 = F.pad(weight, (0, 1, 0, 1, 0, 1)).reshape(cout, cin, 4, 2, 4, 2, 4, 2)
+    k_s2d = k8.permute(0, 3, 5, 7, 1, 2, 4, 6).reshape(cout, 8 * cin, 4, 4, 4)
+    blocks = x.reshape(b, t // 2, 2, h // 2, 2, w // 2, 2, cin).permute(0, 1, 3, 5, 2, 4, 6, 7)
+    xb = x.new_zeros((b, t // 2 + 1, h // 2 + 1, w // 2 + 1, 8 * cin), dtype=weight.dtype)
+    xb[:, :-1, :-1, :-1].unflatten(-1, (2, 2, 2, cin)).copy_(blocks)
+    # in bfloat16 JAX rounds the conv before it adds the bias, and so does
+    # this form; float32 keeps the bias inside the conv
+    split = bias is not None and weight.dtype == torch.bfloat16
+    y = _ndhwc(_Stride1Conv3dFwdGrad.apply(_ncdhw(xb), k_s2d, None if split else bias, 1))
+    return y + bias if split else y
 
 
 class _MaxPool3dFixedOrder(torch.autograd.Function):

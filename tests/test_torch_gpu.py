@@ -5,7 +5,10 @@ entries, the argmax-index pool), the I3D kernel paths of ``find_masks``
 (the pool kernels, the fused branch 3, the bfloat16 routes, the fused
 ones included) at full width and the ConvLSTM's (float32 and bfloat16) at
 a small size, float32 results that do not
-depend on the global TF32 flags, and two runs with equal bits. Skips
+depend on the global TF32 flags, and two runs with equal bits; the
+space-to-depth stem against the plain stem, and convergence refill
+against the search without it (``chip_smoke.py``'s refill phase at a
+small size, so run from the repository's root). Skips
 without a CUDA device. This file
 imports torch and ivf_tpu_torch only, so it also runs where JAX is not
 installed:
@@ -937,3 +940,52 @@ def test_bf16_clstm_find_masks_goes_through_the_bf16_gate_kernels(cuda_device, t
     cams = [np.stack([r["GCHeatMap"] for r in gc]) for _, gc in runs]
     assert np.isfinite(masks[0]).all() and cams[0].shape == (2, 8, 32, 48)
     assert np.array_equal(masks[0], masks[1]) and np.array_equal(cams[0], cams[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_s2d_stem_matches_the_plain_stem_and_repeats_its_bits(cuda_device, dtype):
+    """The space-to-depth stem against the plain stem (7x7x7 stride 2,
+    polyphase input gradient) at the stem's full shape, batch 2, inside the
+    entry points' numerics pin: forward and input gradient within the CPU
+    tests' tolerances (float32 1e-5, bfloat16 2**-7 of the largest
+    magnitude, tests/test_torch_stem.py), and equal bits from two runs."""
+    from ivf_tpu_torch import precision
+    from ivf_tpu_torch.ops import conv
+
+    gen = torch.Generator().manual_seed(4)
+    w = (torch.randn(64, 3, 7, 7, 7, generator=gen) * 0.03).to(cuda_device, dtype)
+    b = (torch.randn(64, generator=gen) * 0.1).to(cuda_device, dtype)
+    x = torch.randint(0, 256, (2, 16, 224, 224, 3), generator=gen).float().to(cuda_device)
+    g = torch.randn(2, 8, 112, 112, 64, generator=gen).to(cuda_device, dtype)
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}[dtype]
+
+    def run(fn):
+        xr = x.clone().requires_grad_(True)
+        with precision.reference_numerics():
+            y = fn(xr)
+            (dx,) = torch.autograd.grad(y, xr, g)
+        return y.detach(), dx
+
+    s2d = lambda a: conv.conv3d_stem_s2d(a, w, b)  # noqa: E731
+    first, second = run(s2d), run(s2d)
+    plain = run(lambda a: conv.conv3d_same(a, w, (2, 2, 2), b))
+    for p, q, ref in zip(first, second, plain):
+        assert torch.equal(p, q)
+        assert ((p.float() - ref.float()).abs().max() / ref.float().abs().max()).item() <= tol
+
+
+def test_refill_on_equals_off_at_a_small_size(cuda_device):
+    """``chip_smoke.py``'s refill phase at 4 clips in batches of 2 and 6
+    steps (segments of 2) on the bfloat16 kernel route: refill on and off
+    give equal bits per clip, the chunked search without refill those of
+    the monolithic one, refill re-stages rows, and the stop steps agree."""
+    import chip_smoke as cs
+
+    failures = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cs, "REFILL_CLIPS", 4)
+        mp.setattr(cs, "REFILL_BATCH", 2)
+        mp.setattr(cs, "REFILL_STEPS", 6)
+        weights = cs._scaled_weights(Config(), api)
+        cs.phase_refill(api, cs.launch_counters(), failures, "test", weights)
+    assert not failures, failures

@@ -108,13 +108,17 @@ def test_converted_state_dict_is_exactly_the_port_model_state(ref):
         dict(use_pallas=True),
         dict(pallas_pool=True),
         dict(use_pallas=True, pallas_pool=True),
+        dict(stem_s2d=True),
+        dict(stem_s2d=False),
     ],
-    ids=["xla", "unfolded", "pointwise", "pool", "both"],
+    ids=["xla", "unfolded", "pointwise", "pool", "both", "s2d_stem", "plain_stem"],
 )
 def test_i3d_logits_and_input_grad_match_jax(ref, flags):
     """Flags off: against the JAX default path. With the pool kernel on:
     against the JAX Pallas path, whose every-tie pool backward is the
-    same rule (see the next test for why the two paths differ)."""
+    same rule (see the next test for why the two paths differ). The JAX
+    model runs its default space-to-depth stem; the port's stem either
+    way (``stem_s2d``, on by default) is held to it."""
     logits, grad = _port_logits_and_grad(_port(ref["sd"], **flags), ref["x"], ref["r"])
     want_logits, want_grad = ref["pallas" if flags.get("pallas_pool") else "xla"]
     np.testing.assert_allclose(logits, want_logits, rtol=1e-3, atol=1e-4)
