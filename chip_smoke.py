@@ -96,11 +96,20 @@ non-zero without the final line:
    differ within each batch: monolithic, in segments of 2 without refill
    and with it. Equal bits per clip across the three, refill re-staged
    rows, no more segments with refill, the same stop steps.
-16. whole_search: ``find_masks`` at bench.py's setting (128 clips, 120
+16. driver: the long-run driver of ``find_masks`` at full width on the
+   bfloat16 kernel route, 12 clips with ids in loader batches of 4, 10
+   steps, a subset file keeping 9 and a ``min_score`` from this run's own
+   probe scores that skips 2-3 of them: the reference run (compaction
+   across loader batches, only the final flush padded, the probe's scores
+   kept), a run interrupted after one loader batch and resumed, a resume
+   from a torn journal, random init uninterrupted and resumed, and the
+   ``run_temp_mask`` / ``do_gradcam`` switches; equal bits per clip where
+   the runs must agree, and the launch counters.
+17. whole_search: ``find_masks`` at bench.py's setting (128 clips, 120
    steps, bf16, targets arange(128) % 174) on the default route, the
    kernel route and the default route with the plain stem, each after a
    2-step warm-up: mask-steps/s, the device busy share of the run, peak
-   memory.
+   memory, the emission journal's bytes and the wait for its writer.
 
 The float32 phases set no global TF32 flag: the port's entry points pin
 exact float32 themselves (``ivf_tpu_torch/precision.py``); direct autograd
@@ -140,7 +149,12 @@ bfloat16, likewise (``pool_compare``), and
     python3 chip_smoke.py --pool-sweep
 
 the ``maxpool3d_s1`` pair under every candidate tile and register cap
-(``pool_sweep``).
+(``pool_sweep``), and
+
+    python3 chip_smoke.py --whole-compare DIR
+
+the whole search on the bf16 default route with the port of the checkout
+in DIR and with this one, in turns (``whole_compare``).
 """
 
 from __future__ import annotations
@@ -784,12 +798,13 @@ def _check_route_launches(route: str, launches: dict, runs: dict, failures) -> N
 
 
 def _find_masks_run(api, counters, out_dir: str, name: str, flags: dict, weights, dataset,
-                    batch: int = BATCH, steps: int = STEPS, cfg=None) -> dict:
+                    batch: int = BATCH, steps: int = STEPS, cfg=None, **find_kwargs) -> dict:
     """One ``find_masks`` run of i3d_smth at full width with the model
     flags ``flags`` (or of ``cfg`` as given, whose ``opt_iter`` must be
-    ``steps``), every launch counter set to 0 just before it and read just
-    after; its records, masks, CAMs, central-init logits (read back from
-    find_masks's own call), launches, rate and peak memory."""
+    ``steps``; ``find_kwargs`` go to ``find_masks``), every launch counter
+    set to 0 just before it and read just after; its records, masks, CAMs,
+    central-init logits (read back from find_masks's own call; None when
+    it made none), launches, rate and peak memory."""
     from unittest import mock
 
     import numpy as np
@@ -818,13 +833,14 @@ def _find_masks_run(api, counters, out_dir: str, name: str, flags: dict, weights
 
     t0 = time.perf_counter()
     with mock.patch.object(api, "init_mask_central", read_init):
-        tm, gc = api.find_masks(cfg, weights, dataset, stats=stats)
+        tm, gc = api.find_masks(cfg, weights, dataset, stats=stats, **find_kwargs)
     wall = time.perf_counter() - t0
     launches = {key: fn.launches for key, fn in counters.items()}
     return dict(
-        tm=tm, masks=np.stack([r["time_mask"] for r in tm]), cams=np.stack([r["GCHeatMap"] for r in gc]),
-        inits=torch.cat(inits).numpy(), launches=launches, wall=wall, stats=stats,
-        rate=stats["searched_rows"] * steps / stats["search_seconds"],
+        tm=tm, gc=gc, masks=np.stack([r["time_mask"] for r in tm]) if tm else np.zeros((0, CLIP_T), np.float32),
+        cams=np.stack([r["GCHeatMap"] for r in gc]) if gc else np.zeros((0, CLIP_T, CLIP_HW, CLIP_HW), np.float32),
+        inits=torch.cat(inits).numpy() if inits else None, launches=launches, wall=wall, stats=stats,
+        rate=stats["searched_rows"] * steps / stats["search_seconds"] if stats["search_seconds"] else None,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
         pickles=sorted(p.name for p in res.glob("all*Results_*.p")),
     )
@@ -2816,6 +2832,242 @@ def phase_refill(api, counters, failures, card: str, weights: dict) -> None:
     failures.extend(f"refill: {name} failed" for name, ok in checks.items() if not ok)
 
 
+# the driver phase: 12 clips with ids, loader batches of 4, DRIVER_STEPS
+# steps, on the bfloat16 kernel route; the subset file keeps 9 of the 12
+DRIVER_CLIPS, DRIVER_BATCH, DRIVER_STEPS = 12, 4, 10
+DRIVER_DROPPED = ("clip1", "clip6", "clip10")
+
+
+def _driver_probe_scores(api, cfg, weights, dataset, ids) -> dict:
+    """The true-class probability of each clip of ``ids`` as the probe of
+    ``find_masks`` forms it: the kept clips in order, in batches of
+    ``cfg.data.batch_size`` (the last padded with its first clip), its
+    model, the entry points' numerics pin."""
+    from ivf_tpu_torch import precision
+
+    model = api.build_model(api._bf16_argmax_upgrade(cfg), softmax_override=True)
+    model.load_state_dict(weights)
+    model.requires_grad_(False)
+    rows = [i for i in range(len(dataset)) if dataset[i][2] in ids]
+    b, out = cfg.data.batch_size, {}
+    with precision.reference_numerics(), torch.no_grad():
+        for k in range(0, len(rows), b):
+            take = rows[k : k + b]
+            padded = take + [take[0]] * (b - len(take))
+            clips = torch.stack([torch.from_numpy(dataset[i][0]) for i in padded]).cuda().float()
+            probs = model(clips).float()[: len(take)].cpu()
+            out.update({dataset[i][2]: float(probs[j, dataset[i][1]]) for j, i in enumerate(take)})
+    return out
+
+
+def driver_min_score(scores: dict, first_batch: set):
+    """A ``min_score`` halfway between two neighbouring probe scores that
+    skips 3 or 2 of the clips, preferring one under which the first loader
+    batch holds a skipped clip and a kept one (so an interrupted run
+    journals both). Returns (min_score, skipped ids) or (None, None)."""
+    ranked = sorted(scores.items(), key=lambda kv: kv[1])
+    best, best_mixed = (None, None), False
+    for k in (3, 2):
+        lo, hi = ranked[k - 1][1], ranked[k][1]
+        if not lo < hi:
+            continue
+        skipped = {cid for cid, _ in ranked[:k]}
+        mixed = bool(skipped & first_batch) and bool(first_batch - skipped)
+        if best[0] is None or (mixed and not best_mixed):
+            best, best_mixed = ((lo + hi) / 2, skipped), mixed
+    return best
+
+
+def _same_bits_by_id(a: dict, b: dict, ids=None) -> bool:
+    """Records (masks, scores) and CAMs of two runs equal bit for bit per
+    clip id, over ``ids`` (default: every id of either run)."""
+    import numpy as np
+
+    tm_a, tm_b = ({r["video_id"]: r for r in run["tm"]} for run in (a, b))
+    gc_a, gc_b = ({r["video_id"]: r for r in run["gc"]} for run in (a, b))
+    if ids is None:
+        if set(tm_a) != set(tm_b) or set(gc_a) != set(gc_b):
+            return False
+        ids = set(tm_a) | set(gc_a)
+    for vid in ids:
+        for x, y in ((tm_a.get(vid), tm_b.get(vid)), (gc_a.get(vid), gc_b.get(vid))):
+            if (x is None) != (y is None):
+                return False
+            if x is None:
+                continue
+            if set(x) != set(y) or not all(
+                    np.array_equal(v, y[k]) if isinstance(v, np.ndarray) else v == y[k] for k, v in x.items()):
+                return False
+    return True
+
+
+def phase_driver(api, counters, failures, card: str, weights: dict) -> None:
+    """The long-run driver of ``find_masks`` at full width on the bfloat16
+    kernel route: 12 clips with ids in loader batches of 4, 10 steps, a
+    subset file keeping 9 and a ``min_score`` from this run's own probe
+    scores (``driver_min_score``) that skips 2-3 of them; every launch
+    counter set to 0 before each run and read after.
+
+    (a) the reference run: the kept clips compact across loader batches
+    (``ceil(kept / 4)`` searches, only the final flush padded), the probe
+    runs in full batches and its scores stand in for the staging forward;
+    (b) interrupted after one loader batch, then resumed: each clip the
+    bits of (a), the journaled records and skips restored, no journaled
+    skip probed again, only the rest searched; (c) a journal torn by a few
+    bytes, resumed: the intact prefix restores, the rest runs again, the
+    bits of (a); (d) random init, uninterrupted and interrupted + resumed:
+    equal bits; (e) ``run_temp_mask=False`` (Grad-CAM alone: the CAMs of
+    (a), no search, no pool backward) and ``do_gradcam=False`` (the masks
+    of (a), no CAM)."""
+    import math
+
+    import numpy as np
+
+    from ivf_tpu_torch.config import Config
+    from ivf_tpu_torch.data.synthetic import SyntheticClips
+
+    t_phase = time.perf_counter()
+    dataset = SyntheticClips(DRIVER_CLIPS, CLIP_T, CLIP_HW, CLASSES, seed=7, lazy=False)  # labels = index
+    flags = BF16_ROUTES["bf16_kernels"]
+    mine = BF16_ROUTE_KERNELS["bf16_kernels"]
+    subset = [f"clip{i}" for i in range(DRIVER_CLIPS) if f"clip{i}" not in DRIVER_DROPPED]
+
+    def config(out_dir="", name="", **mask):
+        cfg = Config()
+        cfg.output_dir, cfg.model_name = out_dir, name
+        cfg.data.batch_size = DRIVER_BATCH
+        cfg.mask.opt_iter = DRIVER_STEPS
+        for key, value in flags.items():
+            setattr(cfg.model, key, value)
+        for key, value in mask.items():
+            setattr(cfg.mask, key, value)
+        return cfg
+
+    first_batch = {f"clip{i}" for i in range(DRIVER_BATCH)} & set(subset)
+    scores = _driver_probe_scores(api, config(), weights, dataset, set(subset))
+    min_score, predicted_skips = driver_min_score(scores, first_batch)
+    emit({"phase": "driver_min_score", "card": card, "probe_scores": scores, "min_score": min_score,
+          "predicted_skips": sorted(predicted_skips or ())})
+    if min_score is None:
+        failures.append("driver: no min_score skips 2-3 of the kept clips")
+        return
+    kept = len(subset) - len(predicted_skips)
+    with tempfile.TemporaryDirectory() as out_dir:
+        subset_file = Path(out_dir) / "subset.csv"
+        subset_file.write_text("".join(f"{cid},keep\n" for cid in subset))
+        filters = dict(subset_file=str(subset_file), min_score=min_score)
+
+        def journal(name):
+            return api._EmissionJournal.load(str(Path(out_dir) / name / "results" / "emission_journal.p"))
+
+        def run(label, name, mask=None, **kwargs):
+            cfg = config(out_dir, name, **filters, **(mask or {}))
+            r = _find_masks_run(api, counters, out_dir, "", {}, weights, dataset, DRIVER_BATCH, DRIVER_STEPS,
+                                cfg=cfg, **kwargs)
+            st = r["stats"]
+            keys = ("score_launches", "search_launches", "searched_rows", "padded_rows", "resumed_clips",
+                    "resumed_skipped", "search_seconds", "init_seconds")
+            emit({"phase": "driver", "run": label, "card": card, "clips": DRIVER_CLIPS, "batch": DRIVER_BATCH,
+                  "steps": DRIVER_STEPS, "flags": flags, "mask": mask or {}, "find_masks": kwargs,
+                  "kept_ids": [t["video_id"] for t in r["tm"]], "cam_ids": [g["video_id"] for g in r["gc"]],
+                  "launches": r["launches"], "wall_seconds": r["wall"], "peak_mem_gib": r["peak_gib"],
+                  **{k: st[k] for k in keys}})
+            masks, cams = r["masks"], r["cams"]
+            if not (np.isfinite(masks).all() and masks.min(initial=0) >= 0 and masks.max(initial=1) <= 1):
+                failures.append(f"driver {label}: masks not finite in [0, 1]")
+            if cams.shape[1:] != (CLIP_T, CLIP_HW, CLIP_HW) or not np.isfinite(cams).all():
+                failures.append(f"driver {label}: CAMs {cams.shape} not finite (n, 16, 224, 224)")
+            if len(r["pickles"]) != 2:
+                failures.append(f"driver {label}: pickles missing: {r['pickles']}")
+            return r
+
+        def require(label, ok, detail):
+            if not ok:
+                failures.append(f"driver {label}: {detail}")
+            return bool(ok)
+
+        def kernels_ran(label, r, off=()):
+            launches = r["launches"]
+            ok = (all(launches[n] > 0 for n in mine if n not in off) and not any(launches[n] for n in off)
+                  and not any(launches[n] for n in launches if n not in mine))
+            return require(label, ok, f"launches {launches}")
+
+        checks = {}
+        # (a) every filter on
+        a = run("reference", "a")
+        st = a["stats"]
+        skipped = sorted(v for v, rec in journal("a").items() if rec.get("skip"))
+        checks["a_skips_as_predicted"] = require("reference", skipped == sorted(predicted_skips),
+                                                 f"skips {skipped}, predicted {sorted(predicted_skips)}")
+        checks["a_kept"] = require("reference", sorted(t["video_id"] for t in a["tm"]) == sorted(
+            set(subset) - predicted_skips), [t["video_id"] for t in a["tm"]])
+        checks["a_compacted"] = require("reference", (st["search_launches"], st["padded_rows"]) == (
+            math.ceil(kept / DRIVER_BATCH), -kept % DRIVER_BATCH), st)
+        checks["a_probe_only_scores"] = require("reference", st["score_launches"] == math.ceil(
+            len(subset) / DRIVER_BATCH), st["score_launches"])
+        checks["a_probe_scores_kept"] = require("reference", all(
+            t["original_score_true"] == scores[t["video_id"]] for t in a["tm"]), "probe scores")
+        checks["a_kernels"] = kernels_ran("reference", a)
+
+        # (b) interrupted after one loader batch, then resumed
+        run("interrupted", "b", max_batches=1)
+        journaled = journal("b")
+        n_skip = sum(1 for rec in journaled.values() if rec.get("skip"))
+        b = run("resumed", "b", resume=True)
+        st = b["stats"]
+        checks["b_equal_bits"] = require("resumed", _same_bits_by_id(b, a), "bits differ from the reference")
+        checks["b_restored"] = require("resumed", (st["resumed_clips"], st["resumed_skipped"]) == (
+            len(journaled) - n_skip, n_skip), (st["resumed_clips"], st["resumed_skipped"], len(journaled)))
+        checks["b_no_probe_of_journaled"] = require("resumed", st["score_launches"] == math.ceil(
+            (len(subset) - len(journaled)) / DRIVER_BATCH), st["score_launches"])
+        checks["b_searched_rest"] = require("resumed", st["searched_rows"] == kept - st["resumed_clips"], st)
+        checks["b_journal_mixed"] = n_skip > 0 and len(journaled) > n_skip
+        checks["b_kernels"] = kernels_ran("resumed", b)
+
+        # (c) a torn journal: (a)'s journal cut by a few bytes, then resumed
+        path = Path(out_dir) / "c" / "results" / "emission_journal.p"
+        path.parent.mkdir(parents=True)
+        path.write_bytes((Path(out_dir) / "a" / "results" / "emission_journal.p").read_bytes()[:-5])
+        intact = journal("c")
+        c = run("torn_resumed", "c", resume=True)
+        st = c["stats"]
+        checks["c_prefix_restored"] = require("torn_resumed", (
+            st["resumed_clips"] + st["resumed_skipped"] == len(intact) == len(subset) - 1), (
+            st["resumed_clips"], st["resumed_skipped"], len(intact)))
+        checks["c_searched_rest"] = require("torn_resumed", st["searched_rows"] == kept - st["resumed_clips"], st)
+        checks["c_equal_bits"] = require("torn_resumed", _same_bits_by_id(c, a), "bits differ from the reference")
+
+        # (d) random init, uninterrupted and interrupted + resumed
+        d0 = run("random", "d0", dict(mask_init_type="random"))
+        run("random_interrupted", "d1", dict(mask_init_type="random"), max_batches=1)
+        d1 = run("random_resumed", "d1", dict(mask_init_type="random"), resume=True)
+        checks["d_equal_bits"] = require("random_resumed", _same_bits_by_id(d1, d0), "bits differ")
+        checks["d_resumed"] = require("random_resumed", d1["stats"]["resumed_clips"] > 0, d1["stats"])
+        checks["d_init_is_random"] = require("random", not _same_bits_by_id(d0, a), "random init gave (a)'s bits")
+        checks["d_kernels"] = kernels_ran("random", d0)
+
+        # (e) the switches
+        e0 = run("gradcam_only", "e0", run_temp_mask=False)
+        st = e0["stats"]
+        checks["e_gradcam_only"] = require("gradcam_only", not e0["tm"] and (
+            st["search_launches"], st["searched_rows"], st["padded_rows"]) == (0, 0, 0) and all(
+            rec.get("mask") is None and rec.get("cam") is not None
+            for rec in journal("e0").values() if not rec.get("skip")), st)
+        checks["e_gradcam_only_cams"] = require("gradcam_only", _same_bits_by_id(
+            dict(e0, tm=[]), dict(a, tm=[])), "CAMs differ from the reference")
+        checks["e_gradcam_only_kernels"] = kernels_ran("gradcam_only", e0, off=("maxpool3d_s1_bwd_bf16",))
+        e1 = run("no_gradcam", "e1", do_gradcam=False)
+        checks["e_no_gradcam"] = require("no_gradcam", not e1["gc"] and all(
+            rec.get("cam") is None and rec.get("mask") is not None
+            for rec in journal("e1").values() if not rec.get("skip")), "CAMs emitted")
+        checks["e_no_gradcam_masks"] = require("no_gradcam", _same_bits_by_id(
+            dict(e1, gc=[]), dict(a, gc=[])), "masks differ from the reference")
+        checks["e_no_gradcam_kernels"] = kernels_ran("no_gradcam", e1)
+    emit({"phase": "driver_compare", "card": card, **checks, "kept": kept, "skipped": sorted(predicted_skips),
+          "phase_seconds": time.perf_counter() - t_phase,
+          "required": "equal bits per clip; every check true but b_journal_mixed (reported)"})
+
+
 # bench.py's setting (bench.py:44-64, 150-157): 128 clips, 120 steps, bf16,
 # s2d stem, folded BN, fused 1x1 trio, targets arange(128) % 174
 WHOLE_CLIPS, WHOLE_STEPS, WHOLE_WARMUP_STEPS = 128, 120, 2
@@ -2823,15 +3075,19 @@ WHOLE_ROUTES = {"bf16_default": BF16_ROUTES["bf16_default"], "bf16_kernels": BF1
                 "bf16_default_plain_stem": BF16_ROUTES["bf16_default"]}
 
 
-def phase_whole_search(api, counters, failures, card: str, weights: dict) -> dict:
+def phase_whole_search(api, counters, failures, card: str, weights: dict, routes=tuple(WHOLE_ROUTES)) -> dict:
     """``find_masks`` at bench.py's setting on the default and the kernel
-    route, and the default route with the plain stem: per route a short
-    warm-up run of the same shapes, then the timed run (counters set to 0
-    before it, read after) under a profiler that records the card's
-    kernels only. mask-steps/s = clips x steps / search seconds (the
-    search and finalize, device synchronized at both ends, as
+    route, and the default route with the plain stem (or on ``routes``):
+    per route a short warm-up run of the same shapes, then the timed run
+    (counters set to 0 before it, read after) under a profiler that
+    records the card's kernels only. mask-steps/s = clips x steps / search
+    seconds (the search and finalize, device synchronized at both ends, as
     ``find_masks`` counts them); device busy share = kernel time over the
-    run's wall time (init and Grad-CAM included); peak memory."""
+    run's wall time (init, Grad-CAM and the wait for the journal's writer
+    included); peak memory; the emission journal's bytes and the seconds
+    ``find_masks`` waited in the writer's ``close`` (None on a checkout
+    without the journal)."""
+    import shutil
     from unittest import mock
 
     import numpy as np
@@ -2843,8 +3099,23 @@ def phase_whole_search(api, counters, failures, card: str, weights: dict) -> dic
 
     dataset = SyntheticClips(WHOLE_CLIPS, CLIP_T, CLIP_HW, CLASSES, seed=5)  # labels i % 174
     build, masks = api.build_model, {}
-    with tempfile.TemporaryDirectory() as out_dir:
-        for route, flags in WHOLE_ROUTES.items():
+    writer = getattr(api, "_AsyncWriter", None)
+    waits: list = []
+    if writer is not None:
+        close = writer.close
+
+        def timed_close(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return close(self, *args, **kwargs)
+            finally:
+                waits.append(time.perf_counter() - t0)
+
+    with tempfile.TemporaryDirectory() as out_dir, contextlib.ExitStack() as patches:
+        if writer is not None:
+            patches.enter_context(mock.patch.object(writer, "close", timed_close))
+        for route in routes:
+            flags = WHOLE_ROUTES[route]
             def config(steps, name):
                 cfg = Config()
                 cfg.output_dir, cfg.model_name = out_dir, name
@@ -2858,9 +3129,14 @@ def phase_whole_search(api, counters, failures, card: str, weights: dict) -> dic
             with mock.patch.object(api, "build_model", lambda *a, **k: _stem(build(*a, **k), s2d)):
                 _find_masks_run(api, {}, out_dir, "", {}, weights, dataset, WHOLE_CLIPS, WHOLE_WARMUP_STEPS,
                                 cfg=config(WHOLE_WARMUP_STEPS, f"warm_{route}"))
+                waits.clear()
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     r = _find_masks_run(api, counters, out_dir, "", {}, weights, dataset, WHOLE_CLIPS,
                                         WHOLE_STEPS, cfg=config(WHOLE_STEPS, f"whole_{route}"))
+            journal = Path(out_dir) / f"whole_{route}" / "results" / "emission_journal.p"
+            journal_bytes = journal.stat().st_size if writer is not None else None
+            for name in (f"warm_{route}", f"whole_{route}"):
+                shutil.rmtree(Path(out_dir) / name)
             t0 = time.perf_counter()
             device_ms_run = sum((getattr(ev, "self_device_time_total", 0) or 0) / 1e3
                                 for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
@@ -2871,6 +3147,7 @@ def phase_whole_search(api, counters, failures, card: str, weights: dict) -> dic
                   "wall_seconds": r["wall"], "device_ms_run": device_ms_run,
                   "device_busy_share": device_ms_run / 1e3 / r["wall"], "peak_mem_gib": r["peak_gib"],
                   "launches": r["launches"], "profile_read_seconds": time.perf_counter() - t0,
+                  "journal_bytes": journal_bytes, "writer_close_wait_seconds": sum(waits) if writer else None,
                   "profiled": "CUDA activity only"})
             _check_outputs(f"whole_search {route}", r, failures, batch=WHOLE_CLIPS)
             if st["n_steps_run"] != [WHOLE_STEPS] * WHOLE_CLIPS:
@@ -2884,7 +3161,46 @@ def phase_whole_search(api, counters, failures, card: str, weights: dict) -> dic
             torch.cuda.empty_cache()
     emit({"phase": "whole_search_compare", "card": card, **{
         f"max_mask_diff_{a}_vs_{b}": float(np.abs(masks[a] - masks[b]).max())
-        for a, b in (("bf16_kernels", "bf16_default"), ("bf16_default_plain_stem", "bf16_default"))}})
+        for a, b in (("bf16_kernels", "bf16_default"), ("bf16_default_plain_stem", "bf16_default"))
+        if a in masks and b in masks}})
+
+
+def whole_compare(other: str) -> int:
+    """``python3 chip_smoke.py --whole-compare DIR``: ``phase_whole_search``
+    on the bf16 default route with the ``ivf_tpu_torch`` of the checkout in
+    DIR (say, the parent commit's) and of this one, in turns (``_turns``):
+    each turn's mask-steps/s, wall, device busy share, journal bytes and
+    writer wait, and each side's mean."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    emit({"phase": "whole_compare", "other": str(Path(other).resolve()), "nvidia_smi": nvidia_smi()})
+    sides = _turns(other, "--whole-rows", lambda r: r["route"] if r.get("phase") == "whole_search" else None)
+    if sides is None:
+        return 1
+    fields = ("mask_steps_per_s", "search_seconds", "wall_seconds", "device_busy_share", "peak_mem_gib",
+              "journal_bytes", "writer_close_wait_seconds")
+    for side, turns in sides.items():
+        rows = [t["bf16_default"] for t in turns]
+        emit({"phase": "whole_compare", "side": side, "route": "bf16_default",
+              **{f: [r[f] for r in rows] for f in fields},
+              **{f"mean_{f}": sum(r[f] for r in rows) / len(rows) for f in fields if rows[0][f] is not None}})
+    return 0
+
+
+def whole_rows(root: str) -> int:
+    """The child of ``whole_compare``: ``phase_whole_search`` on the bf16
+    default route with the ``ivf_tpu_torch`` of the checkout at ``root``."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    from ivf_tpu_torch import api
+    from ivf_tpu_torch.config import Config
+
+    failures: list = []
+    phase_whole_search(api, launch_counters(), failures, nvidia_smi(), _scaled_weights(Config(), api),
+                       routes=("bf16_default",))
+    for f in failures:
+        print(f"chip_smoke FAILED: {f}", file=sys.stderr)
+    return 1 if failures else 0
 
 
 def kernels_line(cases: dict, launches: dict) -> dict:
@@ -3014,6 +3330,7 @@ def main() -> int:
     launches.update(phase_clstm_bf16_main_path(api, counters, failures, info["smi"], clstm_weights, clstm_run))
     phase_clstm_step_timing(api, info["smi"], clstm_weights)
     phase_refill(api, counters, failures, info["smi"], f32_run["weights"])
+    phase_driver(api, counters, failures, info["smi"], f32_run["weights"])
     phase_whole_search(api, counters, failures, info["smi"], f32_run["weights"])
     if failures:
         for f in failures:
@@ -3048,6 +3365,10 @@ if __name__ == "__main__":
         sys.exit(pool_sweep())
     if len(sys.argv) == 3 and sys.argv[1] == "--pool-compare":
         sys.exit(pool_compare(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--whole-compare":
+        sys.exit(whole_compare(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--whole-rows":
+        sys.exit(whole_rows(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--pool-rows":
         sys.exit(_rows_child(sys.argv[2], "maxpool3d", "pool_rows", lambda pool, failures: (
             pool_rows(pool, failures, dtype) for dtype in (torch.float32, torch.bfloat16))))

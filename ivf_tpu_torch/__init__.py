@@ -14,8 +14,10 @@ the ConvLSTM family with PyTorch on one H100. Module names mirror
                 kernel routes
   interpret/    perturbations, the batched mask search, Grad-CAM (I3D and
                 ConvLSTM)
+  data/         the synthetic clip dataset and the KTH clip whitelist
   utils/        weight conversion from the JAX package's variable tree
-  api.py        ``build_model`` / ``find_masks``
+  api.py        ``build_model`` / ``find_masks`` (with its filters,
+                compaction, ``min_score`` probe and emission journal)
 
 Public tensors keep the JAX layout: clips are ``(B, T, H, W, C)``.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

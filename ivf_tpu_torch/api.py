@@ -1,9 +1,12 @@
 """Public entry points of the port (port of ``ivf_tpu/api.py``):
 ``build_model`` (I3D and the ConvLSTM family) and ``find_masks`` (the
-search in one loop or in segments, with the early-stop segment skip and
-convergence refill). ``build_model`` passes the I3D kernel routes on from
-the config: ``use_pallas``, ``pallas_pool`` and ``fuse_pool_conv`` (True
-or ``'tblock'``), each running hand-written CUDA kernels on the card.
+host-side staging loop of a validation pass: class / subset / KTH filters
+and compaction across loader batches, the ``min_score`` probe, central or
+random mask init, the search in one loop or in segments with the
+early-stop segment skip and convergence refill, Grad-CAM, and the emission
+journal under ``resume``). ``build_model`` passes the I3D kernel routes on
+from the config: ``use_pallas``, ``pallas_pool`` and ``fuse_pool_conv``
+(True or ``'tblock'``), each running hand-written CUDA kernels on the card.
 
 Both run on ``cuda`` unless the caller passes ``device="cpu"`` (as the
 tests do); with no GPU and no explicit device they raise rather than run
@@ -15,28 +18,29 @@ pool on the branch-3 pools unless ``pool_impl`` was set or the branch is
 fused (``_bf16_argmax_upgrade``); the ConvLSTM with bfloat16 weights and
 gates and a float32 state and head.
 
-Not ported yet (ROADMAP.md): ``cnn_3d``, the emission journal and resume,
-class-of-interest / subset / min_score filtering and its compaction,
-random mask init, viz artifacts and the async writer,
-``search_stats.json``, ``grad_cam_run``, the pool impls ``shift``,
-``eqbwd``, ``argmax_full`` and ``argmax_shift``, dataset loading from the
-config, and the ``do_gradcam`` / ``run_temp_mask`` / ``max_batches``
-switches of ``ivf_tpu``'s ``find_masks`` (every batch runs the search and
-Grad-CAM).
+Not ported yet (ROADMAP.md): ``cnn_3d``, dataset loading from the config,
+viz artifacts and the ClassScore txt files (``save_viz``),
+``grad_cam_run``, the pool impls ``shift``, ``eqbwd``, ``argmax_full`` and
+``argmax_shift``, and ``find_masks``'s ``split`` and ``mesh``.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
+import json
 import os
 import pickle
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from ivf_tpu_torch.config import COMPUTE_DTYPES, POOL_IMPLS, Config
+from ivf_tpu_torch.data.kth_clips_of_interest import tag_matches
 from ivf_tpu_torch.interpret.gradcam import (
     convlstm_grad_cam,
     grad_cam_batched,
@@ -44,6 +48,7 @@ from ivf_tpu_torch.interpret.gradcam import (
 )
 from ivf_tpu_torch.interpret.mask_opt import (
     SearchCarry,
+    draw_mask_random,
     finalize_search,
     find_mask_from_carry,
     init_mask_central,
@@ -175,14 +180,98 @@ def build_model(
     return model.to(resolve_device(device), dtype).eval()
 
 
+MASK_INITS = ("central", "random")
+
+
 def _check_supported(cfg: Config) -> None:
     mk = cfg.mask
-    if mk.mask_init_type != "central":
-        raise NotImplementedError("only central mask init is ported")
-    if mk.class_oi is not None:
-        raise NotImplementedError("class-of-interest filtering is not ported")
+    if mk.mask_init_type not in MASK_INITS:
+        raise ValueError(f"mask_init_type={mk.mask_init_type!r}: one of {MASK_INITS}")
     if mk.chunk_steps is not None and mk.chunk_steps < 1:
         raise ValueError(f"chunk_steps={mk.chunk_steps}: a positive step count, or None")
+
+
+class _AsyncWriter:
+    """One background thread for the host writes of ``find_masks`` (the
+    emission journal), so that they overlap the next flush's device work
+    (``ivf_tpu/api.py:53-100``). Device work and the result lists stay on
+    the calling thread. At most ``max_pending`` jobs are in flight; a
+    worker's error re-raises on a later ``submit`` or at ``close``.
+    ``enabled=False`` runs each job inline."""
+
+    def __init__(self, enabled: bool, max_pending: int = 2):
+        self._ex = None
+        self._pending: list = []
+        self._max_pending = max_pending
+        if enabled:
+            self._ex = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ivf-torch-writer")
+
+    def submit(self, fn) -> None:
+        if self._ex is None:
+            fn()
+            return
+        while len(self._pending) >= self._max_pending:
+            self._pending.pop(0).result()  # re-raises a worker's error
+        self._pending.append(self._ex.submit(fn))
+
+    def close(self, raise_errors: bool = True) -> None:
+        """Wait for every job and stop the worker. ``raise_errors=False``
+        (the body already failed) still waits, but swallows the worker's
+        error so that it does not hide the body's."""
+        err = None
+        for f in self._pending:
+            try:
+                f.result()
+            except Exception as e:  # noqa: BLE001 (re-raised below)
+                err = err or e
+        self._pending.clear()
+        if self._ex is not None:
+            self._ex.shutdown(wait=True)
+            self._ex = None
+        if err is not None and raise_errors:
+            raise err
+
+
+class _EmissionJournal:
+    """Append-only pickle stream of per-clip emission records under
+    ``find_masks(..., resume=True)`` (``ivf_tpu/api.py:102-150``), at
+    ``results/emission_journal.p``: ``{"video_id", "mask": dict | None,
+    "cam": dict | None}`` per emitted clip, ``{"video_id", "skip": True}``
+    per ``min_score`` reject, numpy arrays inside. It is the JAX package's
+    format, so either package reads the other's journal. One
+    ``append_many`` per flush, fsync'd; ``load`` keeps the last record per
+    id and stops at a torn tail (the intact prefix restores, the rest runs
+    again)."""
+
+    def __init__(self, path: str, fresh: bool):
+        self._path = path
+        self._lock = threading.Lock()
+        if fresh and os.path.exists(path):
+            os.remove(path)  # never mix two runs' records
+
+    def append_many(self, records) -> None:
+        with self._lock, open(self._path, "ab") as f:
+            for rec in records:
+                pickle.dump(rec, f)
+            f.flush()
+            os.fsync(f.fileno())
+
+    @staticmethod
+    def load(path: str) -> dict:
+        """id -> record, the last write winning; robust to a torn tail."""
+        out: dict = {}
+        if not os.path.exists(path):
+            return out
+        with open(path, "rb") as f:
+            while True:
+                try:
+                    rec = pickle.load(f)
+                except EOFError:
+                    break
+                except Exception:
+                    break  # a record torn by a crash mid-append
+                out[str(rec["video_id"])] = rec
+        return out
 
 
 def _sync(device: torch.device) -> None:
@@ -212,41 +301,81 @@ def find_masks(
     dataset,
     stats: Optional[dict] = None,
     device=None,
+    *,
+    do_gradcam: bool = True,
+    run_temp_mask: bool = True,
+    max_batches: Optional[int] = None,
+    resume: bool = False,
 ):
     """Temporal-mask search + Grad-CAM over ``dataset`` (items
-    ``(clip_uint8 (T, H, W, 3), label, clip_id)``), in batches of
-    ``cfg.data.batch_size``; a short last batch is padded to the batch size
-    by repeating its first row, and the padded rows are dropped before
-    emission, so every launch has one batch shape.
+    ``(clip_uint8 (T, H, W, 3), label, clip_id)``, or ``(clip, label)``:
+    the id is then ``b{loader batch}_{row}``), read in loader batches of
+    ``cfg.data.batch_size`` consecutive items (``max_batches`` of them at
+    most), as ``ivf_tpu/api.py::find_masks`` (``:940-1596``) runs them.
 
-    Per batch: the class-score forward, targets (argmax for 'guessed',
-    labels for 'true'), central mask init, the ``opt_iter``-step search
-    (with ``early_stop``/``eta_patience``), finalize, Grad-CAM (I3D: at
+    Filters, per loader batch: ``mask.class_oi`` (the label),
+    ``mask.subset_file`` (a CSV whose first column lists the ids to keep),
+    ``mask.kth_clips_filter`` (the KTH whitelist of ``cfg.split_type``) and,
+    on resume, the journaled ids. Kept clips (each copied) collect across
+    loader batches, and a flush launches only on a full batch, but for
+    one final flush padded to the batch size by repeating its first row
+    (the padded rows are dropped before emission), so every launch has one
+    batch shape. With ``mask.min_score > 0`` kept clips first go through
+    a probe of their class scores, in full batches too; a clip survives
+    when its true-class probability is ``>= min_score`` and carries the
+    probe's scores, so its flush skips its own class-score forward; a
+    rejected clip is journaled as a skip.
+
+    Per flush: the class-score forward, targets (argmax for 'guessed',
+    labels for 'true'), the mask init (central, or with
+    ``mask_init_type='random'`` drawn per clip id on the CPU:
+    ``mask_opt.draw_mask_random``), the ``opt_iter``-step search (with
+    ``early_stop``/``eta_patience``), finalize, Grad-CAM (I3D: at
     ``cfg.mask.top_layer``; ConvLSTM: on the last layer's hidden sequence).
     The search runs as one loop, or with ``mask.chunk_steps`` as segments
     (``interpret/mask_opt.py::search_segment``) that stop launching once
     every row froze; with ``mask.refill`` (on by default when chunked under
     ``early_stop``) frozen rows retire at each segment boundary and the
     survivors re-stage, with their exact carry rows, into queues that flush
-    again as full batches (``ivf_tpu/api.py:1323-1445``). Results keep the
-    staging order, or the retirement order under refill; per clip, the
-    bits are the same either way. ``weights`` is a state dict for the model
-    (e.g. from ``utils.convert``); None keeps the seeded init. With
-    ``compute_dtype='bfloat16'`` the weights are rounded to bfloat16 as they
-    load, the clips stay float32 up to the first conv, the class scores are
-    upcast to float32, and the mask logits and Adam state are float32, as
-    in the JAX package; I3D's CAMs are bfloat16 values returned as float32,
-    the ConvLSTM's are float32 (its state and features are).
+    again as full batches (``ivf_tpu/api.py:1323-1445``).
+    ``run_temp_mask=False`` runs no search (Grad-CAM alone);
+    ``do_gradcam=False`` emits no CAMs.
+
+    Each emitted clip is journaled to ``results/emission_journal.p``
+    (``_EmissionJournal``; on the writer thread unless
+    ``mask.async_viz=False``). A fresh run removes an old journal;
+    ``resume=True`` restores its records (a record that lacks a part this
+    run needs runs again in full), probes no journaled skip again, and runs
+    only the rest. Per clip the bits do not depend on which clips share a
+    flush (every op is row-independent at a fixed batch shape), so a
+    resumed, compacted or refilled run gives each clip the bits of an
+    uninterrupted, unfiltered one; results come in staging order, or
+    retirement order under refill, restored records first. ``weights`` is
+    a state dict for the model (e.g. from ``utils.convert``); None keeps
+    the seeded init. With ``compute_dtype='bfloat16'`` the weights are
+    rounded to bfloat16 as they load, the clips stay float32 up to the
+    first conv, the class scores are upcast to float32, and the mask logits
+    and Adam state are float32, as in the JAX package; I3D's CAMs are
+    bfloat16 values returned as float32, the ConvLSTM's are float32.
 
     Returns (time_mask_results, grad_cam_results), lists of per-clip dicts
     with the reference's key names, also pickled to
     ``<output_dir>/<model_name>/results/all{TimeMask,GradCam}Results_
     <model_name>_<class_oi>_.p``. ``stats`` (a dict) receives the
-    reference's counters (``search_launches``, ``searched_rows``,
-    ``padded_rows``, ``n_steps_run`` per clip, ``segments_launched``,
-    ``segment_seconds``, ``refill_flushes``, ``refill_requeued_rows``) and
-    the host seconds of the mask init and of the search, finalize included
-    (``init_seconds``, ``search_seconds``; device-synchronized).
+    reference's counters (``score_launches``, ``search_launches``,
+    ``searched_rows``, ``padded_rows``, ``n_steps_run`` per clip,
+    ``segments_launched``, ``segment_seconds``, ``refill_flushes``,
+    ``refill_requeued_rows``, ``resumed_clips``, ``resumed_skipped``; under
+    ``early_stop`` the ``early_stop_summary``, also printed) and the host
+    seconds of the mask init and of the search, finalize included
+    (``init_seconds``, ``search_seconds``; device-synchronized); all but
+    ``n_steps_run`` also go to ``results/search_stats.json`` when a search
+    or Grad-CAM ran.
+
+    Not ported yet (ROADMAP.md, Queue 1): loading the dataset from the
+    config (``dataset`` is required; no ``split``), the viz artifacts and
+    the ClassScore txt files (no ``save_viz``: nothing is rendered), and
+    ``mesh`` (one device).
     """
     _check_supported(cfg)
     cfg = _bf16_argmax_upgrade(cfg)
@@ -287,10 +416,49 @@ def find_masks(
     chunk = mk.chunk_steps or mk.opt_iter
     chunked = chunk < mk.opt_iter
     n_full, rem = divmod(mk.opt_iter, chunk) if chunked else (0, 0)
-    refill_on = chunked and mk.early_stop and (mk.refill if mk.refill is not None else True)
+    refill_on = (
+        run_temp_mask and chunked and mk.early_stop
+        and (mk.refill if mk.refill is not None else True)
+    )
+    subset_ids = None
+    if mk.subset_file:
+        with open(mk.subset_file) as f:
+            subset_ids = {row[0] for row in csv.reader(f) if row}
+    time_mask_results, grad_cam_results = [], []
     results_path = os.path.join(cfg.output_dir, cfg.model_name, "results")
     os.makedirs(results_path, exist_ok=True)
+
+    # the emission journal: restore what an interrupted run finished
+    journal_path = os.path.join(results_path, "emission_journal.p")
+    done_ids: set = set()
+    resumed_clips = resumed_skipped = 0
+    if resume:
+        for vid, rec in _EmissionJournal.load(journal_path).items():
+            if rec.get("skip"):
+                done_ids.add(vid)
+                resumed_skipped += 1
+                continue
+            # a record serves this run only with every part the run needs
+            if (run_temp_mask and rec.get("mask") is None) or (do_gradcam and rec.get("cam") is None):
+                continue
+            if run_temp_mask:
+                time_mask_results.append(rec["mask"])
+            if do_gradcam:
+                grad_cam_results.append(rec["cam"])
+            done_ids.add(vid)
+            resumed_clips += 1
+        if resumed_clips or resumed_skipped:
+            print(
+                f"[find-masks] resume: {resumed_clips} clips restored from "
+                f"the emission journal ({resumed_skipped} journaled "
+                f"min_score skips) — re-running the rest",
+                flush=True,
+            )
+    journal = _EmissionJournal(journal_path, fresh=not resume)
+    writer = _AsyncWriter(enabled=mk.async_viz)
+
     run_stats = {
+        "score_launches": 0,
         "search_launches": 0,
         "searched_rows": 0,
         "padded_rows": 0,
@@ -299,10 +467,11 @@ def find_masks(
         "segment_seconds": [],
         "refill_flushes": 0,
         "refill_requeued_rows": 0,
+        "resumed_clips": resumed_clips,
+        "resumed_skipped": resumed_skipped,
         "init_seconds": 0.0,
         "search_seconds": 0.0,
     }
-    time_mask_results, grad_cam_results = [], []
 
     def upload(clips_u8: list) -> torch.Tensor:
         # uint8 crosses to the device (4x fewer bytes), one cast there; no
@@ -311,24 +480,36 @@ def find_masks(
         return host.to(dev).float()
 
     def stage(take: list):
-        """A fresh batch: clips on the device, class scores, targets and
-        the central init's carry."""
+        """A fresh flush (rows ``(clip, label, id, probe scores or None)``):
+        clips on the device, class scores (the probe's where it ran, else a
+        forward), targets, and the mask init's carry when the search runs."""
         clips = upload([r[0] for r in take])
-        with torch.no_grad():
-            outputs = score_fn(clips)
+        if take[0][3] is not None:
+            outputs = torch.from_numpy(np.stack(_pad_rows([r[3] for r in take], bsz))).to(dev)
+        else:
+            with torch.no_grad():
+                outputs = score_fn(clips)
+            run_stats["score_launches"] += 1
         if mk.grad_cam_type == "guessed":
             targets = outputs.argmax(dim=-1)
         else:
             targets = torch.as_tensor(_pad_rows([r[1] for r in take], bsz), device=dev)
         outputs_np = outputs[: len(take)].cpu().numpy()
-        _sync(dev)
-        t0 = time.perf_counter()
-        inits = init_mask_central(score_fn, clips, targets, mask_type=mk.mask_perturb_type)
-        _sync(dev)
-        run_stats["init_seconds"] += time.perf_counter() - t0
-        run_stats["search_launches"] += 1
-        run_stats["searched_rows"] += len(take)
-        return clips, targets, outputs_np, make_search_carry(inits)
+        carry = None
+        if run_temp_mask:
+            _sync(dev)
+            t0 = time.perf_counter()
+            if mk.mask_init_type == "central":
+                inits = init_mask_central(score_fn, clips, targets, mask_type=mk.mask_perturb_type)
+            else:
+                # per clip id, not per flush position: a clip's init does not
+                # depend on which clips share its flush
+                draws = [draw_mask_random(cfg.seed, r[2], clips.shape[1]) for r in take]
+                inits = torch.stack(_pad_rows(draws, bsz)).to(dev)
+            _sync(dev)
+            run_stats["init_seconds"] += time.perf_counter() - t0
+            carry = make_search_carry(inits)
+        return clips, targets, outputs_np, carry
 
     def timed(fn, *args, **kwargs):
         t0 = time.perf_counter()
@@ -347,48 +528,67 @@ def find_masks(
         return carry
 
     def emit(sel: list, take: list, outputs_np, clips, targets, res) -> None:
-        """Records for rows ``sel`` of the flush ``take``; their CAMs come
-        from the whole (padded) batch and are gathered on the device."""
+        """Records for rows ``sel`` of the flush ``take`` (``res`` None when
+        no search ran); their CAMs come from the whole (padded) batch and
+        are gathered on the device. The flush's journal records go to the
+        writer thread."""
         rows = torch.as_tensor(sel, device=dev)
-        masks = res.mask[rows].cpu().numpy()
-        freeze = res.freeze_score[rows].cpu().numpy()
-        reverse = res.reverse_score[rows].cpu().numpy()
-        run_stats["n_steps_run"].extend(res.n_steps_run[rows].cpu().tolist())
-        cams = cam_fn(clips, targets)[0][rows].float().cpu().numpy()
-        for k, j in enumerate(sel):
-            label, scores = int(take[j][1]), outputs_np[j]
-            head = {"true_class": label, "pred_class": int(scores.argmax()), "video_id": str(take[j][2])}
-            time_mask_results.append(
-                {
-                    **head,
+        jrecs = {j: {"video_id": str(take[j][2]), "mask": None, "cam": None} for j in sel}
+        heads = {
+            j: {"true_class": int(take[j][1]), "pred_class": int(outputs_np[j].argmax()),
+                "video_id": str(take[j][2])}
+            for j in sel
+        }
+        if res is not None:
+            masks = res.mask[rows].cpu().numpy()
+            freeze = res.freeze_score[rows].cpu().numpy()
+            reverse = res.reverse_score[rows].cpu().numpy()
+            run_stats["n_steps_run"].extend(res.n_steps_run[rows].cpu().tolist())
+            for k, j in enumerate(sel):
+                label, scores = int(take[j][1]), outputs_np[j]
+                rec = {
+                    **heads[j],
                     "time_mask": masks[k],
                     "original_score_guess": float(scores.max()),
                     "original_score_true": float(scores[label]),
                     "freeze_score": float(freeze[k]),
                     "reverse_score": float(reverse[k]),
                 }
-            )
-            grad_cam_results.append({**head, "GCHeatMap": cams[k]})
+                time_mask_results.append(rec)
+                jrecs[j]["mask"] = rec
+        if do_gradcam:
+            cams = cam_fn(clips, targets)[0][rows].float().cpu().numpy()
+            for k, j in enumerate(sel):
+                rec = {**heads[j], "GCHeatMap": cams[k]}
+                grad_cam_results.append(rec)
+                jrecs[j]["cam"] = rec
+        writer.submit(lambda recs=list(jrecs.values()): journal.append_many(recs))
 
     def run_batch(take: list) -> None:
+        n = len(take)
         clips, targets, outputs_np, carry = stage(take)
-        run_stats["padded_rows"] += bsz - len(take)
-        if not chunked:
-            res, _ = timed(
-                find_mask_from_carry, score_fn, clips, targets, carry,
-                n_steps=mk.opt_iter, **search_kwargs,
-            )
-        else:
-            for _ in range(n_full):
-                carry = segment(clips, targets, carry, chunk)
-                # once every row froze, further segments change nothing
-                if mk.early_stop and not bool(carry.active.any()):
-                    break
+        res = None
+        if run_temp_mask:
+            if not chunked:
+                res, _ = timed(
+                    find_mask_from_carry, score_fn, clips, targets, carry,
+                    n_steps=mk.opt_iter, **search_kwargs,
+                )
             else:
-                if rem:
-                    carry = segment(clips, targets, carry, rem)
-            res, _ = timed(finalize_search, score_fn, clips, targets, carry)
-        emit(list(range(len(take))), take, outputs_np, clips, targets, res)
+                for _ in range(n_full):
+                    carry = segment(clips, targets, carry, chunk)
+                    # once every row froze, further segments change nothing
+                    if mk.early_stop and not bool(carry.active.any()):
+                        break
+                else:
+                    if rem:
+                        carry = segment(clips, targets, carry, rem)
+                res, _ = timed(finalize_search, score_fn, clips, targets, carry)
+            run_stats["search_launches"] += 1
+            run_stats["searched_rows"] += n
+            run_stats["padded_rows"] += bsz - n
+        if run_temp_mask or do_gradcam:
+            emit(list(range(n)), take, outputs_np, clips, targets, res)
 
     requeues: dict = {}  # segments done -> survivor rows awaiting a flush
 
@@ -399,6 +599,8 @@ def find_masks(
         n = len(take)
         if segs_done == 0:
             clips, targets, outputs_np, carry = stage(take)
+            run_stats["search_launches"] += 1
+            run_stats["searched_rows"] += n
         else:
             clips = upload([r[0] for r in take])
             outputs_np = np.stack([r[3] for r in take])
@@ -451,7 +653,8 @@ def find_masks(
                     run_refill_flush(take, r)
                     progressed = True
 
-    ready: list = []
+    pending: list = []  # rows awaiting the min_score probe: (clip, label, id)
+    ready: list = []  # rows ready to stage: (clip, label, id, probe scores or None)
 
     def flush_ready(final: bool = False) -> None:
         while len(ready) >= bsz or (final and ready):
@@ -464,13 +667,101 @@ def find_masks(
         if refill_on:
             pump_requeues(final)
 
-    for start in range(0, len(dataset), bsz):
-        for i in range(start, min(start + bsz, len(dataset))):
-            clip, label, clip_id = dataset[i]
-            ready.append((clip, int(label), str(clip_id)))
-        flush_ready()
-    flush_ready(final=True)
+    def flush_pending(final: bool = False) -> None:
+        # the TF drivers skip clips whose true-class probability is below
+        # the threshold (find_mask_smth.py:364-366); the probe runs on full
+        # batches too, at the staging batch shape, so its scores have the
+        # bits of the staging forward
+        while len(pending) >= bsz or (final and pending):
+            take = pending[:bsz]
+            del pending[:bsz]
+            with torch.no_grad():
+                outs = score_fn(upload([r[0] for r in take]))[: len(take)].cpu().numpy()
+            run_stats["score_launches"] += 1
+            skips = []
+            for j, (clip, label, cid) in enumerate(take):
+                if outs[j][label] >= mk.min_score:
+                    ready.append((clip, label, cid, outs[j]))
+                else:
+                    skips.append({"video_id": cid, "skip": True})
+            if skips:
+                journal.append_many(skips)
+            flush_ready()
 
+    def kept(cid: str, label: int) -> bool:
+        return (
+            (mk.class_oi is None or label == mk.class_oi)
+            and (subset_ids is None or cid in subset_ids)
+            and (not mk.kth_clips_filter or tag_matches(cid, cfg.split_type))
+            and cid not in done_ids
+        )
+
+    probe = mk.min_score > 0.0
+    body_ok = False
+    try:
+        for bidx, start in enumerate(range(0, len(dataset), bsz)):
+            if max_batches is not None and bidx >= max_batches:
+                break
+            for i in range(min(bsz, len(dataset) - start)):
+                item = dataset[start + i]
+                label = int(item[1])
+                cid = str(item[2]) if len(item) > 2 and item[2] is not None else f"b{bidx}_{i}"
+                if kept(cid, label):
+                    # a copy: a view would pin the dataset's storage behind it
+                    row = (np.array(item[0]), label, cid)
+                    if probe:
+                        pending.append(row)
+                    else:
+                        ready.append((*row, None))
+            if probe:
+                flush_pending()
+            else:
+                flush_ready()
+        # the final flushes, the only padded launches of the staging path
+        if probe:
+            flush_pending(final=True)
+        flush_ready(final=True)
+        body_ok = True
+    finally:
+        # on the error path wait too, but let the body's error stand
+        writer.close(raise_errors=body_ok)
+
+    if run_temp_mask and mk.early_stop and run_stats["n_steps_run"]:
+        sr = np.asarray(run_stats["n_steps_run"])
+        summary = {
+            "clips": int(sr.size),
+            "step_budget": int(mk.opt_iter),
+            "steps_run_p50": int(np.percentile(sr, 50)),
+            "steps_run_p90": int(np.percentile(sr, 90)),
+            "steps_run_max": int(sr.max()),
+            "steps_run_mean": round(float(sr.mean()), 1),
+            "frozen_frac": round(float((sr < mk.opt_iter).mean()), 4),
+        }
+        seg_note = ""
+        if chunked:
+            fixed_segments = run_stats["search_launches"] * -(-mk.opt_iter // chunk)
+            summary.update(
+                segments_launched=run_stats["segments_launched"],
+                segments_fixed_schedule=fixed_segments,
+                refill_flushes=run_stats["refill_flushes"],
+                refill_requeued_rows=run_stats["refill_requeued_rows"],
+            )
+            seg_note = (
+                f"; segments {run_stats['segments_launched']}/{fixed_segments} fixed-schedule"
+                f" (refill: {run_stats['refill_flushes']} flushes,"
+                f" {run_stats['refill_requeued_rows']} re-staged rows)"
+            )
+        run_stats["early_stop_summary"] = summary
+        print(
+            f"[find-masks] early-stop over {summary['clips']} clips: "
+            f"steps/clip p50 {summary['steps_run_p50']} "
+            f"p90 {summary['steps_run_p90']} max {summary['steps_run_max']} "
+            f"(budget {mk.opt_iter}, frozen {summary['frozen_frac']:.0%}){seg_note}",
+            flush=True,
+        )
+    if run_temp_mask or do_gradcam:
+        with open(os.path.join(results_path, "search_stats.json"), "w") as f:
+            json.dump({k: v for k, v in run_stats.items() if k != "n_steps_run"}, f, indent=1)
     if stats is not None:
         stats.update(run_stats)
     for kind, results in (("TimeMask", time_mask_results), ("GradCam", grad_cam_results)):

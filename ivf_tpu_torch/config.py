@@ -83,13 +83,18 @@ class MaskConfig:
     lam2: float = 0.02
     opt_iter: int = 300
     opt_lr: float = 0.2
-    mask_init_type: str = "central"  # central (random: not ported yet)
+    mask_init_type: str = "central"  # central | random (drawn per clip id)
     mask_perturb_type: str = "freeze"  # freeze | reverse
     grad_cam_type: str = "guessed"  # guessed | true
-    class_oi: Optional[int] = None  # class-of-interest filter (not ported yet)
+    class_oi: Optional[int] = None  # class-of-interest filter
+    subset_file: Optional[str] = None  # CSV of clip ids to process
     top_layer: str = "Mixed_5c"
     # both reference FindMasks scripts hardcode normalizePerFrame=True
     normalization_mode: str = "frame"  # sequence | frame
+    # TF mask drivers skip clips whose true-class probability is below 0.1
+    # (find_mask_smth.py:364-366); the torch driver has no such filter, so
+    # the default keeps everything
+    min_score: float = 0.0
     eta: float = 1e-5
     early_stop: bool = False  # default keeps exact reference parity
     # freeze a row only after this many CONSECUTIVE sub-eta steps
@@ -97,6 +102,8 @@ class MaskConfig:
     # freeze perturbation in the search loop: closed-form transition matrix
     # (~1e-4 reassociation drift) vs the exact recurrence
     closed_form: bool = True
+    # the KTH clips-of-interest whitelist (data/kth_clips_of_interest.py)
+    kth_clips_filter: bool = False
     # run the opt_iter-step search as segments of this many steps, each
     # continuing the exact loop state (mask_opt.search_segment), with the
     # same bits as one loop; under early_stop no further segment launches
@@ -111,12 +118,16 @@ class MaskConfig:
     # same bits as without refill; results come in retirement order. None:
     # on exactly when the search is chunked and early_stop is on
     refill: Optional[bool] = None
+    # write the emission journal on one background thread (at most 2 jobs
+    # in flight), overlapping the next flush's device work; False: inline
+    async_viz: bool = True
 
 
 @dataclass
 class Config:
     model_name: str = "model"
     output_dir: str = "trained_models/"
+    split_type: str = "original"  # which KTH whitelist kth_clips_filter reads
     seed: int = 0
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)

@@ -17,10 +17,16 @@ and the Adam state, step count and early-stop flags are kept per row.
     zeroed) are scored one after another under ``no_grad``, each over the
     whole batch; the first whose score-drop ratio falls below the
     threshold wins, else the last.
+  * random init: ``init_mask_random`` maps uniforms to logits as the JAX
+    package does; ``draw_mask_random`` draws them per clip id from a
+    ``torch.Generator``. ``jax.random`` streams cannot be reproduced in
+    torch, so the draws differ from the JAX package's; the transform is
+    the same.
 """
 
 from __future__ import annotations
 
+import zlib
 from dataclasses import dataclass, replace
 from typing import Callable, NamedTuple, Tuple
 
@@ -98,6 +104,27 @@ def init_mask_central(
     first_below = below.to(torch.int32).argmax(dim=1)  # first True, 0 if none
     chosen = torch.where(below.any(dim=1), first_below, n_cand - 1)
     return torch.where(cand_masks[chosen] == 0, -5.0, 5.0).float()
+
+
+def init_mask_random(u: torch.Tensor) -> torch.Tensor:
+    """Random init (mask.py:156-165) from uniforms ``u`` (..., T) in [0, 1):
+    +2.5 where u > 0.7, else -2.5, and +0.1 at frame min(8, T-1) of a
+    constant mask (its TV norm would be NaN). Returns float32 logits."""
+    t = u.shape[-1]
+    mask = ((u > 0.7).float() - 0.5) * 5.0
+    all_same = torch.abs(mask.sum(-1)) == 2.5 * t
+    nudge = torch.zeros_like(mask)
+    nudge[..., min(8, t - 1)] = torch.where(all_same, 0.1, 0.0)
+    return mask + nudge
+
+
+def draw_mask_random(seed: int, clip_id: str, t: int) -> torch.Tensor:
+    """The random init of one clip, (T,) float32 logits: uniforms drawn on
+    the CPU from a generator seeded by the CRC-32 of the clip id with
+    ``seed`` as the CRC's initial value (the CPU generator keeps 32 bits of
+    its seed), so a clip's init does not depend on which flush it runs in."""
+    gen = torch.Generator().manual_seed(zlib.crc32(str(clip_id).encode(), seed & 0xFFFFFFFF))
+    return init_mask_random(torch.rand(t, generator=gen, dtype=torch.float32))
 
 
 def make_search_carry(mask_init_logits: torch.Tensor) -> SearchCarry:

@@ -189,8 +189,8 @@ def test_find_masks_without_device_raises_when_cuda_is_absent(monkeypatch, tmp_p
     [
         ("model.pool_impl", "shift"),
         ("model.conv_model", "cnn_3d"),
-        ("mask.mask_init_type", "random"),
-        ("mask.class_oi", 3),
+        ("model.pool_impl", "eqbwd"),
+        ("model.pool_impl", "argmax_full"),
     ],
 )
 def test_unported_settings_raise(tmp_path, field, value):

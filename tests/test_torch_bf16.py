@@ -536,7 +536,7 @@ def test_find_masks_bf16_matches_jax(jax_bf16_run, tmp_path, route):
     tm, gc, built = _port_find_masks(tmp_path, jax_bf16_run["sd"], **ROUTES[route])
     assert built == [("argmax", torch.bfloat16)]
     names = sorted(p.name for p in (Path(tmp_path) / "fm" / "results").glob("*.p"))
-    assert names == ["allGradCamResults_fm_None_.p", "allTimeMaskResults_fm_None_.p"]
+    assert names == ["allGradCamResults_fm_None_.p", "allTimeMaskResults_fm_None_.p", "emission_journal.p"]
     for got, want in zip(tm, jax_bf16_run["tm"]):
         assert got["pred_class"] == want["pred_class"]
         for key in ("original_score_guess", "freeze_score", "reverse_score"):

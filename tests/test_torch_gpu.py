@@ -6,9 +6,10 @@ entries, the argmax-index pool), the I3D kernel paths of ``find_masks``
 ones included) at full width and the ConvLSTM's (float32 and bfloat16) at
 a small size, float32 results that do not
 depend on the global TF32 flags, and two runs with equal bits; the
-space-to-depth stem against the plain stem, and convergence refill
+space-to-depth stem against the plain stem, convergence refill
 against the search without it (``chip_smoke.py``'s refill phase at a
-small size, so run from the repository's root). Skips
+small size, so run from the repository's root), and a resumed run against
+an uninterrupted one. Skips
 without a CUDA device. This file
 imports torch and ivf_tpu_torch only, so it also runs where JAX is not
 installed:
@@ -989,3 +990,35 @@ def test_refill_on_equals_off_at_a_small_size(cuda_device):
         weights = cs._scaled_weights(Config(), api)
         cs.phase_refill(api, cs.launch_counters(), failures, "test", weights)
     assert not failures, failures
+
+
+@pytest.mark.parametrize("init", ["central", "random"])
+def test_resumed_find_masks_gives_the_uninterrupted_bits(cuda_device, tmp_path, init):
+    """``find_masks`` on the bfloat16 kernel route (5 classes, 16x224x224,
+    6 clips in batches of 2, 3 steps, central or random init), interrupted
+    after one loader batch and resumed: each clip the
+    bits of the uninterrupted run, only the rest searched, and the kernels
+    launched on the resumed run."""
+    kernels = (tpw.pointwise_conv_bf16_cuda, tpool.maxpool3d_s1_fwd_bf16_cuda, tpool.maxpool3d_s1_bwd_bf16_cuda)
+    dataset = SyntheticClips(6, t=16, hw=224, num_classes=5)
+    runs = {}
+    for name, kwargs in (("base", {}), ("part", dict(max_batches=1)), ("part", dict(resume=True))):
+        cfg = Config()
+        cfg.output_dir, cfg.model_name = str(tmp_path), name
+        cfg.model.num_classes = 5
+        cfg.model.compute_dtype, cfg.model.use_pallas, cfg.model.pallas_pool = "bfloat16", True, True
+        cfg.mask.opt_iter, cfg.mask.mask_init_type = 3, init
+        cfg.data.batch_size = 2
+        for fn in kernels:
+            fn.launches = 0
+        stats = {}
+        tm, gc = api.find_masks(cfg, None, dataset, stats=stats, **kwargs)
+        runs[name] = ({r["video_id"]: r for r in tm}, {r["video_id"]: r for r in gc}, stats)
+    (tm0, gc0, _), (tm1, gc1, st) = runs["base"], runs["part"]
+    assert (st["resumed_clips"], st["searched_rows"], st["score_launches"]) == (2, 4, 2), st
+    assert all(fn.launches > 0 for fn in kernels)
+    assert set(tm0) == set(tm1) == set(gc0) == set(gc1) and len(tm0) == 6
+    for vid in tm0:
+        for key, value in tm0[vid].items():
+            assert np.array_equal(value, tm1[vid][key]) if isinstance(value, np.ndarray) else value == tm1[vid][key]
+        assert np.array_equal(gc0[vid]["GCHeatMap"], gc1[vid]["GCHeatMap"]), vid
