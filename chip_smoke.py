@@ -105,7 +105,16 @@ non-zero without the final line:
    from a torn journal, random init uninterrupted and resumed, and the
    ``run_temp_mask`` / ``do_gradcam`` switches; equal bits per clip where
    the runs must agree, and the launch counters.
-17. whole_search: ``find_masks`` at bench.py's setting (128 clips, 120
+17. data_path: ``find_masks`` from the presets in ``configs/`` over data
+   on disk, through ``build_dataset`` and the ``ClipLoader``: a smth frame
+   tree of 16 clips of 16x224x224 (the preset's batch) on the preset as
+   loaded (float32), the bf16 kernel route and the bf16 default route, and
+   a KTH tree of 16 clips of 32x120x160 on the ConvLSTM preset with the
+   gate kernel and the whitelist filter; each run against the same decoded
+   clips handed over in memory (equal bits per clip), launches, the kept
+   ids, the decoder used, its decode rate in clips/s, mask-steps/s and the
+   device busy share.
+18. whole_search: ``find_masks`` at bench.py's setting (128 clips, 120
    steps, bf16, targets arange(128) % 174) on the default route, the
    kernel route and the default route with the plain stem, each after a
    2-step warm-up: mask-steps/s, the device busy share of the run, peak
@@ -3068,6 +3077,220 @@ def phase_driver(api, counters, failures, card: str, weights: dict) -> None:
           "required": "equal bits per clip; every check true but b_journal_mixed (reported)"})
 
 
+# the data_path phase: the smth preset's batch of clips in a frame tree, a
+# KTH tree of as many numbered clip dirs; the routes the preset runs on
+DATA_CLIPS, DATA_STEPS, DATA_SEED, DATA_DECODE_EPOCHS = 16, 10, 11, 3
+DATA_ROUTES = {"preset": {}, "bf16_kernels": BF16_ROUTES["bf16_kernels"],
+               "bf16_default": BF16_ROUTES["bf16_default"]}
+DATA_ROUTE_KERNELS = {"preset": (), **{r: BF16_ROUTE_KERNELS[r] for r in ("bf16_kernels", "bf16_default")}}
+
+
+def _write_jpegs(frames_by_dir: dict) -> None:
+    """Each (T, H, W, 3) uint8 array of ``frames_by_dir`` as
+    ``<dir>/frameNN.jpg`` (1-based, the loaders' names), JPEG quality 95,
+    encoded on 8 threads (PIL releases the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    def one(job):
+        path, frame = job
+        Image.fromarray(frame).save(path, "JPEG", quality=95)
+
+    jobs = []
+    for d, frames in frames_by_dir.items():
+        Path(d).mkdir(parents=True, exist_ok=True)
+        jobs += [(str(Path(d) / f"frame{i + 1:02d}.jpg"), f) for i, f in enumerate(frames)]
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, jobs))
+
+
+def data_kth_tags(n: int) -> list:
+    """``n`` KTH clip tags, alternately on the ``original`` whitelist
+    (subjects 17-18, 24-25) and off it (subjects 1-16)."""
+    from ivf_tpu_torch.data.kth_clips_of_interest import clips_of_interest
+
+    on = ["_".join(parts[:3]) + parts[3] for parts in clips_of_interest("original")]
+    off = [f"person{1 + i:02d}_boxing_d1_1" for i in range(n)]
+    return [on[i // 2] if i % 2 == 0 else off[i // 2] for i in range(n)]
+
+
+def phase_data_path(api, counters, failures, card: str, weights: dict, clstm_weights: dict) -> None:
+    """``find_masks`` from the presets in ``configs/`` over data on disk,
+    through ``build_dataset`` and the ``ClipLoader``.
+
+    I3D: a smth frame tree ``validation/<class>/<clip_id>/frameNN.jpg`` of
+    16 clips (the preset's batch size) of 16 frames of 224x224, seeded,
+    labels spread over the 174 classes; ``configs/config_i3d_smth.py``
+    loaded with the port's ``Config.load``, only ``data_folder``,
+    ``output_dir``, ``model_name`` and ``opt_iter`` (300 -> 10) changed,
+    then ``find_masks(cfg, weights, split="validation")`` on three routes:
+    the preset as loaded (float32, cuDNN and torch pools), the bf16 kernel
+    route and the bf16 default route (argmax pool). Each run is held
+    against a run of the same decoded clips and ids handed over as an
+    in-memory list (which runs first and pays the route's first-run
+    set-up): equal bits per clip (masks, scores, CAMs). Every run runs
+    under a CUDA-only profiler (the device busy share) with its launch
+    counters set to 0 just before and read just after.
+
+    ConvLSTM: a KTH tree of 16 numbered clip dirs of 32 frames of 120x160
+    with ``class.txt`` and ``label.txt``, half of the tags on the
+    ``original`` whitelist; ``configs/config_clstm_kth.py`` with
+    ``use_pallas`` and ``kth_clips_filter`` on: the kept ids are the
+    whitelist's, the gate kernel launched, and the bits are those of the
+    in-memory list.
+
+    Also the decoder the loader used (native libjpeg or PIL) and its
+    decode rate in clips/s at the preset's ``num_workers`` over the smth
+    tree (files just written: a warm read), to host memory and on to the
+    card."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ivf_tpu_torch.config import Config
+    from ivf_tpu_torch.data.kth_clips_of_interest import tag_matches
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    rng = np.random.RandomState(DATA_SEED)
+    checks = {}
+
+    def require(label, ok, detail):
+        if not ok:
+            failures.append(f"data_path {label}: {detail}")
+        return bool(ok)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        smth, kth, out_dir = Path(tmp) / "smth", Path(tmp) / "kth", Path(tmp) / "out"
+        t0 = time.perf_counter()
+        _write_jpegs({
+            smth / "validation" / str(i * 11 % CLASSES) / f"smth{i:02d}":
+                rng.randint(0, 256, (CLIP_T, CLIP_HW, CLIP_HW, 3)).astype(np.uint8)
+            for i in range(DATA_CLIPS)
+        })
+        tags = data_kth_tags(CLSTM_BATCH)
+        _write_jpegs({
+            kth / str(i): rng.randint(0, 256, (CLSTM_T, *CLSTM_HW, 3)).astype(np.uint8)
+            for i in range(CLSTM_BATCH)
+        })
+        for i, tag in enumerate(tags):
+            (kth / str(i) / "class.txt").write_text(f"{i % CLSTM_CLASSES}\n")
+            (kth / str(i) / "label.txt").write_text(f"{tag}\n")
+        write_seconds = time.perf_counter() - t0
+
+        def preset(name, run_name, **fields):
+            cfg = Config.load(str(root / "configs" / name))
+            cfg.output_dir, cfg.model_name = str(out_dir), run_name
+            cfg.mask.opt_iter = DATA_STEPS
+            for key, value in fields.items():
+                setattr(cfg.model if hasattr(cfg.model, key) else cfg.mask, key, value)
+            return cfg
+
+        # the loader alone: which decoder, and how fast
+        cfg = preset("config_i3d_smth.py", "decode")
+        cfg.data.data_folder = str(smth)
+        dataset = api.build_dataset(cfg, "validation", get_item_id=True)
+        rates = {}
+        for placed in (False, True):
+            loader = api.build_loader(cfg, dataset, False, drop_last=False, to_device=placed,
+                                      device="cuda" if placed else None)
+            n = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DATA_DECODE_EPOCHS):
+                for batch in loader:
+                    n += len(batch[1])
+            torch.cuda.synchronize()
+            rates["to_card" if placed else "to_host"] = n / (time.perf_counter() - t0)
+            if placed:
+                checks["loader_uint8_on_card"] = require(
+                    "loader", batch[0].dtype == torch.uint8 and batch[0].is_cuda, (batch[0].dtype, batch[0].device))
+        decoder = "native libjpeg" if loader._use_native() else "PIL"
+        items = [dataset[i] for i in range(len(dataset))]  # per-item PIL decode
+        emit({"phase": "data_path_decode", "card": card, "decoder": decoder,
+              "num_workers": cfg.data.num_workers, "clips": DATA_CLIPS * DATA_DECODE_EPOCHS,
+              "clip_shape": [CLIP_T, CLIP_HW, CLIP_HW, 3], "decode_clips_per_s": rates["to_host"],
+              "decode_to_card_clips_per_s": rates["to_card"], "read": "warm (files just written)",
+              "tree_write_seconds": write_seconds})
+
+        runs = {}
+        for route, flags in DATA_ROUTES.items():
+            changed = {"data.data_folder": str(smth), "output_dir": str(out_dir), "mask.opt_iter": DATA_STEPS,
+                       **{f"model.{k}": v for k, v in flags.items()}}
+            pair = {}
+            # the in-memory run first: it pays the route's first-run set-up
+            # (cuDNN's per-shape choice), so the tree run's rate is a warm one
+            for source in ("list", "tree"):
+                cfg = preset("config_i3d_smth.py", f"{route}_{source}", **flags)
+                cfg.data.data_folder = str(smth)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    pair[source] = _find_masks_run(
+                        api, counters, str(out_dir), "", {}, weights, None if source == "tree" else items,
+                        DATA_CLIPS, DATA_STEPS, cfg=cfg, split="validation")
+                r = pair[source]
+                r["device_ms"] = sum((getattr(ev, "self_device_time_total", 0) or 0) / 1e3
+                                     for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+                mine, launches = DATA_ROUTE_KERNELS[route], r["launches"]
+                checks[f"{route}_{source}_kernels"] = require(f"{route} {source}", all(
+                    launches[n] > 0 for n in mine) and not any(launches[n] for n in launches if n not in mine),
+                    f"launches {launches}")
+                _check_outputs(f"data_path {route} {source}", r, failures, batch=DATA_CLIPS)
+            tree, listed = pair["tree"], pair["list"]
+            checks[f"{route}_ids"] = require(route, sorted(t["video_id"] for t in tree["tm"]) == sorted(
+                it[2] for it in items), [t["video_id"] for t in tree["tm"]])
+            checks[f"{route}_equal_bits"] = require(route, _same_bits_by_id(tree, listed),
+                                                    "tree and in-memory list differ")
+            runs[route] = tree
+            emit({"phase": "data_path", "model": "i3d_smth", "preset": "configs/config_i3d_smth.py",
+                  "route": route, "changed": changed, "card": card, "clips": DATA_CLIPS,
+                  "clip_shape": [CLIP_T, CLIP_HW, CLIP_HW, 3], "steps": DATA_STEPS,
+                  "mask_steps_per_s": tree["rate"], "list_mask_steps_per_s": listed["rate"],
+                  "search_seconds": tree["stats"]["search_seconds"], "wall_seconds": tree["wall"],
+                  "list_wall_seconds": listed["wall"], "device_ms_run": tree["device_ms"],
+                  "device_busy_share": tree["device_ms"] / 1e3 / tree["wall"],
+                  "list_device_busy_share": listed["device_ms"] / 1e3 / listed["wall"],
+                  "profiled": "CUDA activity only, both runs", "launches": tree["launches"],
+                  "peak_mem_gib": tree["peak_gib"], "equal_bits_vs_list": checks[f"{route}_equal_bits"]})
+
+        # the ConvLSTM on the KTH tree, the whitelist filter on
+        pair = {}
+        clstm_items = None
+        for source in ("tree", "list"):
+            cfg = preset("config_clstm_kth.py", f"kth_{source}", use_pallas=True, kth_clips_filter=True)
+            cfg.data.data_folder = str(kth)
+            if clstm_items is None:
+                ds = api.build_dataset(cfg, "validation", get_item_id=True)
+                clstm_items = [ds[i] for i in range(len(ds))]
+            pair[source] = _find_masks_run(api, counters, str(out_dir), "", {}, clstm_weights,
+                                           None if source == "tree" else clstm_items, CLSTM_BATCH, DATA_STEPS,
+                                           cfg=cfg, split="validation")
+        tree = pair["tree"]
+        want = sorted(t for t in tags if tag_matches(t, "original"))
+        kept = sorted(t["video_id"] for t in tree["tm"])
+        gates = ("lstm_gates_fwd", "lstm_gates_bwd")
+        launches = tree["launches"]
+        checks["kth_kept_whitelist"] = require("kth", kept == want and len(want) == CLSTM_BATCH // 2,
+                                               f"kept {kept}, whitelist {want}")
+        checks["kth_gate_kernel"] = require("kth", all(launches[n] > 0 for n in gates) and not any(
+            launches[n] for n in launches if n not in gates), f"launches {launches}")
+        checks["kth_equal_bits"] = require("kth", _same_bits_by_id(tree, pair["list"]),
+                                           "tree and in-memory list differ")
+        masks, cams = tree["masks"], tree["cams"]
+        checks["kth_outputs"] = require("kth", np.isfinite(masks).all() and masks.min() >= 0 and masks.max() <= 1
+                                        and cams.shape == (len(want), CLSTM_T, *CLSTM_HW) and np.isfinite(cams).all(),
+                                        f"masks / CAMs {cams.shape}")
+        emit({"phase": "data_path", "model": "clstm_kth", "preset": "configs/config_clstm_kth.py",
+              "route": "gate_kernel", "changed": {"data.data_folder": str(kth), "output_dir": str(out_dir),
+                                                  "mask.opt_iter": DATA_STEPS, "model.use_pallas": True,
+                                                  "mask.kth_clips_filter": True},
+              "card": card, "clips": CLSTM_BATCH, "kept": kept, "clip_shape": [CLSTM_T, *CLSTM_HW, 3],
+              "steps": DATA_STEPS, "mask_steps_per_s": tree["rate"], "wall_seconds": tree["wall"],
+              "launches": launches})
+    emit({"phase": "data_path_compare", "card": card, **checks, "phase_seconds": time.perf_counter() - t_phase,
+          "required": "every check true"})
+
+
 # bench.py's setting (bench.py:44-64, 150-157): 128 clips, 120 steps, bf16,
 # s2d stem, folded BN, fused 1x1 trio, targets arange(128) % 174
 WHOLE_CLIPS, WHOLE_STEPS, WHOLE_WARMUP_STEPS = 128, 120, 2
@@ -3331,6 +3554,7 @@ def main() -> int:
     phase_clstm_step_timing(api, info["smi"], clstm_weights)
     phase_refill(api, counters, failures, info["smi"], f32_run["weights"])
     phase_driver(api, counters, failures, info["smi"], f32_run["weights"])
+    phase_data_path(api, counters, failures, info["smi"], f32_run["weights"], clstm_weights)
     phase_whole_search(api, counters, failures, info["smi"], f32_run["weights"])
     if failures:
         for f in failures:

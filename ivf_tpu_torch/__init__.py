@@ -14,10 +14,17 @@ the ConvLSTM family with PyTorch on one H100. Module names mirror
                 kernel routes
   interpret/    perturbations, the batched mask search, Grad-CAM (I3D and
                 ConvLSTM)
-  data/         the synthetic clip dataset and the KTH clip whitelist
+  data/         catalogs, samplers, ``.ivfrecords`` / ``.tfrecords``
+                readers, the frame-tree, KTH and record datasets, the
+                prefetching ``ClipLoader``; the synthetic clip dataset and
+                the KTH clip whitelist
+  native/       the loader's batched libjpeg decoder (host C++, built with
+                g++ at first use; PIL where it cannot build)
   utils/        weight conversion from the JAX package's variable tree
-  api.py        ``build_model`` / ``find_masks`` (with its filters,
-                compaction, ``min_score`` probe and emission journal)
+  config.py     the config tree and its preset loading (``Config.load``)
+  api.py        ``build_model`` / ``build_dataset`` / ``build_loader`` /
+                ``find_masks`` (with its filters, compaction, ``min_score``
+                probe and emission journal) / ``grad_cam_run``
 
 Public tensors keep the JAX layout: clips are ``(B, T, H, W, C)``.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

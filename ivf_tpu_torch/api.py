@@ -18,10 +18,15 @@ pool on the branch-3 pools unless ``pool_impl`` was set or the branch is
 fused (``_bf16_argmax_upgrade``); the ConvLSTM with bfloat16 weights and
 gates and a float32 state and head.
 
-Not ported yet (ROADMAP.md): ``cnn_3d``, dataset loading from the config,
-viz artifacts and the ClassScore txt files (``save_viz``),
-``grad_cam_run``, the pool impls ``shift``, ``eqbwd``, ``argmax_full`` and
-``argmax_shift``, and ``find_masks``'s ``split`` and ``mesh``.
+``build_dataset`` / ``build_loader`` read the dataset a config names
+(frame trees, KTH trees, ``.ivfrecords`` / ``.tfrecords`` shards) through
+the prefetching ``data.loaders.ClipLoader``; ``find_masks`` walks that
+loader, over ``split`` of the config's data when no dataset is given.
+``grad_cam_run`` is the standalone per-clip Grad-CAM.
+
+Not ported yet (ROADMAP.md): ``cnn_3d``, viz artifacts and the ClassScore
+txt files (``save_viz``), the pool impls ``shift``, ``eqbwd``,
+``argmax_full`` and ``argmax_shift``, and ``find_masks``'s ``mesh``.
 """
 
 from __future__ import annotations
@@ -41,8 +46,17 @@ import torch
 
 from ivf_tpu_torch.config import COMPUTE_DTYPES, POOL_IMPLS, Config
 from ivf_tpu_torch.data.kth_clips_of_interest import tag_matches
+from ivf_tpu_torch.data.kth import subject_split_paths
+from ivf_tpu_torch.data.loaders import (
+    ClipLoader,
+    FrameDirDataset,
+    KTHFrameDataset,
+    RecordDataset,
+    resolve_device,
+)
 from ivf_tpu_torch.interpret.gradcam import (
     convlstm_grad_cam,
+    grad_cam,
     grad_cam_batched,
     i3d_grad_cam_fns,
 )
@@ -59,19 +73,6 @@ from ivf_tpu_torch.models.convlstm import ConvLSTMClassifier
 from ivf_tpu_torch.models.i3d import I3D
 from ivf_tpu_torch.models.registry import get_model
 from ivf_tpu_torch.precision import reference_numerics_fn
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as given, else ``cuda``; raises when CUDA is absent and no
-    device was asked for."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "ivf_tpu_torch runs on a CUDA device and none is available; "
-            "pass device='cpu' to run on the CPU"
-        )
-    return torch.device("cuda")
 
 
 def default_effective_steps(clip_size: int) -> tuple:
@@ -178,6 +179,62 @@ def build_model(
         model = get_model(m.conv_model, num_classes=m.num_classes)
     model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
     return model.to(resolve_device(device), dtype).eval()
+
+
+def build_dataset(cfg: Config, split: str = "train", get_item_id: bool = False):
+    """The dataset of ``split`` as the config names it (``ivf_tpu/api.py::
+    build_dataset``): record shards for ``input_mode`` 'records' or
+    'tfrecords' (the split's ``record_paths_*``, else ``record_paths``,
+    else the KTH per-subject shards of ``records_folder``), a KTH tree of
+    numbered clip dirs when ``conv_model`` names KTH (the eval split falls
+    back from ``validation`` to ``test``, then to the flat root), else a
+    ``<data_folder>/<split>/<class>/<clip_id>/`` frame tree read at the
+    split's step size."""
+    d = cfg.data
+    if d.input_mode in ("records", "tfrecords"):
+        paths = list(d.record_paths_train if split == "train" else d.record_paths_val) or list(d.record_paths)
+        if not paths and d.records_folder and (d.train_subjects or d.val_subjects):
+            tr, va, _, _ = subject_split_paths(
+                d.records_folder, d.train_subjects, d.val_subjects, d.subjects_clips_csv or None
+            )
+            paths = tr if split == "train" else va
+        return RecordDataset(paths, clip_size=d.clip_size, get_item_id=get_item_id)
+    root = os.path.join(d.data_folder, split)
+    if "kth" in cfg.model.conv_model.lower():
+        if split == "validation" and not os.path.isdir(root):
+            # the reference's KTH layout names the eval split 'test'
+            alt = os.path.join(d.data_folder, "test")
+            if os.path.isdir(alt):
+                root = alt
+        if not os.path.isdir(root):
+            root = d.data_folder  # a flat numbered-dir layout has no splits
+        return KTHFrameDataset(root, clip_size=d.clip_size, get_item_id=get_item_id)
+    return FrameDirDataset(
+        root,
+        clip_size=d.clip_size,
+        step_size=d.step_size_train if split == "train" else d.step_size_val,
+        get_item_id=get_item_id,
+    )
+
+
+def build_loader(
+    cfg: Config, dataset, shuffle: bool, mesh=None, drop_last: bool = True, to_device: bool = True,
+    device=None,
+) -> ClipLoader:
+    """A ``ClipLoader`` of ``cfg.data.batch_size`` over ``dataset`` with the
+    config's decode threads and seed; with ``to_device`` its batches go to
+    ``device`` (``cuda`` unless given). ``mesh`` raises (not ported)."""
+    return ClipLoader(
+        dataset,
+        batch_size=cfg.data.batch_size,
+        shuffle=shuffle,
+        drop_last=drop_last,
+        num_workers=cfg.data.num_workers,
+        mesh=mesh,
+        to_device=to_device,
+        seed=cfg.seed,
+        device=device,
+    )
 
 
 MASK_INITS = ("central", "random")
@@ -298,10 +355,11 @@ def _carry_map(fn, *carries: SearchCarry) -> SearchCarry:
 def find_masks(
     cfg: Config,
     weights: Optional[Mapping[str, torch.Tensor]],
-    dataset,
+    dataset=None,
     stats: Optional[dict] = None,
     device=None,
     *,
+    split: str = "validation",
     do_gradcam: bool = True,
     run_temp_mask: bool = True,
     max_batches: Optional[int] = None,
@@ -309,9 +367,13 @@ def find_masks(
 ):
     """Temporal-mask search + Grad-CAM over ``dataset`` (items
     ``(clip_uint8 (T, H, W, 3), label, clip_id)``, or ``(clip, label)``:
-    the id is then ``b{loader batch}_{row}``), read in loader batches of
-    ``cfg.data.batch_size`` consecutive items (``max_batches`` of them at
-    most), as ``ivf_tpu/api.py::find_masks`` (``:940-1596``) runs them.
+    the id is then ``b{loader batch}_{row}``, as it is for an id of None),
+    read through ``build_loader`` (``cfg.data.num_workers`` threads,
+    batches prefetched) in loader batches of ``cfg.data.batch_size``
+    consecutive items (``max_batches`` of them at most), as
+    ``ivf_tpu/api.py::find_masks`` (``:940-1596``) runs them. With
+    ``dataset=None`` it is ``build_dataset(cfg, split, get_item_id=True)``:
+    the config's frame tree, KTH tree or record shards.
 
     Filters, per loader batch: ``mask.class_oi`` (the label),
     ``mask.subset_file`` (a CSV whose first column lists the ids to keep),
@@ -372,15 +434,18 @@ def find_masks(
     ``n_steps_run`` also go to ``results/search_stats.json`` when a search
     or Grad-CAM ran.
 
-    Not ported yet (ROADMAP.md, Queue 1): loading the dataset from the
-    config (``dataset`` is required; no ``split``), the viz artifacts and
-    the ClassScore txt files (no ``save_viz``: nothing is rendered), and
+    Not ported yet (ROADMAP.md, Queue 1): the viz artifacts and the
+    ClassScore txt files (no ``save_viz``: nothing is rendered), and
     ``mesh`` (one device).
     """
     _check_supported(cfg)
     cfg = _bf16_argmax_upgrade(cfg)
     mk = cfg.mask
     dev = resolve_device(device)
+    if dataset is None:
+        dataset = build_dataset(cfg, split, get_item_id=True)
+    # clips stay on the host until a full compacted batch is ready
+    loader = build_loader(cfg, dataset, False, drop_last=False, to_device=False)
     model = build_model(cfg, softmax_override=True, device=dev)
     if weights is not None:
         model.load_state_dict(weights)  # copy_ rounds to the model's dtype
@@ -699,16 +764,17 @@ def find_masks(
     probe = mk.min_score > 0.0
     body_ok = False
     try:
-        for bidx, start in enumerate(range(0, len(dataset), bsz)):
+        for bidx, batch in enumerate(loader):
             if max_batches is not None and bidx >= max_batches:
                 break
-            for i in range(min(bsz, len(dataset) - start)):
-                item = dataset[start + i]
-                label = int(item[1])
-                cid = str(item[2]) if len(item) > 2 and item[2] is not None else f"b{bidx}_{i}"
+            clips_np, labels_np = batch[0], batch[1]
+            ids = batch[2] if len(batch) == 3 else [None] * len(labels_np)
+            for i in range(len(labels_np)):
+                label = int(labels_np[i])
+                cid = str(ids[i]) if ids[i] is not None else f"b{bidx}_{i}"
                 if kept(cid, label):
-                    # a copy: a view would pin the dataset's storage behind it
-                    row = (np.array(item[0]), label, cid)
+                    # a copy: a view would pin the whole loader batch behind it
+                    row = (clips_np[i].copy(), label, cid)
                     if probe:
                         pending.append(row)
                     else:
@@ -769,3 +835,41 @@ def find_masks(
         with open(path, "wb") as f:
             pickle.dump(results, f)
     return time_mask_results, grad_cam_results
+
+
+@reference_numerics_fn
+def grad_cam_run(cfg: Config, weights: Optional[Mapping[str, torch.Tensor]], clips, targets=None, device=None):
+    """Standalone Grad-CAM over an array of clips (``ivf_tpu/api.py::
+    grad_cam_run``, the reference's ``grad_cam_videos.py``), one clip at a
+    time on ``device``: ``clips`` (N, T, H, W, 3), uint8 (cast to float32)
+    or float; ``targets`` a class per clip, None (or None entries) for the
+    predicted class. I3D explains ``cfg.mask.top_layer``, the ConvLSTM the
+    last layer's hidden sequence (channel weights per frame for the TF
+    family, over the clip for the torch one). Returns the CAMs (N, T, H,
+    W) in [0, 1] as a float32 numpy array."""
+    dev = resolve_device(device)
+    model = build_model(cfg, softmax_override=True, device=dev)
+    if weights is not None:
+        model.load_state_dict(weights)
+    model.requires_grad_(False)
+    clips = torch.as_tensor(np.asarray(clips)).to(dev)
+    if clips.dtype == torch.uint8:
+        clips = clips.float()
+    n = clips.shape[0]
+    targets = [None] * n if targets is None else targets
+    norm_frame = cfg.mask.normalization_mode == "frame"
+    cams = []
+    if isinstance(model, I3D):
+        ffn, hfn = i3d_grad_cam_fns(model, cfg.mask.top_layer)
+        for j in range(n):
+            cam, _ = grad_cam(ffn, hfn, clips[j], targets[j], normalize_per_frame=norm_frame)
+            cams.append(cam)
+    else:
+        wmode = "per_frame" if cfg.model.block_order == "tf" else "global"
+        for j in range(n):
+            target = None if targets[j] is None else torch.as_tensor([int(targets[j])], device=dev)
+            cam, _ = convlstm_grad_cam(
+                model, clips[j : j + 1], target, normalize_per_frame=norm_frame, weight_mode=wmode
+            )
+            cams.append(cam[0])
+    return torch.stack(cams).float().cpu().numpy()

@@ -14,7 +14,7 @@ and normalized to [0, 1] per frame or per clip.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -56,17 +56,20 @@ def grad_cam_batched(
     features_fn: Callable[[torch.Tensor], torch.Tensor],
     head_fn: Callable[[torch.Tensor], torch.Tensor],
     clips: torch.Tensor,
-    targets: torch.Tensor,
+    targets: Optional[torch.Tensor],
     normalize_per_frame: bool = False,
     weight_mode: str = "global",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Grad-CAM of ``targets (B,)`` for clips (B, T, H, W, C). Returns
-    (cams (B, T, H, W), class scores (B, num_classes))."""
+    """Grad-CAM of ``targets (B,)`` (None: each clip's predicted class) for
+    clips (B, T, H, W, C). Returns (cams (B, T, H, W), class scores (B,
+    num_classes))."""
     with torch.no_grad():
         act = features_fn(clips)
     act = act.detach().requires_grad_(True)
     with torch.enable_grad():
         scores = head_fn(act)
+        if targets is None:
+            targets = scores.detach().argmax(dim=-1)
         picked = scores.gather(1, targets[:, None]).sum()
         (grads,) = torch.autograd.grad(picked, act)
     cams = cam_from_activation(
@@ -74,6 +77,25 @@ def grad_cam_batched(
         normalize_per_frame, weight_mode,
     )
     return cams, scores.detach()
+
+
+def grad_cam(
+    features_fn: Callable[[torch.Tensor], torch.Tensor],
+    head_fn: Callable[[torch.Tensor], torch.Tensor],
+    clip: torch.Tensor,
+    target_index=None,
+    normalize_per_frame: bool = False,
+    weight_mode: str = "global",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Grad-CAM for one clip (T, H, W, C) (``ivf_tpu/interpret/gradcam.py::
+    grad_cam``) with the batched ``features_fn`` / ``head_fn`` of
+    ``i3d_grad_cam_fns``; ``target_index`` None explains the predicted
+    class. Returns (cam (T, H, W) in [0, 1], class scores)."""
+    targets = None if target_index is None else torch.as_tensor([int(target_index)], device=clip.device)
+    cams, scores = grad_cam_batched(
+        features_fn, head_fn, clip[None], targets, normalize_per_frame, weight_mode
+    )
+    return cams[0], scores[0]
 
 
 def i3d_grad_cam_fns(model, endpoint: str = "Mixed_5c"):
@@ -88,7 +110,7 @@ def i3d_grad_cam_fns(model, endpoint: str = "Mixed_5c"):
 def convlstm_grad_cam(
     model,
     clips: torch.Tensor,
-    targets: torch.Tensor,
+    targets: Optional[torch.Tensor],
     normalize_per_frame: bool = False,
     weight_mode: str = "per_frame",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -98,14 +120,17 @@ def convlstm_grad_cam(
     zero ``feature_offset``; one pass gives both, since adding zeros leaves
     ``clstm_output`` as it is. Rows are independent in eval mode, so the
     gradient of the summed picked scores is each clip's own, as under the
-    JAX package's per-clip ``vmap``. Returns (cams (B, T, H, W), class
-    scores (B, num_classes))."""
+    JAX package's per-clip ``vmap``. ``targets`` None explains each clip's
+    predicted class. Returns (cams (B, T, H, W), class scores (B,
+    num_classes))."""
     with torch.enable_grad():
         offset = torch.zeros(
             model.clstm_output_shape(clips), device=clips.device, dtype=clips.dtype,
             requires_grad=True,
         )
         scores, feats = model.scores_and_features(clips, feature_offset=offset)
+        if targets is None:
+            targets = scores.detach().argmax(dim=-1)
         picked = scores.gather(1, targets[:, None]).sum()
         (grads,) = torch.autograd.grad(picked, offset)
     cams = cam_from_activation(

@@ -18,6 +18,7 @@ scores 1e-5, CAMs 1e-4 (the tolerances of ``tests/test_torch_refill.py``).
 import json
 import os
 import pickle
+import sys
 import warnings
 
 import numpy as np
@@ -318,13 +319,17 @@ def test_items_without_ids_get_batch_row_ids(state_dict, tmp_path):
 
 def test_kept_rows_are_copies(state_dict, tmp_path, monkeypatch):
     """Each kept row is copied out of the item it came from, so it pins no
-    storage of the dataset behind it."""
+    storage of the dataset behind it. The rows held are those find_masks
+    stacks to upload; the loader's own stack (``ClipLoader._assemble``)
+    builds a new batch array of the items by design."""
     dataset = SyntheticClips(4, t=8, hw=32, num_classes=2, lazy=False)
     staged = []
     upload = tapi.np.stack
 
     def stack(rows, *args, **kwargs):
-        staged.extend(r for r in rows if isinstance(r, np.ndarray) and r.dtype == np.uint8)
+        rows = list(rows)
+        if sys._getframe(1).f_globals.get("__name__") == tapi.__name__:
+            staged.extend(r for r in rows if isinstance(r, np.ndarray) and r.dtype == np.uint8)
         return upload(rows, *args, **kwargs)
 
     monkeypatch.setattr(tapi.np, "stack", stack)
