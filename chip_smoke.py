@@ -114,7 +114,22 @@ non-zero without the final line:
    clips handed over in memory (equal bits per clip), launches, the kept
    ids, the decoder used, its decode rate in clips/s, mask-steps/s and the
    device busy share.
-18. whole_search: ``find_masks`` at bench.py's setting (128 clips, 120
+18. artifacts: ``find_masks(..., save_viz=True)`` at full width on the
+   bfloat16 kernel route, 8 clips in loader batches of 4 (the first
+   flush's rendering overlaps the second's search), 10 steps, Grad-CAM
+   on, then the clstm_kth ConvLSTM with the gate kernel on 4 clips (a KTH
+   run: the PerturbImgs too); each beside the same run without viz:
+   equal bits, every clip's folder, ClassScore files equal to its scores,
+   images, GIF and mask files, every journaled id's folder, the files'
+   count and bytes, wall time and the writer's wait with and without viz.
+19. pool_impls: every ``pool_impl`` of the JAX package at full width (4
+   clips, 10 steps, ``use_pallas`` on, ``pallas_pool`` off), in float32
+   and bfloat16, each twice: equal bits run to run, masks within the
+   tie-rule tolerance of ``reduce_window``'s, float32 ``argmax_full`` /
+   ``argmax_shift`` bit-equal to ``reduce_window`` / ``shift``, launches;
+   device ms per search step of each bf16 impl at batch 4 and 128 with
+   peak memory.
+20. whole_search: ``find_masks`` at bench.py's setting (128 clips, 120
    steps, bf16, targets arange(128) % 174) on the default route, the
    kernel route and the default route with the plain stem, each after a
    2-step warm-up: mask-steps/s, the device busy share of the run, peak
@@ -169,6 +184,7 @@ in DIR and with this one, in turns (``whole_compare``).
 from __future__ import annotations
 
 import contextlib
+import inspect
 import json
 import os
 import re
@@ -828,6 +844,10 @@ def _find_masks_run(api, counters, out_dir: str, name: str, flags: dict, weights
         for key, value in flags.items():
             setattr(cfg.model, key, value)
     res = Path(cfg.output_dir) / cfg.model_name / "results"
+    if "save_viz" in inspect.signature(api.find_masks).parameters:
+        # no artifacts unless asked: the timings stay those of the runs
+        # before find_masks wrote them (a parent checkout has no save_viz)
+        find_kwargs.setdefault("save_viz", False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stats = {}
@@ -3291,6 +3311,261 @@ def phase_data_path(api, counters, failures, card: str, weights: dict, clstm_wei
           "required": "every check true"})
 
 
+# the artifacts phase: i3d_smth clips in two flushes, so that the second
+# flush's search overlaps the first one's rendering; the ConvLSTM's KTH run
+ART_CLIPS, ART_BATCH, ART_CLSTM_CLIPS = 8, 4, 4
+
+
+@contextmanager
+def _writer_waits(api):
+    """The seconds each ``find_masks`` spent in its writer's ``close`` (the
+    wait for the journal and viz jobs still in flight), appended to the
+    yielded list; an empty list on a checkout without the writer."""
+    from unittest import mock
+
+    waits: list = []
+    writer = getattr(api, "_AsyncWriter", None)
+    if writer is None:
+        yield waits
+        return
+    close = writer.close
+
+    def timed_close(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return close(self, *args, **kwargs)
+        finally:
+            waits.append(time.perf_counter() - t0)
+
+    with mock.patch.object(writer, "close", timed_close):
+        yield waits
+
+
+def _clip_folder(save_dir: Path, rec: dict) -> Path:
+    """The folder ``find_masks(save_viz=True)`` writes a clip's artifacts
+    to, from its record (``ivf_tpu/api.py:1240-1246``)."""
+    vid = rec["video_id"]
+    name = f"{vid}g_{rec['pred_class']}_gs{rec['original_score_guess']:5.4f}_cs{rec['original_score_true']:5.4f}"
+    return save_dir / "cam_saved_images" / str(rec["true_class"]) / name / "combined"
+
+
+def _clip_artifacts_ok(folder: Path, rec: dict, frames: int, gradcam: bool, kth: bool) -> dict:
+    """Which of a clip's artifacts are as the JAX package writes them: the
+    folder; both ClassScore files, parsed back to the record's scores;
+    with ``gradcam`` the ``frames`` JPEGs and the GIF of as many frames (the
+    reverse pass overwrote the freeze pass's) and, per perturbation,
+    ``frames`` strip PNGs and the MASKVALS file; with ``kth`` the
+    PerturbImgs PNGs and their mask file."""
+    from PIL import Image
+
+    vid = rec["video_id"]
+    ok = {"folder": folder.is_dir()}
+    ok["class_scores"] = ok["folder"] and all(
+        (folder / f"ClassScore{n}case{vid}.txt").is_file()
+        and float((folder / f"ClassScore{n}case{vid}.txt").read_text()) == rec[k]
+        for n, k in (("Freeze", "freeze_score"), ("Reverse", "reverse_score")))
+    if gradcam:
+        ok["jpegs"] = sorted(p.name for p in folder.glob("img*.jpg")) == [
+            "img%02d.jpg" % (i + 1) for i in range(frames)]
+        gif = folder / "mygif.gif"
+        ok["gif"] = gif.is_file() and Image.open(gif).n_frames == frames
+        ok["strips"] = all(
+            all((folder / f"case{p}{vid}_{i}.png").is_file() for i in range(frames))
+            and (folder / f"MASKVALScase{p}{vid}.txt").is_file() for p in ("freeze", "reverse"))
+    if kth:
+        pert = folder / "PerturbImgs"
+        ok["perturb_imgs"] = all((pert / f"case{vid}pert{i}.png").is_file() for i in range(frames)) and (
+            pert / f"case{vid}.txt").is_file()
+    return ok
+
+
+def _tree_size(root: Path) -> tuple:
+    files = [p for p in root.rglob("*") if p.is_file()]
+    return len(files), sum(p.stat().st_size for p in files)
+
+
+def phase_artifacts(api, counters, failures, card: str, weights: dict, clstm_weights: dict) -> None:
+    """``find_masks(..., save_viz=True)``: i3d_smth at full width on the
+    bf16 kernel route, ``ART_CLIPS`` clips in loader batches of
+    ``ART_BATCH`` (two flushes: the first flush's rendering overlaps the
+    second's search), 10 steps, Grad-CAM on; then the clstm_kth ConvLSTM
+    with the gate kernel on ``ART_CLSTM_CLIPS`` clips (a KTH run: the
+    PerturbImgs too). Each run beside the same run with ``save_viz=False``
+    (its bits must be equal), every launch counter set to 0 before a run
+    and read after; per clip the artifacts of ``_clip_artifacts_ok``; every
+    journaled id has its folder; wall time and the writer's wait with and
+    without viz."""
+    import numpy as np
+
+    from ivf_tpu_torch.config import Config
+    from ivf_tpu_torch.data.synthetic import SyntheticClips
+
+    t_phase = time.perf_counter()
+    checks = {}
+
+    def require(label, ok, detail):
+        if not ok:
+            failures.append(f"artifacts {label}: {detail}")
+        return bool(ok)
+
+    def i3d_config(out_dir, name):
+        cfg = Config()
+        cfg.output_dir, cfg.model_name = out_dir, name
+        cfg.data.batch_size, cfg.mask.opt_iter = ART_BATCH, STEPS
+        for key, value in BF16_ROUTES["bf16_kernels"].items():
+            setattr(cfg.model, key, value)
+        return cfg
+
+    def clstm_config(out_dir, name):
+        cfg = _clstm_cfg(True, out_dir, name)
+        cfg.data.batch_size = ART_CLSTM_CLIPS
+        return cfg
+
+    models = (
+        ("i3d", i3d_config, SyntheticClips(ART_CLIPS, CLIP_T, CLIP_HW, CLASSES, seed=9, lazy=False), weights,
+         CLIP_T, BF16_ROUTE_KERNELS["bf16_kernels"], False),
+        ("clstm_kth", clstm_config, _clstm_clips()[:ART_CLSTM_CLIPS], clstm_weights, CLSTM_T,
+         ("lstm_gates_fwd", "lstm_gates_bwd"), True),
+    )
+    with tempfile.TemporaryDirectory() as out_dir, _writer_waits(api) as waits:
+        for model, config, dataset, w, frames, mine, kth in models:
+            runs = {}
+            for viz in (True, False):
+                name = f"{model}_viz{int(viz)}"
+                waits.clear()
+                r = _find_masks_run(api, counters, out_dir, "", {}, w, dataset, cfg=config(out_dir, name),
+                                    save_viz=viz)
+                r["writer_wait"] = sum(waits)
+                runs[viz] = r
+            on, off = runs[True], runs[False]
+            save_dir = Path(out_dir) / f"{model}_viz1"
+            per_clip = {rec["video_id"]: _clip_artifacts_ok(_clip_folder(save_dir, rec), rec, frames, True, kth)
+                        for rec in on["tm"]}
+            journaled = api._EmissionJournal.load(str(save_dir / "results" / "emission_journal.p"))
+            by_id = {rec["video_id"]: rec for rec in on["tm"]}
+            n_files, n_bytes = _tree_size(save_dir / "cam_saved_images")
+            launches = on["launches"]
+            checks[f"{model}_clips"] = require(model, len(on["tm"]) == len(dataset), len(on["tm"]))
+            checks[f"{model}_artifacts"] = require(
+                model, all(all(ok.values()) for ok in per_clip.values()),
+                {vid: ok for vid, ok in per_clip.items() if not all(ok.values())})
+            checks[f"{model}_journaled_have_folders"] = require(
+                model, set(journaled) == set(by_id) and all(
+                    _clip_folder(save_dir, by_id[vid]).is_dir() for vid in journaled), sorted(journaled))
+            checks[f"{model}_no_viz_tree"] = require(
+                model, not (Path(out_dir) / f"{model}_viz0" / "cam_saved_images").exists(), "save_viz=False wrote")
+            checks[f"{model}_equal_bits"] = require(model, _same_bits_by_id(on, off), "save_viz changed the bits")
+            checks[f"{model}_kernels"] = require(model, all(launches[n] > 0 for n in mine) and not any(
+                launches[n] for n in launches if n not in mine), launches)
+            emit({"phase": "artifacts", "model": model, "card": card, "clips": len(dataset),
+                  "batch": config("", "").data.batch_size, "steps": STEPS, "frames": frames,
+                  "files": n_files, "bytes": n_bytes, "launches": launches,
+                  "wall_seconds_viz_on_off": [on["wall"], off["wall"]],
+                  "writer_close_wait_seconds_viz_on_off": [on["writer_wait"], off["writer_wait"]],
+                  "search_seconds_viz_on_off": [on["stats"]["search_seconds"], off["stats"]["search_seconds"]],
+                  "mask_steps_per_s_viz_on_off": [on["rate"], off["rate"]]})
+            masks = on["masks"]
+            if not (np.isfinite(masks).all() and masks.min() >= 0 and masks.max() <= 1
+                    and np.isfinite(on["cams"]).all()):
+                failures.append(f"artifacts {model}: masks not finite in [0, 1] or CAMs not finite")
+    emit({"phase": "artifacts_compare", "card": card, **checks, "phase_seconds": time.perf_counter() - t_phase,
+          "required": "every check true"})
+
+
+# the pool_impls phase: every pool impl of the JAX package (ivf_tpu/config.py:84-89)
+POOL_IMPL_NAMES = ("reduce_window", "argmax", "shift", "eqbwd", "argmax_full", "argmax_shift")
+POOL_IMPL_FLAGS = {"use_pallas": True, "pallas_pool": False}  # pool_impl reaches the branch-3 pools
+POOL_IMPL_STEP_BATCHES = (BATCH, 128)
+
+
+def phase_pool_impls(api, counters, failures, card: str, weights: dict) -> None:
+    """Every ``pool_impl`` at full width (i3d_smth, 4 clips, 10 steps,
+    ``use_pallas`` on and ``pallas_pool`` off, so the pool impl reaches the
+    branch-3 pools too), in float32 and in bfloat16, each ``find_masks`` run
+    twice (every launch counter set to 0 before a run and read after):
+    masks finite in [0, 1], equal bits run to run, masks within
+    ``MASK_TOL`` of ``reduce_window``'s in the same dtype (another tie rule
+    only), and in float32 ``argmax_full`` bit-equal to ``reduce_window``
+    and ``argmax_shift`` to ``shift`` (the argmax routes act in 16 bits
+    only). A bf16 ``reduce_window`` run bypasses ``_bf16_argmax_upgrade``,
+    which would make it ``argmax``. Then device ms per search step of every
+    bf16 impl at batch 4 and at bench.py's 128, with peak memory."""
+    from unittest import mock
+
+    import numpy as np
+
+    from ivf_tpu_torch.config import Config
+    from ivf_tpu_torch.data.synthetic import SyntheticClips
+
+    t_phase = time.perf_counter()
+    dataset = SyntheticClips(BATCH, CLIP_T, CLIP_HW, CLASSES, seed=1, lazy=False)
+    runs, checks = {}, {}
+
+    def require(label, ok, detail):
+        if not ok:
+            failures.append(f"pool_impls {label}: {detail}")
+        return bool(ok)
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        for dtype in ("float32", "bfloat16"):
+            pw = "pointwise_conv" if dtype == "float32" else "pointwise_conv_bf16"
+            for impl in POOL_IMPL_NAMES:
+                label = f"{dtype}_{impl}"
+                flags = dict(POOL_IMPL_FLAGS, compute_dtype=dtype, pool_impl=impl)
+                keep = impl == "reduce_window" and dtype == "bfloat16"
+                pair = []
+                for rep in range(2):
+                    with mock.patch.object(api, "_bf16_argmax_upgrade", lambda cfg: cfg) if keep \
+                            else contextlib.nullcontext():
+                        r = _find_masks_run(api, counters, out_dir, f"pool_{label}_{rep}", flags, weights, dataset)
+                    _check_outputs(f"pool_impls {label}", r, failures)
+                    pair.append(r)
+                runs[label] = a = pair[0]
+                launches = a["launches"]
+                argmax = dtype == "bfloat16" and impl.startswith("argmax")
+                mine = (pw, *ARGMAX_COUNTERS) if argmax else (pw,)
+                checks[f"{label}_repeats"] = require(label, _equal_bits(*pair), "two runs differ")
+                checks[f"{label}_kernels"] = require(label, all(launches[n] > 0 for n in mine) and not any(
+                    launches[n] for n in launches if n not in mine), launches)
+                emit({"phase": "pool_impls", "impl": impl, "dtype": dtype, "flags": flags, "card": card,
+                      "clips": BATCH, "steps": STEPS, "launches": launches,
+                      "mask_steps_per_s": [r["rate"] for r in pair], "wall_seconds": [r["wall"] for r in pair],
+                      "peak_mem_gib": a["peak_gib"], "bf16_argmax_upgrade": "bypassed" if keep else "as find_masks"})
+        diffs = {}
+        for dtype in ("float32", "bfloat16"):
+            ref = runs[f"{dtype}_reduce_window"]
+            for impl in POOL_IMPL_NAMES[1:]:
+                d = _diffs(runs[f"{dtype}_{impl}"], ref)
+                diffs[f"{dtype}_{impl}"] = d
+                checks[f"{dtype}_{impl}_within_mask_tol"] = require(
+                    f"{dtype}_{impl}", d["max_mask_diff"] <= MASK_TOL, d)
+        for impl, same in (("argmax_full", "reduce_window"), ("argmax_shift", "shift")):
+            checks[f"float32_{impl}_bits_of_{same}"] = require(
+                impl, _equal_bits(runs[f"float32_{impl}"], runs[f"float32_{same}"]), f"float32 bits of {same}")
+    emit({"phase": "pool_impls_compare", "card": card, **checks, "vs_reduce_window": diffs, "mask_tol": MASK_TOL,
+          "mask_tol_reason": "another tie rule in the pool backward (" + MASK_TOL_REASON + ")",
+          "required": "every check true"})
+    del runs
+    # device time per search step of each bf16 impl, batch 4 then 128
+    models = {}
+    for impl in POOL_IMPL_NAMES:
+        cfg = Config()
+        for key, value in dict(POOL_IMPL_FLAGS, compute_dtype="bfloat16", pool_impl=impl).items():
+            setattr(cfg.model, key, value)
+        model = api.build_model(cfg, softmax_override=True)  # no upgrade: reduce_window stays
+        model.load_state_dict(weights)
+        models[impl] = model.requires_grad_(False)
+    clips = torch.stack([torch.from_numpy(dataset[i][0]) for i in range(BATCH)]).cuda().float()
+    _step_timing("pool_impls_step_timing", models, clips, card, turns=POOL_IMPL_NAMES)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    big = torch.randint(0, 256, (POOL_IMPL_STEP_BATCHES[1], CLIP_T, CLIP_HW, CLIP_HW, 3), generator=gen,
+                        device="cuda", dtype=torch.uint8).float()
+    _step_timing("pool_impls_step_timing", models, big, card, turns=POOL_IMPL_NAMES, steps=2)
+    del big, models
+    torch.cuda.empty_cache()
+    emit({"phase": "pool_impls_seconds", "card": card, "phase_seconds": time.perf_counter() - t_phase})
+
+
 # bench.py's setting (bench.py:44-64, 150-157): 128 clips, 120 steps, bf16,
 # s2d stem, folded BN, fused 1x1 trio, targets arange(128) % 174
 WHOLE_CLIPS, WHOLE_STEPS, WHOLE_WARMUP_STEPS = 128, 120, 2
@@ -3323,20 +3598,7 @@ def phase_whole_search(api, counters, failures, card: str, weights: dict, routes
     dataset = SyntheticClips(WHOLE_CLIPS, CLIP_T, CLIP_HW, CLASSES, seed=5)  # labels i % 174
     build, masks = api.build_model, {}
     writer = getattr(api, "_AsyncWriter", None)
-    waits: list = []
-    if writer is not None:
-        close = writer.close
-
-        def timed_close(self, *args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return close(self, *args, **kwargs)
-            finally:
-                waits.append(time.perf_counter() - t0)
-
-    with tempfile.TemporaryDirectory() as out_dir, contextlib.ExitStack() as patches:
-        if writer is not None:
-            patches.enter_context(mock.patch.object(writer, "close", timed_close))
+    with tempfile.TemporaryDirectory() as out_dir, _writer_waits(api) as waits:
         for route in routes:
             flags = WHOLE_ROUTES[route]
             def config(steps, name):
@@ -3555,6 +3817,8 @@ def main() -> int:
     phase_refill(api, counters, failures, info["smi"], f32_run["weights"])
     phase_driver(api, counters, failures, info["smi"], f32_run["weights"])
     phase_data_path(api, counters, failures, info["smi"], f32_run["weights"], clstm_weights)
+    phase_artifacts(api, counters, failures, info["smi"], f32_run["weights"], clstm_weights)
+    phase_pool_impls(api, counters, failures, info["smi"], f32_run["weights"])
     phase_whole_search(api, counters, failures, info["smi"], f32_run["weights"])
     if failures:
         for f in failures:

@@ -22,11 +22,14 @@ gates and a float32 state and head.
 (frame trees, KTH trees, ``.ivfrecords`` / ``.tfrecords`` shards) through
 the prefetching ``data.loaders.ClipLoader``; ``find_masks`` walks that
 loader, over ``split`` of the config's data when no dataset is given.
-``grad_cam_run`` is the standalone per-clip Grad-CAM.
+``grad_cam_run`` is the standalone per-clip Grad-CAM. With ``save_viz``
+(the default, as in the JAX package) ``find_masks`` also writes the
+reference's per-clip artifacts on its writer thread: the ClassScore txt
+files, the Grad-CAM triptych JPEGs, GIFs and mask-strip PNGs, and the KTH
+perturbed-sequence PNGs (``viz/render.py``, numpy and Pillow). I3D takes
+every ``pool_impl`` of the JAX package (``ops/conv.py::max_pool3d_same``).
 
-Not ported yet (ROADMAP.md): ``cnn_3d``, viz artifacts and the ClassScore
-txt files (``save_viz``), the pool impls ``shift``, ``eqbwd``,
-``argmax_full`` and ``argmax_shift``, and ``find_masks``'s ``mesh``.
+Not ported yet (ROADMAP.md): ``cnn_3d`` and ``find_masks``'s ``mesh``.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from ivf_tpu_torch.interpret.gradcam import (
     grad_cam_batched,
     i3d_grad_cam_fns,
 )
+from ivf_tpu_torch.interpret.perturb import perturb_sequence
 from ivf_tpu_torch.interpret.mask_opt import (
     SearchCarry,
     draw_mask_random,
@@ -73,6 +77,12 @@ from ivf_tpu_torch.models.convlstm import ConvLSTMClassifier
 from ivf_tpu_torch.models.i3d import I3D
 from ivf_tpu_torch.models.registry import get_model
 from ivf_tpu_torch.precision import reference_numerics_fn
+from ivf_tpu_torch.viz.render import (
+    create_image_arrays,
+    image_panels,
+    visualize_results,
+    visualize_results_on_gradcam,
+)
 
 
 def default_effective_steps(clip_size: int) -> tuple:
@@ -123,6 +133,18 @@ def _build_convlstm(cfg: Config, softmax: bool) -> ConvLSTMClassifier:
     )
 
 
+def _is_kth_run(cfg: Config) -> bool:
+    """A KTH-family run, as the JAX package's ``_is_kth_run`` decides it
+    (``ivf_tpu/api.py:478-486``): 'kth' in the model or run name, or the
+    KTH-only per-subject record shards. ``find_masks`` then also renders
+    the perturbed sequence itself."""
+    return (
+        "kth" in cfg.model.conv_model.lower()
+        or "kth" in cfg.model_name.lower()
+        or bool(cfg.data.train_subjects or cfg.data.val_subjects)
+    )
+
+
 def _bf16_argmax_upgrade(cfg: Config) -> Config:
     """The argmax-index pool on the bfloat16 path, as the JAX package's
     ``_bf16_argmax_upgrade``: engaged only where the caller left
@@ -138,9 +160,7 @@ def _model_dtype(cfg: Config) -> torch.dtype:
     if m.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype={m.compute_dtype!r}: one of {COMPUTE_DTYPES}")
     if m.pool_impl not in POOL_IMPLS:
-        raise NotImplementedError(
-            f"pool_impl={m.pool_impl!r}: the port has {POOL_IMPLS} (ROADMAP.md, Queue 1)"
-        )
+        raise NotImplementedError(f"pool_impl={m.pool_impl!r}: one of {POOL_IMPLS}")
     return torch.float32 if m.compute_dtype == "float32" else torch.bfloat16
 
 
@@ -250,10 +270,11 @@ def _check_supported(cfg: Config) -> None:
 
 class _AsyncWriter:
     """One background thread for the host writes of ``find_masks`` (the
-    emission journal), so that they overlap the next flush's device work
-    (``ivf_tpu/api.py:53-100``). Device work and the result lists stay on
-    the calling thread. At most ``max_pending`` jobs are in flight; a
-    worker's error re-raises on a later ``submit`` or at ``close``.
+    viz artifacts and the emission journal), so that they overlap the next
+    flush's device work (``ivf_tpu/api.py:53-100``). Device work and the
+    result lists stay on the calling thread. At most ``max_pending`` jobs
+    are in flight; a worker's error re-raises on a later ``submit`` or at
+    ``close``.
     ``enabled=False`` runs each job inline."""
 
     def __init__(self, enabled: bool, max_pending: int = 2):
@@ -364,6 +385,7 @@ def find_masks(
     run_temp_mask: bool = True,
     max_batches: Optional[int] = None,
     resume: bool = False,
+    save_viz: bool = True,
 ):
     """Temporal-mask search + Grad-CAM over ``dataset`` (items
     ``(clip_uint8 (T, H, W, 3), label, clip_id)``, or ``(clip, label)``:
@@ -403,10 +425,24 @@ def find_masks(
     ``run_temp_mask=False`` runs no search (Grad-CAM alone);
     ``do_gradcam=False`` emits no CAMs.
 
+    With ``save_viz`` (and a search run) each emitted clip gets a folder
+    ``<output_dir>/<model_name>/cam_saved_images/<label>/<id>g_<pred>_gs<guess
+    score:5.4f>_cs<true-class score:5.4f>/combined`` holding
+    ``ClassScore{Freeze,Reverse}case<id>.txt`` (its two scores), with
+    ``do_gradcam`` the ``create_image_arrays`` files of the snapped
+    freeze and reverse perturbations (the JAX package's tree: the reverse
+    pass's ``img*.jpg`` and ``mygif.gif``, which overwrite the freeze
+    pass's there, so the port does not write the freeze pass's), and in a
+    KTH run (``_is_kth_run``) the ``visualize_results`` PNGs of
+    the unsnapped ``mask_perturb_type`` perturbation (``ivf_tpu/api.py:
+    1172-1288``). The perturbations run batched on the device; the
+    rendering runs on the writer thread.
+
     Each emitted clip is journaled to ``results/emission_journal.p``
     (``_EmissionJournal``; on the writer thread unless
-    ``mask.async_viz=False``). A fresh run removes an old journal;
-    ``resume=True`` restores its records (a record that lacks a part this
+    ``mask.async_viz=False``; under ``save_viz`` after the clip's
+    artifacts, so a journaled clip has its files). A fresh run removes an
+    old journal; ``resume=True`` restores its records (a record that lacks a part this
     run needs runs again in full), probes no journaled skip again, and runs
     only the rest. Per clip the bits do not depend on which clips share a
     flush (every op is row-independent at a fixed batch shape), so a
@@ -434,9 +470,7 @@ def find_masks(
     ``n_steps_run`` also go to ``results/search_stats.json`` when a search
     or Grad-CAM ran.
 
-    Not ported yet (ROADMAP.md, Queue 1): the viz artifacts and the
-    ClassScore txt files (no ``save_viz``: nothing is rendered), and
-    ``mesh`` (one device).
+    Not ported yet (ROADMAP.md, Queue 1): ``mesh`` (one device).
     """
     _check_supported(cfg)
     cfg = _bf16_argmax_upgrade(cfg)
@@ -490,7 +524,9 @@ def find_masks(
         with open(mk.subset_file) as f:
             subset_ids = {row[0] for row in csv.reader(f) if row}
     time_mask_results, grad_cam_results = [], []
-    results_path = os.path.join(cfg.output_dir, cfg.model_name, "results")
+    save_dir = os.path.join(cfg.output_dir, cfg.model_name)
+    is_kth = _is_kth_run(cfg)
+    results_path = os.path.join(save_dir, "results")
     os.makedirs(results_path, exist_ok=True)
 
     # the emission journal: restore what an interrupted run finished
@@ -604,6 +640,7 @@ def find_masks(
                 "video_id": str(take[j][2])}
             for j in sel
         }
+        masks = freeze = reverse = cams = None
         if res is not None:
             masks = res.mask[rows].cpu().numpy()
             freeze = res.freeze_score[rows].cpu().numpy()
@@ -627,7 +664,56 @@ def find_masks(
                 rec = {**heads[j], "GCHeatMap": cams[k]}
                 grad_cam_results.append(rec)
                 jrecs[j]["cam"] = rec
-        writer.submit(lambda recs=list(jrecs.values()): journal.append_many(recs))
+        recs = list(jrecs.values())
+        if not (save_viz and res is not None):
+            writer.submit(lambda: journal.append_many(recs))
+            return
+        # the viz perturbations of the selected rows, batched on the device;
+        # the clip pixels only where an image needs them
+        sel_clips, sel_masks = clips[rows], res.mask[rows]
+        perts = None
+        if do_gradcam:
+            perts = {
+                p: perturb_sequence(sel_clips, sel_masks, p, snap_values=True).cpu().numpy()
+                for p in ("freeze", "reverse")
+            }
+        kth_pert = (
+            perturb_sequence(sel_clips, sel_masks, mk.mask_perturb_type).cpu().numpy() if is_kth else None
+        )
+        clips_np = sel_clips.cpu().numpy() if (do_gradcam or is_kth) else None
+
+        def viz_job() -> None:
+            for k, j in enumerate(sel):
+                tag, label, scores = heads[j]["video_id"], int(take[j][1]), outputs_np[j]
+                gs, cs = float(scores.max()), float(scores[label])
+                out_folder = os.path.join(
+                    save_dir, "cam_saved_images", str(label),
+                    f"{tag}g_{heads[j]['pred_class']}_gs{gs:5.4f}_cs{cs:5.4f}", "combined",
+                )
+                os.makedirs(out_folder, exist_ok=True)
+                for name, val in (("Freeze", freeze[k]), ("Reverse", reverse[k])):
+                    with open(os.path.join(out_folder, f"ClassScore{name}case{tag}.txt"), "w") as f:
+                        f.write(str(float(val)))
+                if perts is not None:
+                    # the reverse pass overwrites the freeze pass's img*.jpg and
+                    # mygif.gif (one folder, as in the JAX package), so the
+                    # freeze pass writes only its strips: the same files, one
+                    # GIF's palette quantization (most of the render) fewer
+                    frozen = image_panels(clips_np[k], cams[k], perts["freeze"][k])
+                    visualize_results_on_gradcam(
+                        frozen, masks[k], out_folder, case="freeze" + tag,
+                        image_width=frozen.shape[2] // 3, image_height=frozen.shape[1],
+                    )
+                    create_image_arrays(
+                        clips_np[k], cams[k], masks[k], perts["reverse"][k], out_folder, case_tag="reverse" + tag
+                    )
+                if is_kth:
+                    visualize_results(clips_np[k], kth_pert[k], masks[k], root_dir=out_folder, case=tag)
+            # journaled last: a journaled clip has its artifacts on disk, so
+            # resume never skips a half-written clip
+            journal.append_many(recs)
+
+        writer.submit(viz_job)
 
     def run_batch(take: list) -> None:
         n = len(take)

@@ -4,9 +4,9 @@ its ``from_dict`` / ``load`` / ``to_dict`` / ``experiment_params``, so the
 presets in ``configs/`` load unchanged (the reference's flat dict keys,
 0/1 bools, the ``stride_mod_layers`` string, tuple keys).
 
-``ModelConfig.pool_impl`` takes the JAX package's ``'reduce_window'`` and
-``'argmax'`` (``POOL_IMPLS``); its other pool impls are not ported, and
-``compute_dtype`` is ``'float32'`` or ``'bfloat16'``.
+``ModelConfig.pool_impl`` takes every pool impl of the JAX package
+(``POOL_IMPLS``, ``ops/conv.py::max_pool3d_same``), and ``compute_dtype``
+is ``'float32'`` or ``'bfloat16'``.
 
 Fields that no ported path reads yet are carried so that a preset loads
 and round-trips whole: ``OptimConfig``, ``ModelConfig.kernel_l2``,
@@ -38,8 +38,8 @@ from typing import Optional, Tuple, Union
 
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
-# the JAX package's others (shift, eqbwd, argmax_full, argmax_shift) raise
-POOL_IMPLS = ("reduce_window", "argmax")
+# the I3D max-pool impls (ivf_tpu/config.py:84-89); any other name raises
+POOL_IMPLS = ("reduce_window", "shift", "eqbwd", "argmax", "argmax_full", "argmax_shift")
 
 
 @dataclass
@@ -104,9 +104,12 @@ class ModelConfig:
     clstm_scan: str = "auto"  # auto | scan | unrolled
     top_k: Optional[int] = None  # inference top-k width; None: by family
     compute_dtype: str = "float32"  # float32 | bfloat16 (I3D only)
-    # max pools: 'reduce_window' (F.max_pool3d) | 'argmax' (bf16 stride-1
-    # pools via the argmax-index pool); bfloat16 runs with 'reduce_window'
-    # become 'argmax' in find_masks, as in the JAX package
+    # I3D max pools: 'reduce_window' (F.max_pool3d) | 'shift' (separable
+    # slice-max chain) | 'eqbwd' (equality-stencil backward, stride-1
+    # pools) | 'argmax' (bf16 stride-1 pools via the argmax-index pool) |
+    # 'argmax_full' (argmax, strided bf16 pools too) | 'argmax_shift'
+    # (argmax, shift chain on the rest); bfloat16 runs with
+    # 'reduce_window' become 'argmax' in find_masks, as in the JAX package
     pool_impl: str = "reduce_window"
     # 1x1x1 convs via the pointwise CUDA kernel (I3D); the ConvLSTM gate
     # block via the fused-gates CUDA kernel (sigmoid gates)

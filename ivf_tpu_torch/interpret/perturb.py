@@ -20,6 +20,7 @@ in float32, as in the JAX package.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK_THRESHOLD = 0.1
@@ -126,3 +127,23 @@ def tv_norm(mask: torch.Tensor, p: float = 3.0, q: float = 3.0) -> torch.Tensor:
     d = torch.abs(mask[..., :-1] - mask[..., 1:]) ** p
     val = d[..., :-1].sum(-1) + d[..., 1:].sum(-1)
     return (val ** (1.0 / p)) ** q
+
+
+def find_submasks_from_mask(mask, thresh: float = MASK_THRESHOLD) -> list:
+    """The contiguous runs of ``mask > thresh`` as lists of frame indices
+    (host side, for analysis and viz; ``ivf_tpu/interpret/perturb.py:
+    193-211``)."""
+    mask = np.asarray(mask)
+    submasks, current, in_run = [], [], False
+    for j, v in enumerate(mask):
+        if v > thresh and not in_run:
+            current, in_run = [j], True
+        elif v > thresh and in_run:
+            current.append(j)
+        elif v <= thresh and in_run:
+            submasks.append(current)
+            in_run = False
+        if j == len(mask) - 1 and in_run:
+            submasks.append(current)
+            in_run = False
+    return submasks

@@ -4,8 +4,9 @@ Same trunk table, head and knobs as the JAX model, minus what this slice
 does not run: dropout is the identity (eval), and
 ``remat``/``guided_relu``/``fuse_3x3`` are not ported. ``stem_s2d`` runs
 the 7x7x7 stride-2 stem as the space-to-depth conv, as the JAX model
-does by default. ``pool_impl``
-reaches every max pool (``ops/conv.py::max_pool3d_same``). A model cast to
+does by default. ``pool_impl`` (any of the JAX package's six)
+reaches every max pool (``ops/conv.py::max_pool3d_same``) but the
+branch-3 pools that ``pallas_pool`` or ``fuse_pool_conv`` take. A model cast to
 bfloat16 runs in bfloat16 from its first conv, which casts the clips, to
 the softmax, as the JAX model does.
 Input and output layouts match the JAX model: clips

@@ -10,8 +10,8 @@ folded into the preceding conv by default (``fold_bn``), on every forward
 from the module's own parameters, so a module cast to bfloat16 folds in
 bfloat16, as the JAX package does after casting its variables. Each conv
 casts its input to the weight's dtype (``ivf_tpu/ops/conv.py:53``). The
-JAX package's ``fuse_3x3``, ``pool_impl`` other than ``reduce_window`` and
-``argmax``, and training-mode BN are not ported yet (ROADMAP.md).
+JAX package's ``fuse_3x3`` and training-mode BN are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -175,7 +175,9 @@ class InceptionModule(nn.Module):
     with BN unfolded the branch runs unfused, as in JAX. In bfloat16 the
     fused kernels take the bf16 activations and folded weights and sum in
     float32, rounding once (the Pallas kernels' bf16 path).
-    ``pool_impl`` is the unfused branch-3 pool's (``max_pool3d_same``).
+    ``pool_impl`` is the unfused branch-3 pool's (``max_pool3d_same``):
+    ``pallas_pool`` and ``fuse_pool_conv`` override it, as in JAX
+    (``ivf_tpu/models/layers.py:272-278``).
     """
 
     def __init__(

@@ -16,12 +16,14 @@ kH, kW)`` layouts; the JAX ``(..., Cin, Cout)`` layouts appear only in
 from __future__ import annotations
 
 import itertools
+import math
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
-from ivf_tpu_torch.ops.kernels.argmax_pool import argmax_pool
+from ivf_tpu_torch.config import POOL_IMPLS
+from ivf_tpu_torch.ops.kernels.argmax_pool import _from_monotone, _monotone, _window_key, argmax_pool
 from ivf_tpu_torch.ops.padding import explicit_same_padding
 
 
@@ -260,32 +262,160 @@ class _MaxPool3dFixedOrder(torch.autograd.Function):
         return dx, None, None
 
 
+def _shift_max(xp: torch.Tensor, window, strides) -> torch.Tensor:
+    """The pool of a zero-padded NDHWC ``xp`` as the separable chain of
+    ``torch.maximum`` over shifted strided slices, T, then H, then W, each
+    axis folded from its first offset on (``ivf_tpu/ops/conv.py:210-222``).
+    Its backward is autograd's: a tie of ``torch.maximum`` gives half the
+    gradient to each side, as ``lax.max``'s balanced rule does."""
+    for axis, (w, s) in enumerate(zip(window, strides), start=1):
+        n_out = (xp.shape[axis] - w) // s + 1
+        acc = None
+        for k in range(w):
+            sl = xp[(slice(None),) * axis + (slice(k, k + (n_out - 1) * s + 1, s),)]
+            acc = sl if acc is None else torch.maximum(acc, sl)
+        xp = acc
+    return xp
+
+
+class _MaxPool3dEqBwd(torch.autograd.Function):
+    """Stride-1 SAME pool (``F.max_pool3d`` over the zero-padded input)
+    with the equality-stencil backward of ``ivf_tpu/ops/conv.py:237-282``:
+    ``dx[i] = sum over window offsets o of g[i + o] * (x[i] == y[i + o])``,
+    every tied maximum credited, the offsets added in (kt, kh, kw) order
+    into a ``g.dtype`` sum, so in bfloat16 every add rounds to bfloat16.
+    ``csrc/maxpool3d.cu``'s every-tie backward adds the centre frame
+    first and rounds once, so it would not give these bits."""
+
+    @staticmethod
+    def forward(ctx, x, window):
+        pads = explicit_same_padding(x.shape[1:4], window, (1, 1, 1))
+        y = _ndhwc(F.max_pool3d(_ncdhw(F.pad(x, _f_pad(pads))), window, 1)).contiguous()
+        ctx.save_for_backward(x, y)
+        ctx.window, ctx.pads = window, pads
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        # output j feeds input i when o = j - i is in [lo - w + 1, lo]; g is
+        # padded with zeros and y with +inf (never equal) so one slice per
+        # offset covers it
+        cfg = tuple((w - 1 - lo, w - 1 - hi) for (lo, hi), w in zip(ctx.pads, ctx.window))
+        gp = F.pad(g, _f_pad(cfg))
+        yp = F.pad(y, _f_pad(cfg), value=float("inf"))
+        _, nt, nh, nw, _ = x.shape
+        dx = torch.zeros(x.shape, dtype=g.dtype, device=g.device)
+        for kt, kh, kw in itertools.product(*(range(w) for w in ctx.window)):
+            gs = gp[:, kt : kt + nt, kh : kh + nh, kw : kw + nw]
+            ys = yp[:, kt : kt + nt, kh : kh + nh, kw : kw + nw]
+            dx = dx + gs * (x == ys).to(g.dtype)
+        return dx.to(x.dtype), None
+
+
+class _ArgmaxPoolStrided(torch.autograd.Function):
+    """Strided SAME pool of a 16-bit float input with the argmax-index
+    backward (``ivf_tpu/ops/conv.py:387-445``, ``pool_impl='argmax_full'``
+    on the trunk pools), in plain PyTorch on every device: the JAX package
+    computes it in XLA, outside any Pallas kernel. The forward maximises
+    the packed word of ``ops/kernels/argmax_pool.py`` (the value's
+    order-preserving 16 bits above the position's window key) over the
+    strided windows; the backward sends each window's cotangent to the
+    position its index names, offset by offset in (kt, kh, kw) order, each
+    offset's contributions added into the strided view of the padded input
+    grid they hit (the dilated-pad scatter of the JAX VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, window, strides):
+        pads = explicit_same_padding(x.shape[1:4], window, strides)
+        xp = F.pad(x, _f_pad(pads))
+        nbits = (math.prod(window) - 1).bit_length()
+        bits = xp.view(torch.int16).to(torch.int32) & 0xFFFF
+        packed = (_monotone(bits) << nbits) | _window_key(*xp.shape[1:4], 0, x.device, window)
+        for axis, (w, s) in enumerate(zip(window, strides), start=1):
+            packed = packed.unfold(axis, w, s)
+        best = packed.amax(dim=(-3, -2, -1))
+        ctx.save_for_backward((best & ((1 << nbits) - 1)).to(torch.uint8))
+        ctx.geometry = (x.shape, window, strides, pads)
+        return _from_monotone(best >> nbits).view(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        shape, (wt, wh, ww), strides, pads = ctx.geometry
+        b, to, ho, wo, c = g.shape
+        padded = [n + lo + hi for n, (lo, hi) in zip(shape[1:4], pads)]
+        dxp = torch.zeros((b, *padded, c), dtype=g.dtype, device=g.device)
+        it, ih, iw = (
+            torch.arange(n, device=g.device, dtype=torch.int32) * s for n, s in zip((to, ho, wo), strides)
+        )
+        for kt, kh, kw in itertools.product(range(wt), range(wh), range(ww)):
+            # the key of padded input position j * s + k, as a function of
+            # the output index j: the forward's window key
+            key = (
+                ((it + kt) % wt)[:, None, None] * (wh * ww)
+                + ((ih + kh) % wh)[None, :, None] * ww
+                + ((iw + kw) % ww)[None, None, :]
+            )[None, ..., None]
+            view = dxp[
+                :,
+                kt : kt + (to - 1) * strides[0] + 1 : strides[0],
+                kh : kh + (ho - 1) * strides[1] + 1 : strides[1],
+                kw : kw + (wo - 1) * strides[2] + 1 : strides[2],
+            ]
+            view.add_(g * (idx == key).to(g.dtype))
+        (t0, _), (h0, _), (w0, _) = pads
+        return dxp[:, t0 : t0 + shape[1], h0 : h0 + shape[2], w0 : w0 + shape[3]], None, None
+
+
 def max_pool3d_same(
     x: torch.Tensor, window: Sequence[int], strides: Sequence[int], impl: str = "reduce_window"
 ) -> torch.Tensor:
     """Max pool with the reference's zero-padded SAME. The padding is
     explicit zeros: ``F.max_pool3d``'s own padding would be -inf.
 
-    ``impl='reduce_window'`` (the JAX package's default): ``F.max_pool3d``,
-    each window's gradient to its first maximum, added in a fixed order
-    (``_MaxPool3dFixedOrder``) so that two runs give the same bits.
-    ``impl='argmax'``: a 3x3x3 stride-1 pool in bfloat16 (the branch-3
-    pools of the bfloat16 search) goes to the argmax-index pool
-    (``ops/kernels/argmax_pool.py``); strided pools and float32 fall
-    through to ``F.max_pool3d``, as in ``ivf_tpu/ops/conv.py:194-202``.
-    The JAX package's other impls are not ported
-    (``ivf_tpu_torch.config.POOL_IMPLS``).
+    Every impl of ``ivf_tpu/ops/conv.py:150-222``, dispatched rule for rule;
+    the forward values are the same, the backwards differ at ties:
+
+    - ``'reduce_window'`` (the default): ``F.max_pool3d``, each window's
+      gradient to its first maximum, added in a fixed order
+      (``_MaxPool3dFixedOrder``) so that two runs give the same bits.
+    - ``'shift'``: the separable ``torch.maximum`` chain (``_shift_max``);
+      ties split the gradient 0.5 / 0.5 at each pairwise max.
+    - ``'eqbwd'``: on stride-1 pools, the equality-stencil backward
+      (``_MaxPool3dEqBwd``), every tie credited; strided pools fall
+      through to ``'reduce_window'``.
+    - ``'argmax'``: in bfloat16, a 3x3x3 stride-1 pool (the branch-3 pools)
+      goes to the argmax-index pool (``ops/kernels/argmax_pool.py``, a
+      CUDA kernel on the card); each window's gradient to its largest-key
+      maximum. Strided pools and float32 fall through to
+      ``'reduce_window'``.
+    - ``'argmax_full'``: ``'argmax'``, and in bfloat16 the strided pools
+      too (``_ArgmaxPoolStrided``).
+    - ``'argmax_shift'``: ``'argmax'``, with the ``'shift'`` chain on what
+      falls through (strided pools, and every pool in float32).
+
+    So in float32 ``'argmax_full'`` is ``'reduce_window'`` and
+    ``'argmax_shift'`` is ``'shift'``, bit for bit. An unknown name raises
+    ``NotImplementedError``.
     """
     window, strides = tuple(window), tuple(strides)
-    if impl not in ("reduce_window", "argmax"):
-        raise NotImplementedError(f"pool impl {impl!r} is not ported (ROADMAP.md)")
-    if impl == "argmax" and x.dtype == torch.bfloat16 and strides == (1, 1, 1):
-        if window != (3, 3, 3):
-            raise NotImplementedError(f"argmax pool: window {window}; the port has 3x3x3")
-        return argmax_pool(x)
+    if impl not in POOL_IMPLS:
+        raise NotImplementedError(f"pool impl {impl!r}: one of {POOL_IMPLS}")
+    if impl == "eqbwd" and strides == (1, 1, 1):
+        return _MaxPool3dEqBwd.apply(x, window)
+    if impl.startswith("argmax") and x.dtype == torch.bfloat16:
+        if strides == (1, 1, 1):
+            if window != (3, 3, 3):
+                raise NotImplementedError(f"argmax pool: window {window}; the port has 3x3x3")
+            return argmax_pool(x)
+        if impl == "argmax_full":
+            return _ArgmaxPoolStrided.apply(x, window, strides)
     pads = explicit_same_padding(x.shape[1:4], window, strides)
     if any(p for pair in pads for p in pair):
         x = F.pad(x, _f_pad(pads))
+    if impl in ("shift", "argmax_shift"):
+        return _shift_max(x, window, strides)
     xp = _ncdhw(x)
     if torch.is_grad_enabled() and xp.requires_grad:
         return _ndhwc(_MaxPool3dFixedOrder.apply(xp, window, strides))

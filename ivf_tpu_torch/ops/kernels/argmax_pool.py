@@ -58,13 +58,17 @@ def _from_monotone(u: torch.Tensor) -> torch.Tensor:
     return torch.where(bits >= 0x8000, bits - 0x10000, bits).to(torch.int16)
 
 
-def _window_key(t: int, h: int, w: int, offset: int, device) -> torch.Tensor:
-    """(1, t, h, w, 1) int32 key of each position, its coordinates shifted
-    by ``offset`` (1 puts an unpadded input in padded coordinates)."""
+def _window_key(t: int, h: int, w: int, offset: int, device, window=(3, 3, 3)) -> torch.Tensor:
+    """(1, t, h, w, 1) int32 key of each position inside any window of
+    shape ``window`` (the w consecutive coordinates of an axis are
+    distinct mod w), its coordinates shifted by ``offset`` (1 puts an
+    unpadded input in padded coordinates)."""
+    wt, wh, ww = window
     kt, kh, kw = (
-        (torch.arange(n, device=device, dtype=torch.int32) + offset) % 3 for n in (t, h, w)
+        (torch.arange(n, device=device, dtype=torch.int32) + offset) % k
+        for n, k in zip((t, h, w), window)
     )
-    key = kt[:, None, None] * 9 + kh[None, :, None] * 3 + kw[None, None, :]
+    key = kt[:, None, None] * (wh * ww) + kh[None, :, None] * ww + kw[None, None, :]
     return key[None, ..., None]
 
 

@@ -438,7 +438,7 @@ def test_find_masks_clstm_matches_jax(jax_clstm_run, tmp_path, use_pallas):
     stats = {}
     tm, gc = tapi.find_masks(
         cfg, jax_clstm_run["sd"], SyntheticClips(4, t=8, hw=32, num_classes=2, lazy=False),
-        stats=stats, device="cpu",
+        stats=stats, device="cpu", save_viz=False,
     )
     res, want_res = tmp_path / "fm" / "results", Path(jax_clstm_run["out"]) / "fm" / "results"
     names = sorted(p.name for p in res.glob("all*Results_*.p"))
@@ -676,7 +676,7 @@ def test_find_masks_clstm_bf16_matches_jax(jax_bf16_runs, tmp_path, family, use_
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tapi, "build_model", spy_model)
         mp.setattr(tapi, "init_mask_central", pinned_init)
-        tm, gc = tapi.find_masks(cfg, sd, _Clips(4, 8, 32, 40, 2), device="cpu")
+        tm, gc = tapi.find_masks(cfg, sd, _Clips(4, 8, 32, 40, 2), device="cpu", save_viz=False)
     assert built == [torch.bfloat16]
     assert np.std([r["time_mask"] for r in tm]) > 1e-3
     for got, want in zip(tm, jtm):

@@ -129,7 +129,7 @@ def _port_run(cfg, sd, dataset=None, split="validation"):
     stats = {}
     with pytest.MonkeyPatch.context() as mp:
         _small_i3d(mp)
-        tm, gc = tapi.find_masks(cfg, sd, dataset, stats=stats, device="cpu", split=split)
+        tm, gc = tapi.find_masks(cfg, sd, dataset, stats=stats, device="cpu", split=split, save_viz=False)
     return tm, gc, stats
 
 
@@ -356,9 +356,9 @@ def test_kth_tree_run_has_the_bits_of_the_list(clstm, layouts, tmp_path, kth_fil
     cfg.data.data_folder = layouts["kth_flat"]
     cfg.mask.kth_clips_filter = kth_filter
     items = _items(tapi.build_dataset(cfg, "validation", get_item_id=True))
-    tree_run = tapi.find_masks(cfg, clstm["sd"], device="cpu")
+    tree_run = tapi.find_masks(cfg, clstm["sd"], device="cpu", save_viz=False)
     cfg.model_name = "list"
-    _assert_same_bits(tree_run, tapi.find_masks(cfg, clstm["sd"], items, device="cpu"))
+    _assert_same_bits(tree_run, tapi.find_masks(cfg, clstm["sd"], items, device="cpu", save_viz=False))
     ids = sorted(r["video_id"] for r in tree_run[0])
     assert ids == sorted(t for t in KTH_TAGS if not kth_filter or t not in KTH_TAGS[1::3])
 

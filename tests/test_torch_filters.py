@@ -98,7 +98,8 @@ def _port_run(out_dir, sd, name="fm", n_clips=8, dataset=None, kwargs=None, **ma
     cfg = _configure(TConfig(), out_dir, name, **mask)
     stats = {}
     dataset = dataset or SyntheticClips(n_clips, t=8, hw=32, num_classes=2, lazy=False)
-    tm, gc = tapi.find_masks(cfg, sd, dataset, stats=stats, device="cpu", **(kwargs or {}))
+    kwargs = {"save_viz": False, **(kwargs or {})}
+    tm, gc = tapi.find_masks(cfg, sd, dataset, stats=stats, device="cpu", **kwargs)
     return tm, gc, stats
 
 
@@ -272,7 +273,7 @@ def test_kth_filter_keeps_the_whitelist(state_dict, tmp_path, split_type):
     """The KTH whitelist of ``cfg.split_type`` decides which tags run."""
     cfg = _configure(TConfig(), tmp_path, "fm", kth_clips_filter=True, opt_iter=2)
     cfg.split_type = split_type
-    tm, _ = tapi.find_masks(cfg, state_dict, _KTHClips(), device="cpu", do_gradcam=False)
+    tm, _ = tapi.find_masks(cfg, state_dict, _KTHClips(), device="cpu", do_gradcam=False, save_viz=False)
     want = [t for t in _KTHClips.TAGS if jkth.tag_matches(t, split_type)]
     assert [r["video_id"] for r in tm] == want and want
     assert want == (["person17_boxing_d1_1", "person25_walking_d4_1", "person18_handwaving_d3_1"]

@@ -213,7 +213,7 @@ def test_clstm_find_masks_on_the_card_goes_through_the_gate_kernels(cuda_device,
         fn.launches = 0
     rng = np.random.RandomState(0)
     clips = [(rng.randint(0, 255, (8, 32, 48, 3)).astype(np.uint8), i, f"c{i}") for i in range(2)]
-    tm, gc = api.find_masks(cfg, None, clips)
+    tm, gc = api.find_masks(cfg, None, clips, save_viz=False)
     assert tgates.lstm_gates_fwd_cuda.launches > 0 and tgates.lstm_gates_bwd_cuda.launches > 0
     assert all(np.isfinite(r["time_mask"]).all() for r in tm)
     assert gc[0]["GCHeatMap"].shape == (8, 32, 48)
@@ -231,7 +231,7 @@ def test_find_masks_on_the_card_goes_through_the_fused_kernels(cuda_device, tmp_
     pools = (tpool.maxpool3d_s1_fwd_cuda, tpool.maxpool3d_s1_bwd_cuda)
     for fn in (*fused, *pools):
         fn.launches = 0
-    tm, gc = api.find_masks(cfg, None, SyntheticClips(2, t=16, hw=224, num_classes=5))
+    tm, gc = api.find_masks(cfg, None, SyntheticClips(2, t=16, hw=224, num_classes=5), save_viz=False)
     assert all(fn.launches > 0 for fn in fused)
     assert all(fn.launches == 0 for fn in pools)
     assert all(np.isfinite(r["time_mask"]).all() for r in tm)
@@ -248,7 +248,7 @@ def test_find_masks_on_the_card_goes_through_the_kernels(cuda_device, tmp_path):
     counters = (tpw.pointwise_conv_cuda, tpool.maxpool3d_s1_fwd_cuda, tpool.maxpool3d_s1_bwd_cuda)
     for fn in counters:
         fn.launches = 0
-    tm, gc = api.find_masks(cfg, None, SyntheticClips(2, t=16, hw=224, num_classes=5))
+    tm, gc = api.find_masks(cfg, None, SyntheticClips(2, t=16, hw=224, num_classes=5), save_viz=False)
     assert all(fn.launches > 0 for fn in counters)
     assert all(np.isfinite(r["time_mask"]).all() for r in tm)
     assert gc[0]["GCHeatMap"].shape == (16, 224, 224)
@@ -765,7 +765,7 @@ def _small_find_masks(tmp_path, name, **model):
         setattr(cfg.model, key, value)
     cfg.mask.opt_iter = 3
     cfg.data.batch_size = 2
-    tm, gc = api.find_masks(cfg, None, SyntheticClips(2, t=16, hw=224, num_classes=5))
+    tm, gc = api.find_masks(cfg, None, SyntheticClips(2, t=16, hw=224, num_classes=5), save_viz=False)
     return np.stack([r["time_mask"] for r in tm]), np.stack([r["GCHeatMap"] for r in gc])
 
 
@@ -935,7 +935,7 @@ def test_bf16_clstm_find_masks_goes_through_the_bf16_gate_kernels(cuda_device, t
         fn.launches = 0
     rng = np.random.RandomState(0)
     clips = [(rng.randint(0, 255, (8, 32, 48, 3)).astype(np.uint8), i, f"c{i}") for i in range(2)]
-    runs = [api.find_masks(cfg, None, clips) for _ in range(2)]
+    runs = [api.find_masks(cfg, None, clips, save_viz=False) for _ in range(2)]
     assert all(fn.launches > 0 for fn in bf16) and not any(fn.launches for fn in f32)
     masks = [np.stack([r["time_mask"] for r in tm]) for tm, _ in runs]
     cams = [np.stack([r["GCHeatMap"] for r in gc]) for _, gc in runs]
@@ -1012,7 +1012,7 @@ def test_resumed_find_masks_gives_the_uninterrupted_bits(cuda_device, tmp_path, 
         for fn in kernels:
             fn.launches = 0
         stats = {}
-        tm, gc = api.find_masks(cfg, None, dataset, stats=stats, **kwargs)
+        tm, gc = api.find_masks(cfg, None, dataset, stats=stats, save_viz=False, **kwargs)
         runs[name] = ({r["video_id"]: r for r in tm}, {r["video_id"]: r for r in gc}, stats)
     (tm0, gc0, _), (tm1, gc1, st) = runs["base"], runs["part"]
     assert (st["resumed_clips"], st["searched_rows"], st["score_launches"]) == (2, 4, 2), st

@@ -71,7 +71,7 @@ def _port_run(out_dir, sd, n_clips=8, name="fm", **mask):
     stats = {}
     tm, gc = tapi.find_masks(
         cfg, sd, SyntheticClips(n_clips, t=8, hw=32, num_classes=2, lazy=False), stats=stats,
-        device="cpu",
+        device="cpu", save_viz=False,
     )
     return tm, gc, stats
 

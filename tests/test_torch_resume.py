@@ -110,7 +110,7 @@ def _port_run(out_dir, sd, name="fm", n_clips=8, kwargs=None, **mask):
     stats = {}
     tm, gc = tapi.find_masks(
         cfg, sd, SyntheticClips(n_clips, t=8, hw=32, num_classes=2, lazy=False), stats=stats,
-        device="cpu", **(kwargs or {}),
+        device="cpu", **{"save_viz": False, **(kwargs or {})},
     )
     return tm, gc, stats
 
