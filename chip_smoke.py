@@ -58,8 +58,10 @@ non-zero without the final line:
    ``torch.use_deterministic_algorithms``: the ops PyTorch flags with the
    port's repairs switched off and on (warn mode), then two runs with the
    repairs in raise mode, and the bfloat16 default route twice; equal bits
-   required. In this process: each repair switched off in turn, two runs
-   each (do they still give equal bits?) and its cost per search step.
+   required, and one train step of each I3D route of train_i3d (the op
+   that raises, if one does). In this process: each repair switched off
+   in turn, two runs each (do they still give equal bits?) and its cost
+   per search step.
 11. bf16_kernel_check: the bfloat16 kernels (pointwise GEMM at every
    1x1x1 conv of the I3D main path, forward and dx, with the sum over a
    search step's 40 launches and the host time per call; the bf16 pool
@@ -129,7 +131,30 @@ non-zero without the final line:
    ``argmax_shift`` bit-equal to ``reduce_window`` / ``shift``, launches;
    device ms per search step of each bf16 impl at batch 4 and 128 with
    peak memory.
-20. whole_search: ``find_masks`` at bench.py's setting (128 clips, 120
+20. train_kernel_check, then train_i3d. The first holds the training
+   path's kernel calls against their plain versions at its shapes, f32
+   and bf16: the pointwise conv as ``Unit3D`` calls it in training (y,
+   dx, dW, db) and the gate VJP at both clstm_kth layers. train_i3d:
+   training of i3d_smth from ``configs/config_i3d_smth.py``
+   as loaded (batch 16, Adam, dropout 0.5) on four routes (f32 plain, f32
+   kernels, bf16 default, bf16 kernels): one step of each kernel route
+   against the plain route with the same tie rule (loss, every gradient,
+   BN statistics; a control with one block's cotangent 10% off must
+   exceed the gradient limit), the bf16 default route against the argmax
+   pair's plain versions (equal bits), two runs with equal bits, the loss falling over 20
+   steps on one batch, float32 masters in bf16, launches per step, steady
+   clips/s and device ms per step by kernel group, peak memory, busy
+   share; ``api.train`` over a generated JPEG tree uninterrupted and cut
+   mid-epoch then resumed (equal bits), ``infer``'s files and the plain
+   route's ``y_hat`` on the same weights.
+21. train_clstm: the same for the clstm_kth ConvLSTM (16 clips of
+   32x120x160, ``kernel_l2``) with the gate kernel and without, f32 and
+   bf16, the resume through ``fit`` and its checkpoints.
+22. cnn_3d: a train step and an eval of ``cnn_3d`` at 32x120x160, batch
+   16, f32 and bf16, each twice: equal bits.
+23. records_search: ``find_masks`` from ``configs/config_clstm_kth_records.py``
+   on generated per-subject record shards, 10 steps, twice: equal bits.
+24. whole_search: ``find_masks`` at bench.py's setting (128 clips, 120
    steps, bf16, targets arange(128) % 174) on the default route, the
    kernel route and the default route with the plain stem, each after a
    2-step warm-up: mask-steps/s, the device busy share of the run, peak
@@ -983,14 +1008,15 @@ def _clstm_clips():
     ]
 
 
-def _clstm_scaled_weights(api, clip) -> dict:
-    """Seeded weights with each layer's ``wx`` scaled so its gate
-    pre-activations have unit std on one clip (raw 0-255 frames would
-    otherwise saturate every sigmoid) and the fc head scaled so the 6
-    class scores have std 2, as ``_scaled_weights`` does for I3D."""
+def _clstm_scaled_weights(api, clip, cfg=None) -> dict:
+    """Seeded weights (of ``cfg``, by default the clstm_kth preset's) with
+    each layer's ``wx`` scaled so its gate pre-activations have unit std on
+    one clip (raw 0-255 frames would otherwise saturate every sigmoid) and
+    the fc head scaled so the class scores have std 2, as
+    ``_scaled_weights`` does for I3D."""
     from ivf_tpu_torch.ops.conv import conv2d_same_torch
 
-    model = api.build_model(_clstm_cfg(True), softmax_override=False, device="cuda")
+    model = api.build_model(cfg or _clstm_cfg(True), softmax_override=False, device="cuda")
     model.requires_grad_(False)
     x = torch.from_numpy(clip)[None].cuda().float()
     with torch.no_grad():
@@ -1445,7 +1471,24 @@ def determinism_child() -> int:
                   "equal_bits": _equal_bits(*runs), **_diffs(*runs)})
             if not _equal_bits(*runs):
                 return 1
-    return 0
+        # one train step of each I3D route (the config_i3d_smth preset, the
+        # main path's clips), raise mode: the op that raises, if one does
+        from ivf_tpu_torch.train import make_train_step
+
+        clips = torch.stack([torch.from_numpy(dataset[i][0]) for i in range(BATCH)]).cuda()
+        labels = torch.arange(BATCH, device="cuda")
+        raised_any = False
+        for route, flags in TRAIN_I3D_ROUTES.items():
+            cfg = _train_preset(api, "config_i3d_smth.py", out_dir, route, **flags)
+            try:
+                make_train_step(compute_dtype=cfg.model.compute_dtype)(_train_state(api, cfg), clips, labels)
+                torch.cuda.synchronize()
+                raised = None
+            except RuntimeError as exc:
+                raised = str(exc).splitlines()[0]
+            emit({"phase": "determinism", "mode": "raise", "train_route": route, "raised": raised})
+            raised_any = raised_any or raised is not None
+    return 1 if raised_any else 0
 
 
 def phase_determinism(api, counters, failures, card: str, weights: dict) -> dict:
@@ -3688,6 +3731,709 @@ def whole_rows(root: str) -> int:
     return 1 if failures else 0
 
 
+# the training phases: the presets' batch of clips at full width, the
+# steps of each check, and the I3D routes (the search's f32 and bf16
+# routes; bf16 runs take the argmax pool where the kernels do not)
+TRAIN_BATCH, TRAIN_BITS_STEPS, TRAIN_FALL_STEPS, TRAIN_TIMED_FROM = 16, 3, 20, 10
+TRAIN_TREE = {"train": 48, "validation": 16}  # generated smth clips: 3 / 1 batches
+TRAIN_DEVICE = "cuda"
+TRAIN_I3D_ROUTES = {
+    "f32_plain": {}, "f32_kernels": dict(use_pallas=True, pallas_pool=True),
+    "bf16_default": dict(compute_dtype="bfloat16"),
+    "bf16_kernels": dict(compute_dtype="bfloat16", use_pallas=True, pallas_pool=True),
+}
+TRAIN_I3D_KERNELS = {
+    "f32_plain": (), "f32_kernels": ("pointwise_conv", "maxpool3d_s1_fwd", "maxpool3d_s1_bwd"),
+    "bf16_default": ARGMAX_COUNTERS, "bf16_kernels": BF16_KERNEL_COUNTERS,
+}
+# kernel route against the plain route with the pool kernels' every-tie
+# rule (pool_impl 'eqbwd', the same rule in PyTorch): one step from one
+# state, gradients read as p - p_new of SGD with lr 1
+TRAIN_TIE_PAIRS = {"f32": ("f32_kernels", dict(pool_impl="eqbwd")),
+                   "bf16": ("bf16_kernels", dict(compute_dtype="bfloat16", pool_impl="eqbwd"))}
+TRAIN_F32_TOL = {"loss_rel": 1e-5, "grad_gap": 1e-3, "stats": 1e-4}
+TRAIN_BF16_TOL = {"loss_rel": 1e-3, "grad_gap": 0.03, "stats": 1e-3}
+TRAIN_TOL_REASON = (
+    "float32: the same sums in another order (the pointwise GEMM against cuDNN's 1x1x1 convs, the "
+    "pool kernel's every-tie sums against eqbwd's), through training BN (read on this card: 1.2e-6; "
+    "CPU against JAX at 8x32x32, where BN sees 4 values: 5.4e-4 on the kernel route, "
+    "tests/test_torch_train_kernels.py); bfloat16: both routes round every activation and gradient to "
+    "bf16 at other points (the pool kernel sums centre first and rounds once, eqbwd rounds each add; "
+    "the GEMM rounds once per output): read 1.8% on this card at batch 16, loss and BN statistics "
+    "equal. The control below (TRAIN_CONTROL: one block's cotangent 10% off) must read above the "
+    "limit, so the limit sees a 10% error in one block's dx"
+)
+# the control of each kernel-vs-plain gap: the plain step again with one
+# module's output cotangent scaled by TRAIN_CONTROL_SCALE (a 10% error in
+# the dx that reaches everything before it); it must read above the limit
+TRAIN_CONTROL = {"i3d": "Mixed_4b", "clstm": "clstm.cells.0"}
+TRAIN_CONTROL_SCALE = 0.9
+# the bf16 default route against the same route with the argmax pair's
+# plain versions swapped in: the pair is bit-equal to them (bf16_kernel_check),
+# and nothing else differs, so the step's bits must be equal
+TRAIN_EQUAL_TOL = {"loss_rel": 0.0, "grad_gap": 0.0, "stats": 0.0}
+TRAIN_BF16_LOSS_TOL = 0.02  # relative, bf16 first loss against f32's from one state and batch
+TRAIN_BF16_LOSS_REASON = (
+    "one bf16 forward of I3D at batch 16: the loss of 174-way logits from bf16 activations "
+    "(CPU, the preset's seeded weights at 4x16x224x224: 1.4e-4; JAX's own bf16 loss 0.8% from "
+    "float32 at 8x32x32, where training BN sees few values, tests/test_torch_train.py)"
+)
+TRAIN_CLSTM_ROUTES = {
+    "f32_gate_kernel": dict(use_pallas=True), "f32_plain": {},
+    "bf16_gate_kernel": dict(use_pallas=True, compute_dtype="bfloat16"),
+    "bf16_plain": dict(compute_dtype="bfloat16"),
+}
+CLSTM_GATES = {"float32": ("lstm_gates_fwd", "lstm_gates_bwd"), "bfloat16": BF16_GATE_COUNTERS}
+CLSTM_KERNEL_L2 = 0.01  # the TF presets' Keras l2 (config_clstm_kth_records.py)
+TRAIN_CLSTM_F32_TOL = {"loss_rel": 1e-6, "grad_gap": 1e-4, "stats": 1e-6}
+TRAIN_CLSTM_BF16_TOL = {"loss_rel": 1e-3, "grad_gap": 0.02, "stats": 1e-3}
+TRAIN_CLSTM_TOL_REASON = (
+    "float32: the gate kernel and the plain gate block differ by rounding only (read on this card: "
+    "2.8e-7; CPU against JAX's Pallas gate route: gradients 1.3e-6, tests/test_torch_train_kernels.py); "
+    "bfloat16: the same forward roundings, another backward (per-op bf16 rounding in the kernel "
+    "against autograd through the plain version's casts): read 0.97% on this card, loss and BN "
+    "statistics equal; the control (layer 1's h cotangent 10% off) must read above the limit"
+)
+RECORDS_SUBJECTS, RECORDS_PER_SUBJECT, RECORDS_STEPS = tuple(range(17, 26)), 2, 10
+
+
+@contextmanager
+def _argmax_plain():
+    """The argmax pair's plain versions in place of its CUDA wrappers, on
+    CUDA tensors: the bf16 default route's step with nothing else changed."""
+    from unittest import mock
+
+    from ivf_tpu_torch.ops.kernels import argmax_pool as ap
+
+    with mock.patch.object(ap, "argmax_pool_fwd_cuda", lambda x, tile=None: ap.argmax_pool_fwd_plain(x)), \
+            mock.patch.object(ap, "argmax_pool_bwd_cuda", lambda idx, g, tile=None: ap.argmax_pool_bwd_plain(idx, g)):
+        yield
+
+
+# the training path's 1x1x1 convs at batch 16 (site, N, Cin, Cout, bias):
+# BN unfolded, so the kernel runs with no bias and no ReLU (the trunk),
+# the logits head with its bias; and the gate block at config_clstm_kth's
+# two layers (16 clips, 4 hidden units, the x- and h-gates merged)
+PW_TRAIN = (
+    ("Conv3d_2b", 401408, 64, 64, False), ("Mixed_3b_b1a", 100352, 192, 96, False),
+    ("Mixed_4b_b0", 12544, 480, 192, False), ("Mixed_5c_b0", 1568, 832, 384, False),
+    ("logits", 16, 1024, 174, True),
+)
+GATES_TRAIN = (("layer1", (CLSTM_BATCH, 60, 80)), ("layer2", (CLSTM_BATCH, 15, 20)))
+TRAIN_KERNEL_TOL_REASON = (
+    "y and dx: the kernel against its plain version on the same inputs, float32 within 1e-5 and "
+    "bfloat16 within one bf16 ulp (2**-7) of the largest value (the GEMM and the plain product "
+    "round once per output, summing in another order); dW and db: plain float32 sums rounded once "
+    "to the weight's dtype, against a float64 product, within 1e-4 (f32) or one bf16 ulp (bf16) of "
+    "the largest value; the gates: h', c', dc within 1e-6 of max(1, largest), dz within 1e-6 (f32) "
+    "or one bf16 ulp (bf16) of max(1, largest)"
+)
+
+
+def phase_train_kernel_check(pw, gates, failures, card: str) -> None:
+    """The kernel calls of the training path, wrapper against plain on the
+    card at the shapes the train steps give them, in both dtypes:
+    ``pointwise_conv`` as ``Unit3D`` calls it in training (the column-major
+    view of a (Cout, Cin) weight, ``relu=False``, no bias in the trunk)
+    under autograd, y and dx through the kernel (two launches) and dW / db
+    as plain products; ``gate_math`` under autograd at both clstm_kth
+    layers (one launch each way). Tolerances: ``TRAIN_KERNEL_TOL_REASON``.
+    These launches are outside the main path's counting."""
+    from ivf_tpu_torch.precision import reference_numerics
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(7)
+    rows, ok = [], True
+    for dtype in (torch.float32, torch.bfloat16):
+        ulp = 1e-5 if dtype == torch.float32 else 2.0**-7
+        ulp_w = 1e-4 if dtype == torch.float32 else 2.0**-7
+        counter = pw.pointwise_conv_bf16_cuda if dtype == torch.bfloat16 else pw.pointwise_conv_cuda
+        for site, n, cin, cout, use_bias in PW_TRAIN:
+            x = torch.randn(n, cin, generator=gen).to(dtype).to(dev)
+            weight = (torch.randn(cout, cin, generator=gen) / cin**0.5).to(dtype).to(dev).requires_grad_(True)
+            bias = torch.randn(cout, generator=gen).to(dtype).to(dev).requires_grad_(True) if use_bias else None
+            g = torch.randn(n, cout, generator=gen).to(dtype).to(dev)
+            xr = x.clone().requires_grad_(True)
+            before = counter.launches
+            with reference_numerics():
+                y = pw.pointwise_conv(xr, weight.t(), bias, relu=False)
+                grads = torch.autograd.grad(y, [xr, weight] + ([bias] if use_bias else []), g)
+                torch.cuda.synchronize()
+                launches = counter.launches - before
+                y_ref = pw.pointwise_conv_plain(x, weight.detach().t().contiguous(), bias, False)
+                dx_ref = pw.pointwise_conv_plain(g, weight.detach(), None, False)
+            dw_ref = g.double().t() @ x.double()
+
+            def rel(a, ref):
+                return (a.double() - ref.double()).abs().max().item() / ref.double().abs().max().item()
+
+            errs = {"y": (rel(y, y_ref), ulp), "dx": (rel(grads[0], dx_ref), ulp), "dW": (rel(grads[1], dw_ref), ulp_w)}
+            if use_bias:
+                errs["db"] = (rel(grads[2], g.double().sum(0)), ulp_w)
+            good = launches == 2 and all(e <= t for e, t in errs.values())
+            ok &= good
+            rows.append({"kernel": "pointwise_conv", "site": site, "dtype": str(dtype).split(".")[-1],
+                         "shape": [n, cin, cout], "bias": use_bias, "launches": launches,
+                         "err_over_max": {k: e for k, (e, _) in errs.items()},
+                         "tol": {k: t for k, (_, t) in errs.items()}, "ok": good})
+    for gate_dtype in (torch.float32, torch.bfloat16):
+        fwd, bwd = ((gates.lstm_gates_fwd_bf16_cuda, gates.lstm_gates_bwd_bf16_cuda) if gate_dtype == torch.bfloat16
+                    else (gates.lstm_gates_fwd_cuda, gates.lstm_gates_bwd_cuda))
+        for site, lead in GATES_TRAIN:
+            z = (torch.randn(*lead, 16, generator=gen) * 3).to(gate_dtype).to(dev).requires_grad_(True)
+            c = torch.randn(*lead, 4, generator=gen).to(dev).requires_grad_(True)
+            dh, dc_out = (torch.randn(*lead, 4, generator=gen).to(dev) for _ in range(2))
+            before = (fwd.launches, bwd.launches)
+            h_new, c_new = gates.gate_math(z, None, c)
+            dz, dc = torch.autograd.grad((h_new, c_new), (z, c), (dh, dc_out))
+            torch.cuda.synchronize()
+            launches = (fwd.launches - before[0], bwd.launches - before[1])
+            h_ref, c_ref = gates.gate_math_plain(z.detach(), None, c.detach())
+            dz_ref, dc_ref = gates.gate_math_bwd_plain(z.detach(), None, c.detach(), dh, dc_out)
+
+            def err(a, ref):
+                return (a.detach().float() - ref.float()).abs().max().item() / max(1.0, ref.float().abs().max().item())
+
+            tol_z = 2.0**-7 if gate_dtype == torch.bfloat16 else 1e-6
+            errs = {"h": (err(h_new, h_ref), 1e-6), "c": (err(c_new, c_ref), 1e-6), "dc": (err(dc, dc_ref), 1e-6),
+                    "dz": (err(dz, dz_ref), tol_z)}
+            good = launches == (1, 1) and all(e <= t for e, t in errs.values())
+            ok &= good
+            rows.append({"kernel": "gate_math", "site": site, "gates": str(gate_dtype).split(".")[-1],
+                         "shape": [*lead, 16], "launches": list(launches),
+                         "err_over_max": {k: e for k, (e, _) in errs.items()},
+                         "tol": {k: t for k, (_, t) in errs.items()}, "ok": good})
+    emit({"phase": "train_kernel_check", "card": card, "rows": rows, "tol_reason": TRAIN_KERNEL_TOL_REASON})
+    if not ok:
+        failures.append(f"train_kernel_check: {[r for r in rows if not r['ok']]}")
+
+
+def _train_preset(api, name: str, out_dir: str, run_name: str, **fields):
+    """A preset of ``configs/`` as loaded, its run named, ``fields`` set on
+    the model (or optimizer) config, and the bf16 argmax upgrade applied
+    as ``api.train`` applies it."""
+    from ivf_tpu_torch.config import Config
+
+    cfg = Config.load(str(Path(__file__).resolve().parent / "configs" / name))
+    cfg.output_dir, cfg.model_name = out_dir, run_name
+    for key, value in fields.items():
+        setattr(cfg.model if hasattr(cfg.model, key) else cfg.optim, key, value)
+    return api._bf16_argmax_upgrade(cfg)
+
+
+def _train_state(api, cfg, sgd1: bool = False):
+    """The preset's seeded float32 master model on the card with its
+    optimizer, or plain SGD with lr 1 (its update is minus the gradient)."""
+    from ivf_tpu_torch.train import build_optimizer
+
+    tx = build_optimizer("sgd", 1.0, momentum=0.0) if sgd1 else None
+    return api._train_state(cfg, TRAIN_DEVICE, tx=tx)
+
+
+def _state_bits(state) -> dict:
+    return {n: t.detach().clone() for n, t in state.model.state_dict().items()}
+
+
+def _same_state(a: dict, b: dict) -> bool:
+    return set(a) == set(b) and all(torch.equal(a[n], b[n]) for n in a)
+
+
+def _scale_cotangent(module: torch.nn.Module, scale: float) -> None:
+    """Scale the cotangent of ``module``'s output (the first tensor of a
+    tuple) by ``scale`` at every call: the control's fault."""
+
+    def hook(mod, args, out):
+        (out[0] if isinstance(out, tuple) else out).register_hook(lambda g: g * scale)
+
+    module.register_forward_hook(hook)
+
+
+def _sgd1_step(api, cfg, clips, labels, control: str = None) -> dict:
+    """One step with SGD lr 1: the loss, every parameter's gradient (p -
+    p_new) and the BN statistics after it. ``control`` names a module
+    whose output cotangent is scaled by ``TRAIN_CONTROL_SCALE``."""
+    from ivf_tpu_torch.train import make_train_step
+
+    state = _train_state(api, cfg, sgd1=True)
+    if control:
+        _scale_cotangent(state.model.get_submodule(control), TRAIN_CONTROL_SCALE)
+    before = {n: p.detach().clone() for n, p in state.params().items()}
+    step = make_train_step(kernel_l2=cfg.model.kernel_l2, compute_dtype=cfg.model.compute_dtype)
+    state, metrics = step(state, clips, labels)
+    grads = {n: before[n] - p.detach() for n, p in state.params().items()}
+    return {"loss": float(metrics["loss"]), "grads": grads, "stats": _state_bits(state)}
+
+
+def _step_gap(a: dict, b: dict, names=None) -> dict:
+    """Loss, gradient (relative L2 as one vector, and the largest error
+    over the largest gradient) and BN-statistic distances of two steps."""
+    names = names or list(a["grads"])
+    num = sum(float(((a["grads"][n].double() - b["grads"][n].double()) ** 2).sum()) for n in names)
+    den = sum(float((b["grads"][n].double() ** 2).sum()) for n in names)
+    scale = max(float(b["grads"][n].abs().max()) for n in names)
+    stat_names = [n for n in a["stats"] if n.endswith(("running_mean", "running_var"))]
+    return {
+        "loss_rel_diff": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+        "grad_gap": (num / den) ** 0.5 if den else 0.0,
+        "grad_max_err_over_max": max(float((a["grads"][n] - b["grads"][n]).abs().max()) for n in names) / scale,
+        "stats_max_diff": max((float((a["stats"][n] - b["stats"][n]).abs().max()) for n in stat_names),
+                              default=0.0),
+    }
+
+
+def _within(gap: dict, tol: dict) -> bool:
+    return (gap["loss_rel_diff"] <= tol["loss_rel"] and gap["grad_gap"] <= tol["grad_gap"]
+            and gap["stats_max_diff"] <= tol["stats"])
+
+
+def _train_profile(step_fn) -> dict:
+    """One profiled train step (CUDA activity): device ms by kernel group,
+    kernels and the step's peak device memory."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step_fn()
+        torch.cuda.synchronize()
+    groups, top, n_kernels = {}, [], 0
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us <= 0 or ev.device_type != DeviceType.CUDA:
+            continue
+        groups[_group(ev.key)] = groups.get(_group(ev.key), 0.0) + dev_us / 1e3
+        top.append((dev_us / 1e3, ev.count, ev.key[:110]))
+        n_kernels += ev.count
+    return {"device_ms": sum(groups.values()), "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+            "kernels_per_step": n_kernels, "top_kernels": [list(t) for t in sorted(top, reverse=True)[:8]],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _route_run(api, counters, cfg, clips, labels) -> dict:
+    """``TRAIN_FALL_STEPS`` steps of the preset's optimizer on one fixed
+    batch (the state after ``TRAIN_BITS_STEPS`` kept, the steps from
+    ``TRAIN_TIMED_FROM`` timed), then a profiled step with the launch
+    counters set to 0 just before it and read just after: the losses,
+    the wall ms per step, the launches and the profile of one step."""
+    from ivf_tpu_torch.train import make_train_step
+
+    state = _train_state(api, cfg)
+    step = make_train_step(kernel_l2=cfg.model.kernel_l2, compute_dtype=cfg.model.compute_dtype)
+    losses, snapshot = [], None
+    torch.cuda.synchronize()
+    t0 = None
+    for k in range(TRAIN_FALL_STEPS):
+        if k == TRAIN_TIMED_FROM:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, metrics = step(state, clips, labels)
+        losses.append(metrics["loss"])
+        if k + 1 == TRAIN_BITS_STEPS:
+            snapshot = (_state_bits(state), [float(x) for x in losses])
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / (TRAIN_FALL_STEPS - TRAIN_TIMED_FROM) * 1e3
+    for fn in counters.values():
+        fn.launches = 0
+    prof = _train_profile(lambda: step(state, clips, labels))
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    return {"losses": [float(x) for x in losses], "snapshot": snapshot, "wall_ms": wall_ms,
+            "launches_per_step": launches, "state": state, **prof}
+
+
+def _bits_run(api, cfg, clips, labels) -> tuple:
+    """A second run of ``TRAIN_BITS_STEPS`` steps from a fresh state."""
+    from ivf_tpu_torch.train import make_train_step
+
+    state = _train_state(api, cfg)
+    step = make_train_step(kernel_l2=cfg.model.kernel_l2, compute_dtype=cfg.model.compute_dtype)
+    losses = []
+    for _ in range(TRAIN_BITS_STEPS):
+        state, metrics = step(state, clips, labels)
+        losses.append(metrics["loss"])
+    return _state_bits(state), [float(x) for x in losses]
+
+
+def _emit_route(phase: str, route: str, r: dict, card: str, clips: int, extra: dict) -> dict:
+    losses = r["losses"]
+    falls = min(losses[-5:]) < losses[0]
+    row = {"phase": phase, "route": route, "card": card, "batch": clips,
+           "first_loss": losses[0], "last_losses": losses[-5:], "loss_falls": falls,
+           "wall_ms_per_step": r["wall_ms"], "train_clips_per_s": clips / r["wall_ms"] * 1e3,
+           "device_ms_per_step": r["device_ms"], "device_busy_share": r["device_ms"] / r["wall_ms"],
+           "kernels_per_step": r["kernels_per_step"], "launches_per_step": r["launches_per_step"],
+           "peak_mem_gib": r["peak_mem_gib"], "groups_ms": r["groups_ms"], "top_kernels": r["top_kernels"],
+           **extra}
+    emit(row)
+    return row
+
+
+class _FailOnce:
+    """A dataset that raises ``OSError`` when item ``fail_at`` is read while
+    ``armed``: the interruption of the resume check."""
+
+    def __init__(self, base, fail_at: int):
+        self.base, self.fail_at, self.armed = base, fail_at, True
+
+    def __len__(self):
+        return len(self.base)
+
+    def _check(self, i):
+        if self.armed and i == self.fail_at:
+            raise OSError("chip_smoke: the interruption of the resume check")
+
+    def __getitem__(self, i):
+        self._check(i)
+        return self.base[i]
+
+    def get_payloads(self, i):
+        self._check(i)
+        return self.base.get_payloads(i)
+
+
+def phase_train_i3d(api, counters, failures, card: str) -> None:
+    """Training of i3d_smth through the port, at full width.
+
+    ``configs/config_i3d_smth.py`` as loaded (174 classes, 16x224x224,
+    batch 16, Adam lr 0.008 with decay 1e-5, dropout 0.5), seeded weights,
+    synthetic clips; four routes: f32 plain, f32 kernels (``use_pallas`` +
+    ``pallas_pool``), bf16 default (argmax pool), bf16 kernels.
+
+    1. One step from one state, each kernel route against the plain route
+       with the kernels' every-tie pool rule (``pool_impl='eqbwd'``):
+       loss, every gradient, BN statistics within ``TRAIN_*_TOL``, and a
+       control (``TRAIN_CONTROL``: one block's cotangent 10% off) above
+       the gradient limit. Against the default tie rule the gap is
+       reported, not held (the known divergence: the kernels credit every
+       tied maximum). The bf16 default route (the argmax pair) against
+       the same step with the pair's plain versions: equal bits.
+    2. Each route run twice for ``TRAIN_BITS_STEPS`` steps: equal bits
+       (parameters, BN statistics) and losses.
+    3. ``api.train`` on a generated JPEG tree (3 train batches, 1
+       validation batch) on the f32 kernel route, its launch counters set
+       to 0 just before and read just after: uninterrupted, and cut at its
+       third batch (a read that fails) then resumed from its mid-epoch
+       checkpoint: equal bits. Then ``infer`` writes its three files, and
+       the plain route on the same weights gives the same ``y_hat``.
+    4. On one fixed batch the loss falls over ``TRAIN_FALL_STEPS`` steps,
+       every route.
+    5. bf16 keeps float32 masters and BN statistics; its first loss within
+       ``TRAIN_BF16_LOSS_TOL`` of float32's.
+    6. Launches per step, steady wall ms and clips/s, device ms by kernel
+       group (profiler), peak memory and device busy share per route."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    checks = {}
+
+    def require(label, ok, detail):
+        if not ok:
+            failures.append(f"train_i3d {label}: {detail}")
+        checks[label] = bool(ok)
+
+    rng = np.random.RandomState(21)
+    clips = torch.from_numpy(rng.randint(0, 256, (TRAIN_BATCH, CLIP_T, CLIP_HW, CLIP_HW, 3)).astype(np.uint8))
+    clips = clips.to(TRAIN_DEVICE)
+    labels = torch.from_numpy((np.arange(TRAIN_BATCH) * 11 % CLASSES).astype(np.int32)).to(TRAIN_DEVICE)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = str(Path(tmp) / "out")
+        cfg_of = {r: _train_preset(api, "config_i3d_smth.py", out, r, **f) for r, f in TRAIN_I3D_ROUTES.items()}
+        # 1. kernel route against plain, one step from one state
+        steps = {r: _sgd1_step(api, cfg_of[r], clips, labels) for r in TRAIN_I3D_ROUTES}
+        for dt, (route, plain_flags) in TRAIN_TIE_PAIRS.items():
+            tie_cfg = _train_preset(api, "config_i3d_smth.py", out, "tie", **plain_flags)
+            tie = _sgd1_step(api, tie_cfg, clips, labels)
+            gap = _step_gap(steps[route], tie)
+            control = _step_gap(_sgd1_step(api, tie_cfg, clips, labels, TRAIN_CONTROL["i3d"]), tie)
+            default = "f32_plain" if dt == "f32" else "bf16_default"
+            default_gap = _step_gap(steps[route], steps[default])
+            tol = TRAIN_F32_TOL if dt == "f32" else TRAIN_BF16_TOL
+            emit({"phase": "train_i3d_kernel_vs_plain", "card": card, "dtype": dt, "kernel_route": route,
+                  "plain_route": {**plain_flags}, **gap, "tol": tol, "tol_reason": TRAIN_TOL_REASON,
+                  "control": {"module": TRAIN_CONTROL["i3d"], "cotangent_scale": TRAIN_CONTROL_SCALE, **control},
+                  "vs_default_tie_rule": {"route": default, **default_gap, "held": False}})
+            require(f"{dt}_kernel_vs_plain", _within(gap, tol), gap)
+            require(f"{dt}_control_above_limit", control["grad_gap"] > tol["grad_gap"], control)
+        # the bf16 default route (argmax pair) against its plain versions
+        with _argmax_plain():
+            plain_argmax = _sgd1_step(api, cfg_of["bf16_default"], clips, labels)
+        gap = _step_gap(steps["bf16_default"], plain_argmax)
+        emit({"phase": "train_i3d_argmax_vs_plain", "card": card, "route": "bf16_default", **gap,
+              "tol": TRAIN_EQUAL_TOL, "tol_reason": "the argmax pair is bit-equal to its plain versions"})
+        require("bf16_default_argmax_vs_plain", _within(gap, TRAIN_EQUAL_TOL), gap)
+        del steps
+        # 2, 4, 5, 6: per route, a run on one fixed batch and a second short run
+        rows = {}
+        for route, cfg in cfg_of.items():
+            r = _route_run(api, counters, cfg, clips, labels)
+            bits, losses = _bits_run(api, cfg, clips, labels)
+            equal = _same_state(bits, r["snapshot"][0]) and losses == r["snapshot"][1]
+            masters = all(t.dtype == torch.float32 for t in r["state"].model.state_dict().values())
+            mine = TRAIN_I3D_KERNELS[route]
+            launched = r["launches_per_step"]
+            rows[route] = _emit_route("train_i3d", route, r, card, TRAIN_BATCH, {
+                "flags": TRAIN_I3D_ROUTES[route], "equal_bits_two_runs": equal,
+                "float32_masters_and_stats": masters})
+            require(f"{route}_equal_bits", equal, "two runs gave other bits")
+            require(f"{route}_loss_falls", rows[route]["loss_falls"] and np.isfinite(r["losses"]).all(), r["losses"])
+            require(f"{route}_float32_state", masters, "a master or a BN statistic is not float32")
+            require(f"{route}_kernels", all(launched.get(n, 0) > 0 for n in mine)
+                    and not any(n not in mine for n in launched), launched)
+            del r
+        f32_first, bf16_first = rows["f32_plain"]["first_loss"], rows["bf16_default"]["first_loss"]
+        rel = abs(bf16_first - f32_first) / abs(f32_first)
+        emit({"phase": "train_i3d_bf16_vs_f32", "card": card, "f32_first_loss": f32_first,
+              "bf16_first_loss": bf16_first, "rel_diff": rel, "tol": TRAIN_BF16_LOSS_TOL,
+              "tol_reason": TRAIN_BF16_LOSS_REASON})
+        require("bf16_first_loss", rel <= TRAIN_BF16_LOSS_TOL, rel)
+
+        # 3. api.train over a JPEG tree: uninterrupted, cut and resumed; infer
+        tree = Path(tmp) / "smth"
+        frames = {}
+        for split, n in TRAIN_TREE.items():
+            for i in range(n):
+                frames[tree / split / str(i * 7 % CLASSES) / f"{split}{i:02d}"] = rng.randint(
+                    0, 256, (CLIP_T, CLIP_HW, CLIP_HW, 3)).astype(np.uint8)
+        _write_jpegs(frames)
+
+        def tree_cfg(name):
+            cfg = _train_preset(api, "config_i3d_smth.py", out, name, **TRAIN_I3D_ROUTES["f32_kernels"])
+            cfg.data.data_folder = str(tree)
+            cfg.optim.checkpoint_steps, cfg.optim.print_freq = 2, 0
+            cfg.async_checkpoint = True
+            return cfg
+
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        state_a, hist_a = api.train(tree_cfg("uninterrupted"))
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        launches_a = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        require("api_train_kernels", all(launches_a.get(n, 0) > 0 for n in TRAIN_I3D_KERNELS["f32_kernels"]),
+                launches_a)
+        cfg_b = tree_cfg("resumed")
+        base = api.build_dataset(cfg_b, "train")
+        order = np.arange(len(base))
+        np.random.RandomState(cfg_b.seed + 0).shuffle(order)  # epoch 0's order
+        flaky = _FailOnce(base, int(order[2 * TRAIN_BATCH]))  # the third batch
+        try:
+            api.train(cfg_b, train_dataset=flaky)
+            interrupted = False
+        except OSError:
+            interrupted = True
+        flaky.armed = False
+        state_b, hist_b = api.train(cfg_b, resume=True, train_dataset=flaky)
+        bits_equal = _same_state(_state_bits(state_a), _state_bits(state_b))
+        require("resume_equal_bits", interrupted and bits_equal and state_a.step == state_b.step,
+                (interrupted, bits_equal, state_a.step, state_b.step))
+        # infer on the validation tree, the kernel route and the plain one
+        res_k = api.infer(tree_cfg("uninterrupted"), state_a)
+        files = sorted(p.name for p in (Path(out) / "uninterrupted").glob("y_*.npy"))
+        plain_cfg = _train_preset(api, "config_i3d_smth.py", out, "plain_infer")
+        plain_cfg.data.data_folder = str(tree)
+        _, plain_state = api.init_eval_state(plain_cfg, device=TRAIN_DEVICE)
+        plain_state.model.load_state_dict(state_a.model.state_dict())
+        res_p = api.infer(plain_cfg, plain_state)
+        same = np.array_equal(res_k["y_hat"], res_p["y_hat"]) and np.array_equal(res_k["y_true"], res_p["y_true"])
+        require("infer_files", files == ["y_hat.npy", "y_hat_top5.npy", "y_true.npy"], files)
+        require("infer_kernel_vs_plain_y_hat", same, (res_k["y_hat"], res_p["y_hat"]))
+        emit({"phase": "train_i3d_api", "card": card, "preset": "configs/config_i3d_smth.py",
+              "route": "f32_kernels", "tree_clips": TRAIN_TREE, "epochs": len(hist_a),
+              "history": hist_a, "wall_seconds": wall_a, "launches_run": launches_a,
+              "interrupted": interrupted, "resumed_epochs": [h["epoch"] for h in hist_b],
+              "resume_equal_bits": bits_equal, "steps": state_a.step, "infer_files": files,
+              "infer_top1": res_k["top1"], "infer_y_hat_equal_plain": same,
+              "plain_infer_max_loss_diff": abs(res_k["loss"] - res_p["loss"])})
+    emit({"phase": "train_i3d_compare", "card": card, **checks, "phase_seconds": time.perf_counter() - t_phase,
+          "required": "every check true"})
+
+
+def _clstm_train_batches(n: int, seed: int) -> list:
+    """``n`` batches of ``CLSTM_BATCH`` seeded uint8 clips of 32x120x160 on
+    the card, with labels."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [
+        (torch.from_numpy(rng.randint(0, 256, (CLSTM_BATCH, CLSTM_T, *CLSTM_HW, 3)).astype(np.uint8)).to(TRAIN_DEVICE),
+         torch.from_numpy((np.arange(CLSTM_BATCH) % CLSTM_CLASSES).astype(np.int32)).to(TRAIN_DEVICE))
+        for _ in range(n)
+    ]
+
+
+def phase_train_clstm(api, counters, failures, card: str) -> None:
+    """Training of the clstm_kth ConvLSTM through the port, at full width:
+    ``configs/config_clstm_kth.py`` as loaded (2 layers x 4 hidden, stride
+    2, shared BN, dropout 0.5, Adam lr 0.008) with ``kernel_l2`` 0.01 on
+    the input kernels, 16 seeded clips of 32x120x160; f32 and bf16, with
+    the gate kernel and without. Checks: one step from one state, kernel
+    against plain; two runs with equal bits; a ``fit`` cut after two of
+    three batches and resumed from its mid-epoch checkpoint with the bits
+    of an uninterrupted one; the loss falls on one fixed batch; the gate
+    kernel's launches per step (64 each way: 2 layers x 32 steps); the
+    timings of ``train_i3d``."""
+    import numpy as np
+
+    from ivf_tpu_torch.train import fit
+    from ivf_tpu_torch.utils.checkpoint import Checkpointer
+
+    t_phase = time.perf_counter()
+    checks = {}
+
+    def require(label, ok, detail):
+        if not ok:
+            failures.append(f"train_clstm {label}: {detail}")
+        checks[label] = bool(ok)
+
+    (clips, labels), = _clstm_train_batches(1, 31)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_of = {r: _train_preset(api, "config_clstm_kth.py", tmp, r, kernel_l2=CLSTM_KERNEL_L2, **f)
+                  for r, f in TRAIN_CLSTM_ROUTES.items()}
+        for dt, tol in (("f32", TRAIN_CLSTM_F32_TOL), ("bf16", TRAIN_CLSTM_BF16_TOL)):
+            on = _sgd1_step(api, cfg_of[f"{dt}_gate_kernel"], clips, labels)
+            off = _sgd1_step(api, cfg_of[f"{dt}_plain"], clips, labels)
+            gap = _step_gap(on, off)
+            control = _step_gap(_sgd1_step(api, cfg_of[f"{dt}_plain"], clips, labels, TRAIN_CONTROL["clstm"]), off)
+            emit({"phase": "train_clstm_kernel_vs_plain", "card": card, "dtype": dt, **gap, "tol": tol,
+                  "tol_reason": TRAIN_CLSTM_TOL_REASON,
+                  "control": {"module": TRAIN_CONTROL["clstm"], "cotangent_scale": TRAIN_CONTROL_SCALE, **control}})
+            require(f"{dt}_kernel_vs_plain", _within(gap, tol), gap)
+            require(f"{dt}_control_above_limit", control["grad_gap"] > tol["grad_gap"], control)
+        for route, cfg in cfg_of.items():
+            r = _route_run(api, counters, cfg, clips, labels)
+            bits, losses = _bits_run(api, cfg, clips, labels)
+            equal = _same_state(bits, r["snapshot"][0]) and losses == r["snapshot"][1]
+            launched = r["launches_per_step"]
+            gates = CLSTM_GATES[cfg.model.compute_dtype] if cfg.model.use_pallas else ()
+            row = _emit_route("train_clstm", route, r, card, CLSTM_BATCH, {
+                "flags": TRAIN_CLSTM_ROUTES[route], "kernel_l2": CLSTM_KERNEL_L2, "equal_bits_two_runs": equal})
+            require(f"{route}_equal_bits", equal, "two runs gave other bits")
+            require(f"{route}_loss_falls", row["loss_falls"] and np.isfinite(r["losses"]).all(), r["losses"])
+            require(f"{route}_gate_launches", all(launched.get(n, 0) == 2 * CLSTM_T for n in gates)
+                    and not any(n not in gates for n in launched), launched)
+            del r
+        # a fit cut mid-epoch and resumed, on the gate-kernel route
+        batches, val = _clstm_train_batches(3, 32), _clstm_train_batches(1, 33)
+        cfg = cfg_of["f32_gate_kernel"]
+
+        def run_fit(state, loader_fn, ckpt=None, **kw):
+            return fit(state, loader_fn, lambda: val, num_epochs=1, kernel_l2=cfg.model.kernel_l2,
+                       checkpointer=ckpt, checkpoint_every_steps=2 if ckpt else 0, **kw)
+
+        state_a, _ = run_fit(_train_state(api, cfg), lambda: batches)
+
+        def cut():
+            yield from batches[:2]
+            raise KeyboardInterrupt("chip_smoke: the interruption of the resume check")
+
+        ckpt = Checkpointer(str(Path(tmp) / "ckpt"), async_save=True)
+        try:
+            run_fit(_train_state(api, cfg), cut, ckpt)
+            interrupted = False
+        except KeyboardInterrupt:
+            interrupted = True
+        state_b, start_epoch, best, offset = ckpt.restore(_train_state(api, cfg))
+        state_b, _ = run_fit(state_b, lambda: batches, ckpt, start_epoch=start_epoch, best_loss=best,
+                             start_batch_offset=offset)
+        equal = _same_state(_state_bits(state_a), _state_bits(state_b))
+        require("resume_equal_bits", interrupted and offset == 2 and equal and state_a.step == state_b.step == 3,
+                (interrupted, offset, equal, state_a.step, state_b.step))
+    emit({"phase": "train_clstm_compare", "card": card, **checks, "phase_seconds": time.perf_counter() - t_phase,
+          "required": "every check true"})
+
+
+def phase_cnn_3d(api, counters, failures, card: str) -> None:
+    """``cnn_3d`` (the TF half's plain 3D CNN) at 32x120x160, 16 clips, 6
+    classes, Adam, dropout 0.5, f32 and bf16: a train step and an eval
+    pass, each run twice: equal bits (state, loss, logits), finite, and
+    the step's wall ms; no hand kernel lies on this model's path."""
+    import numpy as np
+
+    from ivf_tpu_torch.train import make_eval_step, make_train_step
+
+    t_phase = time.perf_counter()
+    (clips, labels), = _clstm_train_batches(1, 41)
+    for dtype in ("float32", "bfloat16"):
+        runs = []
+        for _ in range(2):
+            cfg = _train_preset(api, "config_clstm_kth.py", "", "cnn_3d", conv_model="cnn_3d",
+                                compute_dtype=dtype)
+            state = _train_state(api, cfg)
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = make_train_step(compute_dtype=dtype)(state, clips, labels)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            ev = make_eval_step(compute_dtype=dtype)(state, clips, labels)
+            runs.append({"bits": _state_bits(state), "loss": float(metrics["loss"]), "logits": ev["logits"],
+                         "eval_loss": float(ev["loss"]), "step_ms": step_ms,
+                         "launches": sum(fn.launches for fn in counters.values())})
+        a, b = runs
+        equal = _same_state(a["bits"], b["bits"]) and a["loss"] == b["loss"] and torch.equal(a["logits"], b["logits"])
+        finite = bool(np.isfinite(a["loss"]) and torch.isfinite(a["logits"]).all())
+        emit({"phase": "cnn_3d", "card": card, "dtype": dtype, "batch": CLSTM_BATCH,
+              "clip_shape": [CLSTM_T, *CLSTM_HW, 3], "loss": a["loss"], "eval_loss": a["eval_loss"],
+              "step_ms_first_second": [a["step_ms"], b["step_ms"]], "equal_bits_two_runs": equal,
+              "finite": finite, "kernel_launches": a["launches"]})
+        if not (equal and finite and a["launches"] == 0):
+            failures.append(f"cnn_3d {dtype}: equal {equal}, finite {finite}, launches {a['launches']}")
+    emit({"phase": "cnn_3d_done", "phase_seconds": time.perf_counter() - t_phase})
+
+
+def phase_records_search(api, counters, failures, card: str) -> None:
+    """``find_masks`` from ``configs/config_clstm_kth_records.py`` (the TF
+    family: hard-sigmoid gates, so the gate kernel does not run; 'valid'
+    padding, per-layer BN, records with per-subject shards, batch 24,
+    ``min_score`` 0.1) on generated shards of the validation subjects
+    17-25, ``opt_iter`` 300 -> 10, run twice: equal bits per clip, masks
+    and CAMs finite, no kernel launched. The weights are seeded and scaled
+    as the clstm_kth phases scale theirs (unit-std gate pre-activations,
+    class scores of std 2)."""
+    import numpy as np
+
+    from ivf_tpu_torch.data.records import RecordWriter
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(51)
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp) / "records"
+        folder.mkdir()
+        for s in RECORDS_SUBJECTS:
+            with RecordWriter(str(folder / f"kth_subject_{s}.ivfrecords")) as w:
+                for k in range(RECORDS_PER_SUBJECT):
+                    clip = rng.randint(0, 256, (CLSTM_T, *CLSTM_HW, 3)).astype(np.uint8)
+                    w.write(clip, label=(s + k) % CLSTM_CLASSES, video_id=f"person{s}_boxing_d{k + 1}_1",
+                            extra={"subject": s})
+        runs = []
+        for k in range(2):
+            cfg = _train_preset(api, "config_clstm_kth_records.py", tmp, f"records_{k}")
+            cfg.data.records_folder = str(folder)
+            cfg.mask.opt_iter = RECORDS_STEPS
+            if k == 0:
+                probe = api.build_dataset(cfg, "validation")[0][0]
+                weights = _clstm_scaled_weights(api, probe, cfg)
+            runs.append(_find_masks_run(api, counters, tmp, "", {}, weights, None, cfg.data.batch_size,
+                                        RECORDS_STEPS, cfg=cfg, split="validation"))
+        a, b = runs
+        equal = _same_bits_by_id(a, b)
+        n = len(RECORDS_SUBJECTS) * RECORDS_PER_SUBJECT
+        kept = len(a["tm"])
+        finite = bool(np.isfinite(a["masks"]).all() and np.isfinite(a["cams"]).all())
+        launched = {k: v for k, v in a["launches"].items() if v}
+        emit({"phase": "records_search", "card": card, "preset": "configs/config_clstm_kth_records.py",
+              "changed": {"records_folder": "generated", "mask.opt_iter": RECORDS_STEPS}, "clips": n,
+              "kept_over_min_score": kept,
+              "equal_bits_two_runs": equal, "finite": finite, "launches": launched,
+              "gate_kernel": "not run: hard-sigmoid gates (the kernel computes sigmoid gates only)",
+              "mask_steps_per_s": [a["rate"], b["rate"]], "wall_seconds": [a["wall"], b["wall"]],
+              "phase_seconds": time.perf_counter() - t_phase})
+        if not (equal and finite and kept > 0 and not launched):
+            failures.append(f"records_search: equal {equal}, finite {finite}, kept {kept}, launches {launched}")
+
+
 def kernels_line(cases: dict, launches: dict) -> dict:
     """One entry per kernel, timed at its headline main-path shape;
     ``launches`` from the main path that runs it."""
@@ -3819,6 +4565,11 @@ def main() -> int:
     phase_data_path(api, counters, failures, info["smi"], f32_run["weights"], clstm_weights)
     phase_artifacts(api, counters, failures, info["smi"], f32_run["weights"], clstm_weights)
     phase_pool_impls(api, counters, failures, info["smi"], f32_run["weights"])
+    phase_train_kernel_check(pw, gates, failures, info["smi"])
+    phase_train_i3d(api, counters, failures, info["smi"])
+    phase_train_clstm(api, counters, failures, info["smi"])
+    phase_cnn_3d(api, counters, failures, info["smi"])
+    phase_records_search(api, counters, failures, info["smi"])
     phase_whole_search(api, counters, failures, info["smi"], f32_run["weights"])
     if failures:
         for f in failures:

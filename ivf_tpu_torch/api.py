@@ -29,7 +29,20 @@ files, the Grad-CAM triptych JPEGs, GIFs and mask-strip PNGs, and the KTH
 perturbed-sequence PNGs (``viz/render.py``, numpy and Pillow). I3D takes
 every ``pool_impl`` of the JAX package (``ops/conv.py::max_pool3d_same``).
 
-Not ported yet (ROADMAP.md): ``cnn_3d`` and ``find_masks``'s ``mesh``.
+``train`` is the training driver (epochs of ``train/loop.py::fit`` with the
+plateau or patience-halving schedule, best-on-val-loss and mid-epoch
+checkpoints, ``resume``, the learning-curve plots and ``history.json``),
+``infer`` the validation pass with its prediction files, and
+``init_eval_state`` the state they start from; they build I3D, the
+ConvLSTM family and ``cnn_3d`` (``find_masks`` explains the first two, as
+in the JAX package). Training keeps float32 master parameters and BN
+statistics in every ``compute_dtype`` and runs the kernel routes of the
+config: with ``use_pallas`` the I3D's 1x1x1 convs (no bias, no ReLU, then
+BN) and the ConvLSTM's sigmoid gates, with ``pallas_pool`` the branch-3
+pools, in bfloat16 the argmax pool (``_bf16_argmax_upgrade``).
+
+Not ported yet (ROADMAP.md): ``mesh`` (Queue 1 item 13) and
+``pretrained_model_path`` (item 11); both raise.
 """
 
 from __future__ import annotations
@@ -42,7 +55,7 @@ import pickle
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Mapping, Optional, Union
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -76,8 +89,9 @@ from ivf_tpu_torch.interpret.mask_opt import (
 from ivf_tpu_torch.models.convlstm import ConvLSTMClassifier
 from ivf_tpu_torch.models.i3d import I3D
 from ivf_tpu_torch.models.registry import get_model
-from ivf_tpu_torch.precision import reference_numerics_fn
+from ivf_tpu_torch.precision import inference_model, reference_numerics_fn
 from ivf_tpu_torch.viz.render import (
+    PlotLearning,
     create_image_arrays,
     image_panels,
     visualize_results,
@@ -164,23 +178,15 @@ def _model_dtype(cfg: Config) -> torch.dtype:
     return torch.float32 if m.compute_dtype == "float32" else torch.bfloat16
 
 
-def build_model(
-    cfg: Config, softmax_override: Optional[bool] = None, device=None
-) -> Union[I3D, ConvLSTMClassifier]:
-    """The configured model in eval mode on ``device``, its weights drawn
-    from ``cfg.seed``. Routed by substring of ``conv_model`` as in the JAX
-    package: 'i3d' builds an I3D, 'clstm' or 'convlstm' (e.g. the
-    ``clstm_kth`` preset, which is no registry key) a ConvLSTMClassifier.
-    With ``compute_dtype='bfloat16'`` the float32 init is cast to
-    bfloat16, every parameter and buffer, BN statistics included; the
-    I3D takes ``pool_impl`` as given (``find_masks`` upgrades it first)."""
+def _construct_model(cfg: Config, softmax: bool):
+    """The configured model in float32 on the CPU (eval mode), its weights
+    drawn from ``cfg.seed``."""
     m = cfg.model
-    dtype = _model_dtype(cfg)
-    softmax = m.soft_max if softmax_override is None else softmax_override
     name = m.conv_model.lower()
     if "i3d" in name:
         kwargs = dict(
             num_classes=m.num_classes,
+            dropout_rate=m.dropout,
             softmax=softmax,
             last_relu=m.last_relu,
             last_stride=m.last_stride,
@@ -196,9 +202,28 @@ def build_model(
     elif "clstm" in name or "convlstm" in name:
         model = _build_convlstm(cfg, softmax)
     else:
-        model = get_model(m.conv_model, num_classes=m.num_classes)
+        # cnn_3d: the JAX package passes the class count alone (its dropout
+        # keeps the model's default); nn.Linear needs the clip geometry
+        model = get_model(
+            m.conv_model, num_classes=m.num_classes, input_size=_clip_hw(cfg), clip_len=cfg.data.clip_size
+        )
     model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
-    return model.to(resolve_device(device), dtype).eval()
+    return model
+
+
+def build_model(cfg: Config, softmax_override: Optional[bool] = None, device=None):
+    """The configured model in eval mode on ``device``, its weights drawn
+    from ``cfg.seed``. Routed by substring of ``conv_model`` as in the JAX
+    package: 'i3d' builds an I3D, 'clstm' or 'convlstm' (e.g. the
+    ``clstm_kth`` preset, which is no registry key) a ConvLSTMClassifier,
+    anything else the registry's model (``cnn_3d``).
+    With ``compute_dtype='bfloat16'`` the float32 init is cast to
+    bfloat16, every parameter and buffer, BN statistics included (the
+    search's model; ``train`` keeps a float32 master instead); the I3D
+    takes ``pool_impl`` as given (``find_masks`` upgrades it first)."""
+    dtype = _model_dtype(cfg)
+    softmax = cfg.model.soft_max if softmax_override is None else softmax_override
+    return inference_model(_construct_model(cfg, softmax), dtype, resolve_device(device))
 
 
 def build_dataset(cfg: Config, split: str = "train", get_item_id: bool = False):
@@ -261,6 +286,10 @@ MASK_INITS = ("central", "random")
 
 
 def _check_supported(cfg: Config) -> None:
+    name = cfg.model.conv_model.lower()
+    if not any(k in name for k in ("i3d", "clstm", "convlstm")):
+        # the JAX package's find_masks has Grad-CAM for these two families only
+        raise NotImplementedError(f"find_masks explains I3D and the ConvLSTM family, not {cfg.model.conv_model!r}")
     mk = cfg.mask
     if mk.mask_init_type not in MASK_INITS:
         raise ValueError(f"mask_init_type={mk.mask_init_type!r}: one of {MASK_INITS}")
@@ -959,3 +988,184 @@ def grad_cam_run(cfg: Config, weights: Optional[Mapping[str, torch.Tensor]], cli
             )
             cams.append(cam[0])
     return torch.stack(cams).float().cpu().numpy()
+
+
+def _save_dir(cfg: Config) -> str:
+    path = os.path.join(cfg.output_dir, cfg.model_name)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def _loss_type(cfg: Config) -> str:
+    return "nll_on_probs" if cfg.model.soft_max else "cross_entropy"
+
+
+def _check_no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("mesh: data-parallel placement is not ported yet (ROADMAP.md, Queue 1 item 13)")
+
+
+def _check_no_pretrained(cfg: Config) -> None:
+    if cfg.model.pretrained_model_path not in ("", "no_ckpt", None):
+        raise NotImplementedError(
+            "pretrained_model_path: loading reference .pth.tar, TF bundles and orbax "
+            "directories is not ported yet (ROADMAP.md, Queue 1 item 11)"
+        )
+
+
+def _train_state(cfg: Config, device, tx=None):
+    """The float32 master model (seeded init) on ``device`` and its train
+    state, with ``tx`` or the config's optimizer; dropout draws from
+    ``cfg.seed + 1``, the seed of the JAX package's ``rng``."""
+    from ivf_tpu_torch.train import build_optimizer, create_train_state
+
+    _model_dtype(cfg)  # validates compute_dtype and pool_impl
+    model = _construct_model(cfg, cfg.model.soft_max).to(resolve_device(device))
+    if tx is None:
+        o = cfg.optim
+        tx = build_optimizer(o.optimizer.lower(), o.lr, momentum=o.momentum, weight_decay=o.weight_decay)
+    return create_train_state(model, tx, seed=cfg.seed + 1)
+
+
+@reference_numerics_fn
+def train(
+    cfg: Config,
+    eval_only: bool = False,
+    resume: bool = False,
+    mesh=None,
+    train_dataset=None,
+    val_dataset=None,
+    device=None,
+):
+    """The training driver (``ivf_tpu/api.py:321-444``, the reference's
+    ``train_i3d_smth.main``) on ``device`` (``cuda`` unless given): the
+    configured model with float32 master weights from ``cfg.seed``, the
+    ``cfg.optim`` optimizer, ``fit`` over ``cfg.optim.num_epochs`` epochs
+    of ``build_loader`` batches (train shuffled by (seed, epoch), both
+    dropping the last partial batch) with the plateau or patience-halving
+    scheduler, checkpoints under ``<output_dir>/<model_name>`` (best on
+    val loss, every ``checkpoint_steps`` batches too, written on a thread
+    under ``async_checkpoint``), learning curves in ``plots/`` and
+    ``history.json``. ``compute_dtype='bfloat16'`` trains in mixed
+    precision with the argmax pool (``_bf16_argmax_upgrade``, as the JAX
+    package does). ``resume`` continues from the checkpoint, mid-epoch
+    included, with its learning rate and best loss; ``test_run`` cuts each
+    epoch to 5 batches. ``eval_only`` runs one validation pass with
+    predictions instead (float32, as in the JAX package). Returns (state,
+    history), or (state, evaluate's dict) for ``eval_only``. ``mesh`` and a
+    ``pretrained_model_path`` raise ``NotImplementedError``."""
+    from ivf_tpu_torch.train import PatienceHalving, ReduceLROnPlateau, evaluate, fit, make_eval_step
+    from ivf_tpu_torch.train.optim import get_learning_rate
+    from ivf_tpu_torch.utils.checkpoint import Checkpointer
+
+    _check_no_mesh(mesh)
+    dev = resolve_device(device)
+    save_dir = _save_dir(cfg)
+    cfg = _bf16_argmax_upgrade(cfg)
+    loss_type = _loss_type(cfg)
+    train_dataset = train_dataset or build_dataset(cfg, "train")
+    val_dataset = val_dataset or build_dataset(cfg, "validation")
+    state = _train_state(cfg, dev)
+
+    ckpt = Checkpointer(save_dir, async_save=cfg.async_checkpoint)
+    start_epoch, best_loss, batch_offset = 0, float("inf"), 0
+    if resume and ckpt.exists():
+        state, start_epoch, best_loss, batch_offset = ckpt.restore(state)
+        at = f" batch {batch_offset}" if batch_offset else ""
+        print(f" > resumed from epoch {start_epoch}{at} (best loss {best_loss:.4f})")
+    else:
+        _check_no_pretrained(cfg)
+
+    if eval_only:
+        res = evaluate(
+            state, build_loader(cfg, val_dataset, False, device=dev), make_eval_step(loss_type),
+            collect_predictions=True,
+        )
+        return state, res
+
+    o = cfg.optim
+    if o.lr_schedule == "patience_halving":
+        scheduler = PatienceHalving(o.lr, patience=o.lr_patience, lr_end=o.last_lr)
+    else:
+        scheduler = ReduceLROnPlateau(o.lr, factor=o.lr_factor, patience=o.lr_patience)
+    if start_epoch > 0:
+        # a resume continues from the restored (maybe decayed) lr and best
+        # loss, where the reference rebuilt a fresh scheduler
+        scheduler.lr = get_learning_rate(state.opt_state)
+        if o.lr_schedule != "patience_halving":
+            scheduler.best = best_loss
+    plotter = PlotLearning(os.path.join(save_dir, "plots"), cfg.model.num_classes)
+    # one loader each, reused across epochs: fit pins each epoch's order
+    train_loader = build_loader(cfg, train_dataset, cfg.data.shuffle, device=dev)
+    val_loader = build_loader(cfg, val_dataset, False, device=dev)
+    state, history = fit(
+        state,
+        lambda: train_loader,
+        lambda: val_loader,
+        num_epochs=o.num_epochs,
+        loss_type=loss_type,
+        scheduler=scheduler,
+        checkpointer=ckpt,
+        print_freq=o.print_freq,
+        last_lr=o.last_lr,
+        max_steps_per_epoch=5 if cfg.test_run else None,
+        plotter=plotter,
+        kernel_l2=cfg.model.kernel_l2,
+        start_epoch=start_epoch,
+        best_loss=best_loss,
+        checkpoint_every_steps=o.checkpoint_steps,
+        start_batch_offset=batch_offset,
+        compute_dtype=cfg.model.compute_dtype,
+    )
+    if history:
+        with open(os.path.join(save_dir, "history.json"), "w") as f:
+            json.dump(history, f, indent=1, default=float)
+    return state, history
+
+
+def init_eval_state(cfg: Config, softmax_override: Optional[bool] = None, device=None):
+    """(model, state) for inference consumers (``ivf_tpu/api.py:538``): the
+    configured model (float32, seeded) with an Adam(1e-3) state on
+    ``device``. A ``pretrained_model_path`` raises (Queue 1 item 11)."""
+    from ivf_tpu_torch.train import build_optimizer
+
+    _check_no_pretrained(cfg)
+    if softmax_override is not None:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, soft_max=softmax_override))
+    state = _train_state(cfg, device, tx=build_optimizer("adam", 1e-3))
+    return state.model.eval(), state
+
+
+def infer(cfg: Config, state=None, mesh=None, dataset=None, save_npy: bool = True, device=None):
+    """Validation inference with prediction dumps (``ivf_tpu/api.py:556-608``,
+    the reference's ``inference_kth.py``) on the state's device (or
+    ``device`` for a fresh ``init_eval_state``): ``evaluate`` over
+    ``dataset`` (the config's validation split by default) in the config's
+    ``compute_dtype``, 5 batches under ``test_run``. The top-k width is
+    ``cfg.model.top_k``, else 3 for a KTH-family run and 5 otherwise
+    (``inference_kth.py:10``); the collected matrix is at least 5 wide.
+    Writes ``y_true.npy``, ``y_hat.npy`` and ``y_hat_top5.npy`` (k columns,
+    the reference's file name whatever k) to ``<output_dir>/<model_name>``.
+    ``mesh`` raises (Queue 1 item 13)."""
+    from ivf_tpu_torch.train import evaluate, make_eval_step
+
+    _check_no_mesh(mesh)
+    if state is None:
+        _, state = init_eval_state(cfg, device=device)
+    dev = next(state.model.parameters()).device
+    dataset = dataset or build_dataset(cfg, "validation")
+    k = cfg.model.top_k if cfg.model.top_k else (3 if _is_kth_run(cfg) else 5)
+    res = evaluate(
+        state,
+        build_loader(cfg, dataset, False, device=dev),
+        make_eval_step(_loss_type(cfg), compute_dtype=cfg.model.compute_dtype),
+        max_steps=5 if cfg.test_run else None,
+        collect_predictions=True,
+        top_k=max(5, k),
+    )
+    if save_npy:
+        save_dir = _save_dir(cfg)
+        np.save(os.path.join(save_dir, "y_true.npy"), res["y_true"])
+        np.save(os.path.join(save_dir, "y_hat.npy"), res["y_hat"])
+        np.save(os.path.join(save_dir, "y_hat_top5.npy"), res["y_hat_top5"][:, :k])
+    return res

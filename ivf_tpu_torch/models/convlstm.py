@@ -1,4 +1,4 @@
-"""ConvLSTM video classifier, eval mode (port of ``ivf_tpu/models/convlstm.py``).
+"""ConvLSTM video classifier (port of ``ivf_tpu/models/convlstm.py``).
 
 One model family for both reference halves, with every option of the JAX
 modules:
@@ -12,10 +12,14 @@ modules:
     and the ``gap`` head of ``clstm_gap``.
 
 Clips are ``(B, T, H, W, C)``, activations NHWC, as in the JAX model.
-Eval only: dropout is the identity and ``forward`` raises in training
-mode (training is not ported). The JAX model's ``use_scan`` / ``remat``
-choose how XLA compiles the recurrence; PyTorch runs eagerly, so the port
-always runs the Python time loop and has neither.
+In training mode (``model.train()``) BatchNorm takes each call's batch
+statistics and updates its running ones (the shared BN once per layer and
+step, in the order of the loop), and the torch family's per-layer dropout
+draws a fresh mask at every step from the generator the train step sets
+(``layers.Dropout``). The JAX model's ``use_scan`` / ``remat`` and
+``ModelConfig.clstm_scan`` choose how XLA compiles the recurrence;
+PyTorch runs eagerly, so the port always runs the Python time loop and has
+no analogue of any of them.
 
 A model cast to bfloat16 (every parameter and buffer) runs as the JAX
 model does on its bf16 variables: the cell's convs cast their input to
@@ -31,7 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ivf_tpu_torch.models.layers import TorchBatchNorm, variance_scaling_
+from ivf_tpu_torch.models.layers import Dropout, TorchBatchNorm, variance_scaling_
 from ivf_tpu_torch.ops.conv import avg_pool2d_valid, max_pool2d_valid
 from ivf_tpu_torch.ops.convlstm_cell import convlstm_cell_step
 from ivf_tpu_torch.precision import reference_numerics_fn
@@ -144,7 +148,7 @@ class ConvLSTM(nn.Module):
         self.shared_bn = shared_bn
         self.pooling = pooling
         self.block_order = block_order
-        self.dropout_rate = dropout_rate  # identity in eval mode
+        self.dropout_rate = dropout_rate
         self.x_padding = x_padding
         cins = (in_channels,) + self.hidden_channels[:-1]
         self.cells = nn.ModuleList(
@@ -155,17 +159,24 @@ class ConvLSTM(nn.Module):
             for cin, ch in zip(cins, self.hidden_channels)
         )
         if batch_norm:
-            # tf.layers.batch_normalization's eps for the TF family, torch
-            # BatchNorm2d's for the torch family (momentum is unused in eval)
-            eps = 1e-3 if block_order == "tf" else 1e-5
+            # tf.layers.batch_normalization's eps and momentum for the TF
+            # family, torch BatchNorm2d's for the torch family
+            eps, momentum = (1e-3, 0.01) if block_order == "tf" else (1e-5, 0.1)
             if shared_bn:
                 if len(set(self.hidden_channels)) != 1:
                     raise ValueError(
                         f"shared_bn needs one width for every layer, got {self.hidden_channels}"
                     )
-                self.bn = TorchBatchNorm(self.hidden_channels[0], eps)
+                self.bn = TorchBatchNorm(self.hidden_channels[0], eps, momentum)
             else:
-                self.bns = nn.ModuleList(TorchBatchNorm(ch, eps) for ch in self.hidden_channels)
+                self.bns = nn.ModuleList(
+                    TorchBatchNorm(ch, eps, momentum) for ch in self.hidden_channels
+                )
+        if dropout_rate:
+            # one per layer (the reference shares one stateless instance,
+            # the same thing): the torch block order's, before BN
+            self.dropouts = nn.ModuleList(Dropout(dropout_rate) for _ in self.hidden_channels)
+        self.eval()
 
     def _pool(self, x):
         if self.pooling == "avg":
@@ -174,13 +185,15 @@ class ConvLSTM(nn.Module):
 
     def _block_tail(self, x, layer: int):
         """What follows the cell at every step: pool -> BN ('tf') or
-        (dropout) -> BN -> pool ('torch')."""
+        dropout -> BN -> pool ('torch')."""
         bn = None
         if self.batch_norm:
             bn = self.bn if self.shared_bn else self.bns[layer]
         if self.block_order == "tf":
             x = self._pool(x)
             return bn(x) if bn is not None else x
+        if self.dropout_rate:
+            x = self.dropouts[layer](x)
         if bn is not None:
             x = bn(x)
         return self._pool(x)
@@ -206,8 +219,6 @@ class ConvLSTM(nn.Module):
         state carries ``h``, not ``h + offset``, so the gradient at a zero
         offset is the reference's gradient with respect to ``clstm_output``
         (through the pool and the head, not back through time)."""
-        if self.training:
-            raise NotImplementedError("training-mode ConvLSTM is not ported")
         b, t, h_sp, w_sp = clip.shape[:4]
         last = len(self.cells) - 1
         effective = _effective(self.effective_steps, t)
@@ -294,6 +305,7 @@ class ConvLSTMClassifier(nn.Module):
             self.end_fc = nn.Linear(in_features, num_classes)
         else:
             self.gap_conv = nn.Linear(hidden[-1], num_classes)
+        self.eval()
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded init: the cells as ``ConvLSTMCell.reset_parameters``, the

@@ -1,8 +1,11 @@
-"""Inception-v1 I3D, eval mode (port of ``ivf_tpu/models/i3d.py``).
+"""Inception-v1 I3D (port of ``ivf_tpu/models/i3d.py``).
 
-Same trunk table, head and knobs as the JAX model, minus what this slice
-does not run: dropout is the identity (eval), and
-``remat``/``guided_relu``/``fuse_3x3`` are not ported. ``stem_s2d`` runs
+Same trunk table, head and knobs as the JAX model; ``remat``,
+``guided_relu`` and ``fuse_3x3`` are not ported. In training mode
+(``model.train()``) BatchNorm takes the batch's statistics, nothing folds
+or fuses (``fuse_1x1`` and ``fuse_pool_conv`` are inference-only, as in
+JAX: ``ivf_tpu/models/layers.py:205``), and dropout before the logits conv
+draws from the generator the train step sets (``layers.Dropout``). ``stem_s2d`` runs
 the 7x7x7 stride-2 stem as the space-to-depth conv, as the JAX model
 does by default. ``pool_impl`` (any of the JAX package's six)
 reaches every max pool (``ops/conv.py::max_pool3d_same``) but the
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 
 from ivf_tpu_torch.models.layers import (
     Conv3dParams,
+    Dropout,
     InceptionModule,
     TorchBatchNorm,
     Unit3D,
@@ -67,6 +71,7 @@ class I3D(nn.Module):
     def __init__(
         self,
         num_classes: int = 400,
+        dropout_rate: float = 0.5,
         last_stride: int = 1,
         stride_mod_layers: Sequence[str] = (),
         softmax: bool = False,
@@ -119,10 +124,12 @@ class I3D(nn.Module):
         # the reference's 'leaky' branch is dead code (its checkpoints were
         # trained with NO final activation); 'leaky_fixed' is the intended one
         act = {"relu": F.relu, "leaky_fixed": F.leaky_relu}.get(last_relu)
+        self.dropout = Dropout(dropout_rate)
         self.logits = Unit3D(
             c, num_classes, (1, 1, 1), use_batch_norm=False, use_bias=True,
             activation=act, use_pallas=use_pallas,
         )
+        self.eval()
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded init: conv weights from the JAX model's
@@ -183,13 +190,13 @@ class I3D(nn.Module):
     @reference_numerics_fn
     def head_from(self, features: torch.Tensor, endpoint: str = "Mixed_5c") -> torch.Tensor:
         """The rest of the trunk after ``endpoint``, then the Logits head:
-        avg-pool -> (dropout = identity) -> 1x1x1 conv -> squeeze ->
+        avg-pool -> dropout (training only) -> 1x1x1 conv -> squeeze ->
         [temporal mean] -> [softmax]."""
         if endpoint not in TRUNK_ENDPOINTS:
             raise ValueError(f"unknown endpoint {endpoint}")
         x = self._walk_trunk(features, start_after=endpoint)
         x = avg_pool3d_valid(x, self.logits_pool_shape(), (1, 1, 1))
-        x = self.logits(x)
+        x = self.logits(self.dropout(x))
         x = x.squeeze(3).squeeze(2)  # (B, T', num_classes)
         if x.shape[1] == 1:
             out = x.squeeze(1)

@@ -1,17 +1,21 @@
-"""I3D building blocks, eval mode (port of ``ivf_tpu/models/layers.py``).
+"""I3D building blocks (port of ``ivf_tpu/models/layers.py``).
 
 Activations are contiguous channels-last ``(B, T, H, W, C)``; conv weights
 are ``(Cout, Cin, kT, kH, kW)``. Parameter names follow the reference
 torch modules (``conv3d.weight|bias``, ``bn.weight|bias|running_mean|
 running_var``), which are also the names ``utils/convert.py`` produces.
 
-Inference only: BatchNorm normalizes with its running statistics and is
+In eval mode BatchNorm normalizes with its running statistics and is
 folded into the preceding conv by default (``fold_bn``), on every forward
 from the module's own parameters, so a module cast to bfloat16 folds in
-bfloat16, as the JAX package does after casting its variables. Each conv
-casts its input to the weight's dtype (``ivf_tpu/ops/conv.py:53``). The
-JAX package's ``fuse_3x3`` and training-mode BN are not ported yet
-(ROADMAP.md).
+bfloat16, as the JAX package does after casting its variables. Every
+module of the port starts in eval mode, as the JAX modules default to
+``train=False``. In training mode (``module.train()``) nothing folds: BatchNorm normalizes by
+the batch's statistics and updates its running ones, and ``Dropout``
+draws its masks from the generator the train step hands it
+(``set_dropout_generator``). Each conv casts its input to the weight's
+dtype (``ivf_tpu/ops/conv.py:53``). The JAX package's ``fuse_3x3`` is not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -42,17 +46,28 @@ def variance_scaling_(w: torch.Tensor, scale: float, generator: torch.Generator)
 
 
 class TorchBatchNorm(nn.Module):
-    """BatchNorm over the trailing channel axis with torch's eval-mode
-    semantics: ``(x - running_mean) * rsqrt(running_var + eps) * weight +
-    bias``. The I3D reference uses eps=1e-3."""
+    """BatchNorm over the trailing channel axis with torch's semantics
+    (``ivf_tpu/models/layers.py:23-59``).
 
-    def __init__(self, channels: int, eps: float = 1e-3):
+    Eval: ``(x - running_mean) * rsqrt(running_var + eps) * weight + bias``.
+    Training: normalize by the batch mean and the biased batch variance
+    (two passes, as ``jnp.var``), and update the running statistics with
+    the unbiased variance, ``running = (1 - momentum) * running + momentum
+    * batch`` (torch's convention: ``momentum`` is the new batch's weight).
+    The batch statistics are taken in float32 and rounded to the input's
+    dtype, as ``jnp.mean`` / ``jnp.var`` give them for a bfloat16 input;
+    the running statistics keep their own dtype (float32 in training, the
+    master copy). The I3D reference uses eps=1e-3, momentum=0.01."""
+
+    def __init__(self, channels: int, eps: float = 1e-3, momentum: float = 0.01):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.eval()
 
     @torch.no_grad()
     def reset_parameters(self) -> None:
@@ -68,10 +83,58 @@ class TorchBatchNorm(nn.Module):
         return s, self.bias - self.running_mean * s
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("training-mode BatchNorm is not ported")
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            dims = tuple(range(x.dim() - 1))
+            xf = x.float()
+            mean_f = xf.mean(dims)
+            centered = xf - mean_f
+            mean = mean_f.to(x.dtype)
+            var = (centered * centered).mean(dims).to(x.dtype)
+            n = x.numel() // x.shape[-1]
+            with torch.no_grad():
+                m, rm, rv = self.momentum, self.running_mean, self.running_var
+                unbiased = var * (n / max(n - 1, 1))
+                rm.copy_((1 - m) * rm + (m * mean).to(rm.dtype))
+                rv.copy_((1 - m) * rv + (m * unbiased).to(rv.dtype))
+        y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in training each element is kept with
+    probability ``1 - rate`` (a uniform draw below it) and scaled by ``1 /
+    (1 - rate)``, the rest zeroed; the identity in eval mode. The uniforms
+    come from ``generator`` (on the input's device), which the train step
+    sets from the run's seed and step (``train/state.py::step_generator``),
+    so a resumed run draws the masks of an uninterrupted one. Training with
+    no generator set raises."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+        self.eval()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        if self.generator is None:
+            raise RuntimeError("Dropout in training mode needs a generator (set_dropout_generator)")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Hand ``generator`` to every ``Dropout`` of ``model``: they draw from
+    it in forward order."""
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.generator = generator
 
 
 class Conv3dParams(nn.Module):
@@ -90,7 +153,9 @@ class Unit3D(nn.Module):
 
     With ``use_pallas`` a 1x1x1 stride-1 conv runs through the pointwise
     kernel (``ops/kernels/pointwise_conv.py``) with the ReLU fused into its
-    epilogue when BN is folded or absent. With ``s2d`` a 7x7x7 stride-2
+    epilogue when BN is folded or absent; in training (BN unfolded) the
+    kernel runs with no bias and no ReLU, then BN, then the activation
+    (``ivf_tpu/models/layers.py:116-133``). With ``s2d`` a 7x7x7 stride-2
     conv on even T, H, W runs as ``conv3d_stem_s2d``, the reference's guard
     (``ivf_tpu/models/layers.py:135-143``); any other shape takes
     ``conv3d_same``.
@@ -118,10 +183,12 @@ class Unit3D(nn.Module):
         self.s2d = s2d
         self.conv3d = Conv3dParams(in_channels, out_channels, kernel_shape, use_bias)
         self.bn = TorchBatchNorm(out_channels) if use_batch_norm else None
+        self.eval()
 
     @property
     def folding(self) -> bool:
-        return self.bn is not None and self.fold_bn
+        """BN folds into the conv in eval mode only, as in JAX."""
+        return self.bn is not None and self.fold_bn and not self.training
 
     def folded(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Conv (weight, bias) with BN folded in when ``folding``."""
@@ -208,6 +275,7 @@ class InceptionModule(nn.Module):
         self.b2a = unit(in_channels, oc[3], (1, 1, 1), True)
         self.b2b = unit(oc[3], oc[4], (3, 3, 3), False)
         self.b3b = unit(in_channels, oc[5], (1, 1, 1), True)
+        self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         oc = self.out_channels

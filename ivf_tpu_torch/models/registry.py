@@ -1,10 +1,11 @@
-"""Model registry (port of ``ivf_tpu/models/registry.py``): the I3D and
-ConvLSTM names; ``cnn_3d`` is not ported yet."""
+"""Model registry (port of ``ivf_tpu/models/registry.py``): the I3D,
+ConvLSTM and ``cnn_3d`` names."""
 
 from __future__ import annotations
 
 from typing import Any, Union
 
+from ivf_tpu_torch.models.cnn3d import CNN3D
 from ivf_tpu_torch.models.convlstm import ConvLSTMClassifier
 from ivf_tpu_torch.models.i3d import I3D, i3d_kth, i3d_smth
 
@@ -17,10 +18,11 @@ _ALIASES = {
 }
 
 
-def get_model(name: str, **kwargs: Any) -> Union[I3D, ConvLSTMClassifier]:
+def get_model(name: str, **kwargs: Any) -> Union[I3D, ConvLSTMClassifier, CNN3D]:
     """Build a model by registry name: i3d / i3d_smth (models.I3D_doubled),
     i3d_kth (models.I3D_doubled_kth), convlstm / clstm (models.CLSTM_4, TF
-    clstm), clstm_gap (TF clstm_gap)."""
+    clstm), clstm_gap (TF clstm_gap), cnn_3d (TF cnn_3d; needs
+    ``input_size`` and ``clip_len``, see ``models/cnn3d.py``)."""
     key = name.lower().replace("-", "_")
     key = _ALIASES.get(key, key)
     if key == "i3d_smth":
@@ -32,5 +34,5 @@ def get_model(name: str, **kwargs: Any) -> Union[I3D, ConvLSTMClassifier]:
     if key == "clstm_gap":
         return ConvLSTMClassifier(head="gap", **kwargs)
     if key == "cnn_3d":
-        raise NotImplementedError("model 'cnn_3d' is not ported yet")
+        return CNN3D(**kwargs)
     raise ValueError(f"Unknown model '{name}'")

@@ -66,10 +66,31 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.bfloat16().float()
 
 
+class _SigmoidBf16(torch.autograd.Function):
+    """XLA's bfloat16 logistic with the logistic's own derivative, as
+    ``jax.lax.logistic``'s JVP takes it: ``g * bf16(s * bf16(1 - s))`` on
+    the bf16 output ``s``. The chain rule through ``1 / (1 + exp(-x))``
+    would give ``0 * inf = NaN`` where ``exp(-x)`` overflows (x below
+    about -88.7), where JAX's gradient is 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / _bf16(1 + _bf16(torch.exp(-x)))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        s = _bf16(s)
+        return g * _bf16(s * _bf16(1 - s))
+
+
 def sigmoid_bf16(x: torch.Tensor) -> torch.Tensor:
     """XLA's bfloat16 logistic on float32-held bf16 values, before its last
-    rounding: ``1 / bf16(1 + bf16(exp(-x)))``."""
-    return 1 / _bf16(1 + _bf16(torch.exp(-x)))
+    rounding: ``1 / bf16(1 + bf16(exp(-x)))``; differentiable with the
+    logistic's derivative (``_SigmoidBf16``)."""
+    return _SigmoidBf16.apply(x)
 
 
 def _mixed_z(gates_x, gates_h, c):

@@ -86,3 +86,12 @@ def reference_numerics_fn(fn):
             return fn(*args, **kwargs)
 
     return wrapped
+
+
+def inference_model(model: torch.nn.Module, dtype: torch.dtype, device=None) -> torch.nn.Module:
+    """``model`` as inference runs it in ``dtype``: in eval mode, every
+    floating parameter and buffer cast, BN statistics included, in place
+    (``Module.to``). The search's model (``api.build_model``) and the
+    bfloat16 eval step's copy of a float32 training master are both made
+    here."""
+    return model.to(device, dtype).eval()

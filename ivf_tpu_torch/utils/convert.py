@@ -11,7 +11,9 @@ scope); ``scale`` -> ``bn.weight``; batch stats ``mean``/``var`` ->
 ``bn.running_mean``/``bn.running_var``.
 
 ``convlstm_variables_to_state_dict`` does the same for the JAX
-``ConvLSTMClassifier``; see its docstring.
+``ConvLSTMClassifier``, ``cnn3d_variables_to_state_dict`` for the JAX
+``CNN3D``; ``variables_to_state_dict`` takes any of the three trees,
+initialized or trained, and picks the walk from its top-level names.
 """
 
 from __future__ import annotations
@@ -23,35 +25,36 @@ import torch
 
 
 def _t(arr) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(arr, dtype=np.float32)))
+    return torch.from_numpy(np.ascontiguousarray(np.array(arr, dtype=np.float32)))
 
 
 def i3d_variables_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
 
+    def key(scope: Tuple[str, ...], name: str) -> str:
+        return ".".join(scope + (name,))
+
     def walk_params(node: Mapping[str, Any], scope: Tuple[str, ...]):
         for k, v in node.items():
-            name = ".".join(scope)
             if isinstance(v, Mapping):
                 walk_params(v, scope + (k,))
             elif k == "kernel":
-                sd[name + ".conv3d.weight"] = _t(np.asarray(v).transpose(4, 3, 0, 1, 2))
+                sd[key(scope, "conv3d.weight")] = _t(np.asarray(v).transpose(4, 3, 0, 1, 2))
             elif k == "bias" and scope and scope[-1] == "bn":
-                sd[name + ".bias"] = _t(v)
+                sd[key(scope, "bias")] = _t(v)
             elif k == "bias":
-                sd[name + ".conv3d.bias"] = _t(v)
+                sd[key(scope, "conv3d.bias")] = _t(v)
             elif k == "scale":  # bn scale; scope already ends in 'bn'
-                sd[name + ".weight"] = _t(v)
+                sd[key(scope, "weight")] = _t(v)
 
     def walk_stats(node: Mapping[str, Any], scope: Tuple[str, ...]):
         for k, v in node.items():
-            name = ".".join(scope)
             if isinstance(v, Mapping):
                 walk_stats(v, scope + (k,))
             elif k == "mean":
-                sd[name + ".running_mean"] = _t(v)
+                sd[key(scope, "running_mean")] = _t(v)
             elif k == "var":
-                sd[name + ".running_var"] = _t(v)
+                sd[key(scope, "running_var")] = _t(v)
 
     walk_params(variables["params"], ())
     walk_stats(variables.get("batch_stats", {}), ())
@@ -98,3 +101,29 @@ def convlstm_variables_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, 
             sd[head + ".weight"] = _t(np.asarray(params[head]["kernel"]).T)
             sd[head + ".bias"] = _t(params[head]["bias"])
     return sd
+
+
+def cnn3d_variables_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``CNN3D``'s tree -> a state dict for
+    ``ivf_tpu_torch.models.CNN3D``: each ``block*_conv*`` unit as an I3D
+    ``Unit3D`` (the walk above), and the ``fc`` Dense ``kernel (in, out)``
+    -> Linear ``weight (out, in)``. The port flattens the head's input in
+    (T, H, W) order, as the JAX model does: no permutation."""
+    params = dict(variables["params"])
+    fc = params.pop("fc")
+    sd = i3d_variables_to_state_dict({"params": params, "batch_stats": variables.get("batch_stats", {})})
+    sd["fc.weight"] = _t(np.asarray(fc["kernel"]).T)
+    sd["fc.bias"] = _t(fc["bias"])
+    return sd
+
+
+def variables_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Any JAX model's ``{'params', 'batch_stats'}`` -> the port's state
+    dict: the ConvLSTM's (a ``clstm`` scope), ``cnn_3d``'s (``block1_conv1``
+    and ``fc``) or I3D's."""
+    params = variables["params"]
+    if "clstm" in params:
+        return convlstm_variables_to_state_dict(variables)
+    if "block1_conv1" in params and "fc" in params:
+        return cnn3d_variables_to_state_dict(variables)
+    return i3d_variables_to_state_dict(variables)

@@ -1,8 +1,10 @@
 """Result rendering of the port (port of ``ivf_tpu/viz``): the per-clip
 images, GIFs and mask files that ``find_masks(..., save_viz=True)``
-writes. Numpy and Pillow only: no cv2, no matplotlib."""
+writes, and the training curves (``PlotLearning``). Numpy and Pillow
+only: no cv2, no matplotlib."""
 
 from ivf_tpu_torch.viz.render import (
+    PlotLearning,
     create_image_arrays,
     find_temp_mask_dots,
     image_panels,
@@ -16,4 +18,5 @@ __all__ = [
     "find_temp_mask_dots",
     "create_image_arrays",
     "image_panels",
+    "PlotLearning",
 ]

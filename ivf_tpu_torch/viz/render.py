@@ -1,6 +1,6 @@
-"""Result rendering (port of ``ivf_tpu/viz/render.py:28-184``): the same
-file names, arrays and folder layout, with numpy and Pillow in place of
-cv2.
+"""Result rendering (port of ``ivf_tpu/viz/render.py``): the same file
+names, arrays and folder layout, with numpy and Pillow in place of cv2 and
+matplotlib.
 
   * ``visualize_results``: per-frame perturbed PNGs with a mask-intensity
     marker square in the top-left corner;
@@ -18,9 +18,11 @@ What cv2 did, and what stands in for it:
   * ``cv2.resize`` (``INTER_LINEAR``) under ``resize_to``:
     ``resize_bilinear``, half-pixel centres with the edges clamped.
 
-``PlotLearning`` (matplotlib loss curves) belongs to training and is not
-ported. Inputs are channels-last numpy arrays; clips are (T, H, W, C) RGB
-0..255.
+``PlotLearning``: the training curves (accuracy, loss, learning rate) as
+``accu_plot.png``, ``loss_plot.png`` and ``lr_plot.png``, drawn with
+Pillow on matplotlib's 600x400 canvas with its axis limits, titles and
+line colours (``_line_plot``); the pixels are not matplotlib's. Inputs are
+channels-last numpy arrays; clips are (T, H, W, C) RGB 0..255.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import os
 from typing import List, Optional, Sequence
 
 import numpy as np
-from PIL import Image
+from PIL import Image, ImageDraw, ImageFont
 
 JPEG_QUALITY = 95  # cv2.imwrite's default IMWRITE_JPEG_QUALITY
 
@@ -222,3 +224,91 @@ def create_image_arrays(
         image_height=panel_arr.shape[1],
     )
     return panel_arr
+
+
+_SERIES_RGB = ((31, 119, 180), (255, 127, 14))  # matplotlib's C0, C1
+_PLOT_BOX = (70, 40, 580, 360)  # the axes on a 600x400 canvas: left, top, right, bottom
+
+
+def _line_plot(path: str, series, title: str, ylim=None) -> None:
+    """A line chart as a PNG: ``series`` is ``[(values, label), ...]`` over
+    x = 0, 1, ...; ``ylim`` (lo, hi), or the data's range. Points beyond
+    ``ylim`` are held at the axes' edge, as a clipped line leaves it."""
+    img = Image.new("RGB", (600, 400), "white")
+    draw = ImageDraw.Draw(img)
+    font = ImageFont.load_default()
+    left, top, right, bottom = _PLOT_BOX
+    values = [float(v) for vals, _ in series for v in vals]
+    lo, hi = ylim if ylim is not None else (min(values), max(values))
+    if hi <= lo:
+        lo, hi = lo - 0.5, hi + 0.5
+    n = max(len(vals) for vals, _ in series)
+    draw.rectangle(_PLOT_BOX, outline="black")
+    for k in range(5):
+        v = lo + (hi - lo) * k / 4
+        y = bottom - (bottom - top) * k / 4
+        draw.line([(left - 4, y), (left, y)], fill="black")
+        draw.text((4, y - 6), f"{v:.4g}", fill="black", font=font)
+    for k in range(n):
+        x = left + (right - left) * (k / max(n - 1, 1))
+        draw.line([(x, bottom), (x, bottom + 4)], fill="black")
+        draw.text((x - 3, bottom + 6), str(k), fill="black", font=font)
+    draw.text(((left + right) / 2 - 3 * len(title), 14), title, fill="black", font=font)
+
+    def point(k, v):
+        x = left + (right - left) * (k / max(n - 1, 1))
+        y = bottom - (bottom - top) * (min(max(float(v), lo), hi) - lo) / (hi - lo)
+        return (x, y)
+
+    for j, (vals, label) in enumerate(series):
+        rgb = _SERIES_RGB[j % len(_SERIES_RGB)]
+        pts = [point(k, v) for k, v in enumerate(vals)]
+        if len(pts) > 1:
+            draw.line(pts, fill=rgb, width=2)
+        for x, y in pts:
+            draw.ellipse([x - 2, y - 2, x + 2, y + 2], fill=rgb)
+        if label:
+            draw.line([(right - 90, top + 14 + 16 * j), (right - 70, top + 14 + 16 * j)], fill=rgb, width=2)
+            draw.text((right - 64, top + 8 + 16 * j), label, fill="black", font=font)
+    img.save(path)
+
+
+class PlotLearning:
+    """Loss / accuracy / learning-rate curve PNGs after each epoch
+    (reference ``visualisation.py:133-190``): ``accu_plot.png`` (train and
+    valid accuracy on 0..1, titled with the best valid epoch),
+    ``loss_plot.png`` (train and valid loss on 0..ln(num_classes)) and
+    ``lr_plot.png``, under ``save_path``."""
+
+    def __init__(self, save_path: str, num_classes: int):
+        os.makedirs(save_path, exist_ok=True)
+        self.accuracy: List[float] = []
+        self.val_accuracy: List[float] = []
+        self.losses: List[float] = []
+        self.val_losses: List[float] = []
+        self.learning_rates: List[float] = []
+        self.save_path_loss = os.path.join(save_path, "loss_plot.png")
+        self.save_path_accu = os.path.join(save_path, "accu_plot.png")
+        self.save_path_lr = os.path.join(save_path, "lr_plot.png")
+        self.init_loss = -np.log(1.0 / num_classes)
+
+    def plot(self, logs: dict) -> None:
+        self.accuracy.append(logs.get("acc"))
+        self.val_accuracy.append(logs.get("val_acc"))
+        self.losses.append(logs.get("loss"))
+        self.val_losses.append(logs.get("val_loss"))
+        self.learning_rates.append(logs.get("learning_rate"))
+        bva = max(self.val_accuracy)
+        _line_plot(
+            self.save_path_accu, [(self.accuracy, "train"), (self.val_accuracy, "valid")],
+            f"best_val@{self.val_accuracy.index(bva)}-{bva:.2f}", ylim=(0.0, 1.0),
+        )
+        bvl = min(self.val_losses)
+        _line_plot(
+            self.save_path_loss, [(self.losses, "train"), (self.val_losses, "valid")],
+            f"best_val@{self.val_losses.index(bvl)}-{bvl:.2f}", ylim=(0.0, float(self.init_loss)),
+        )
+        _line_plot(
+            self.save_path_lr, [(self.learning_rates, "")],
+            f"lr max {max(self.learning_rates):.6f} min {min(self.learning_rates):.6f}",
+        )

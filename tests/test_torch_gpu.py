@@ -1022,3 +1022,104 @@ def test_resumed_find_masks_gives_the_uninterrupted_bits(cuda_device, tmp_path, 
         for key, value in tm0[vid].items():
             assert np.array_equal(value, tm1[vid][key]) if isinstance(value, np.ndarray) else value == tm1[vid][key]
         assert np.array_equal(gc0[vid]["GCHeatMap"], gc1[vid]["GCHeatMap"]), vid
+
+
+# the training path's 1x1x1 convs at batch 16 (site, N, Cin, Cout): BN
+# unfolded, so the kernel runs with no bias and no ReLU (the trunk), the
+# logits head with its bias
+PW_TRAIN = [
+    ("Conv3d_2b", 401408, 64, 64, False), ("Mixed_3b_b1a", 100352, 192, 96, False),
+    ("Mixed_4b_b0", 12544, 480, 192, False), ("Mixed_5c_b0", 1568, 832, 384, False),
+    ("logits", 16, 1024, 174, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("site,n,cin,cout,use_bias", PW_TRAIN, ids=[r[0] for r in PW_TRAIN])
+def test_training_pointwise_conv_matches_plain(cuda_device, site, n, cin, cout, use_bias, dtype):
+    """The pointwise conv as a training step calls it (``pointwise_conv`` on
+    the column-major view of a (Cout, Cin) weight, ``relu=False``):
+    forward and ``dx`` through the kernel (one launch each), ``dW`` (and
+    ``db``) as plain products. y and dx within 1e-5 (f32) / one bf16 ulp
+    of their largest value of the plain version; dW and db within 1e-4 of
+    their largest value of a float64 product (float32 sums over up to
+    401,408 rows)."""
+    from ivf_tpu_torch.precision import reference_numerics
+
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(n, cin, generator=gen).to(dtype).to(cuda_device)
+    weight = (torch.randn(cout, cin, generator=gen) / cin**0.5).to(dtype).to(cuda_device).requires_grad_(True)
+    bias = torch.randn(cout, generator=gen).to(dtype).to(cuda_device).requires_grad_(True) if use_bias else None
+    g = torch.randn(n, cout, generator=gen).to(dtype).to(cuda_device)
+    xr = x.clone().requires_grad_(True)
+    counter = tpw.pointwise_conv_bf16_cuda if dtype == torch.bfloat16 else tpw.pointwise_conv_cuda
+    before = counter.launches
+    with reference_numerics():
+        y = tpw.pointwise_conv(xr, weight.t(), bias, relu=False)
+        grads = torch.autograd.grad(y, [xr, weight] + ([bias] if use_bias else []), g)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 2
+        y_ref = tpw.pointwise_conv_plain(x, weight.detach().t().contiguous(), bias, False)
+        dx_ref = tpw.pointwise_conv_plain(g, weight.detach(), None, False)
+    tol = 1e-5 if dtype == torch.float32 else BF16_ULP
+    for got, ref in ((y, y_ref), (grads[0], dx_ref)):
+        assert (got.float() - ref.float()).abs().max().item() <= tol * ref.float().abs().max().item()
+    tol_w = 1e-4 if dtype == torch.float32 else BF16_ULP
+    dw_ref = (g.double().t() @ x.double())
+    assert (grads[1].double() - dw_ref).abs().max().item() <= tol_w * dw_ref.abs().max().item()
+    if use_bias:
+        db_ref = g.double().sum(0)
+        assert (grads[2].double() - db_ref).abs().max().item() <= tol_w * db_ref.abs().max().item()
+
+
+@pytest.mark.parametrize("gates", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(16, 60, 80), (16, 15, 20)], ids=["layer1", "layer2"])
+def test_training_gate_vjp_matches_plain(cuda_device, shape, gates):
+    """The gate block as ``config_clstm_kth``'s training step calls it
+    (``gate_math`` under autograd, the x- and h-gates merged, 16 clips,
+    4 hidden units a layer): one forward and one backward launch; h', c'
+    and the gradients of the gates and of c against the plain versions,
+    within 1e-6 of max(1, their largest magnitude), bf16 dz within one
+    bf16 ulp of its largest."""
+    gen = torch.Generator().manual_seed(9)
+    z = (torch.randn(*shape, 16, generator=gen) * 3).to(gates).to(cuda_device).requires_grad_(True)
+    c = torch.randn(*shape, 4, generator=gen).to(cuda_device).requires_grad_(True)
+    dh, dc_out = (torch.randn(*shape, 4, generator=gen).to(cuda_device) for _ in range(2))
+    fwd, bwd = ((tgates.lstm_gates_fwd_bf16_cuda, tgates.lstm_gates_bwd_bf16_cuda) if gates == torch.bfloat16
+                else (tgates.lstm_gates_fwd_cuda, tgates.lstm_gates_bwd_cuda))
+    before = (fwd.launches, bwd.launches)
+    h_new, c_new = tgates.gate_math(z, None, c)
+    dz, dc = torch.autograd.grad((h_new, c_new), (z, c), (dh, dc_out))
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    h_ref, c_ref = tgates.gate_math_plain(z.detach(), None, c.detach())
+    dz_ref, dc_ref = tgates.gate_math_bwd_plain(z.detach(), None, c.detach(), dh, dc_out)
+    for got, ref in ((h_new, h_ref), (c_new, c_ref), (dc, dc_ref)):
+        assert (got.detach() - ref).abs().max().item() <= 1e-6 * max(1.0, ref.abs().max().item())
+    tol = BF16_ULP if gates == torch.bfloat16 else 1e-6
+    assert (dz.float() - dz_ref.float()).abs().max().item() <= tol * max(1.0, dz_ref.float().abs().max().item())
+
+
+def test_i3d_train_step_on_the_card_repeats_its_bits_and_launches_its_kernels(cuda_device):
+    """Two runs of three train steps of the f32 kernel route (5 classes,
+    16x224x224, 2 clips, Adam, dropout 0.5 from the step seed) give equal
+    bits and launch the pointwise and pool kernels every step."""
+    from ivf_tpu_torch.train import build_optimizer, create_train_state, make_train_step
+
+    clips = torch.from_numpy(np.random.RandomState(0).randint(0, 255, (2, 16, 224, 224, 3)).astype(np.uint8))
+    labels = torch.tensor([1, 3])
+    runs = []
+    for _ in range(2):
+        cfg = Config()
+        cfg.model.num_classes, cfg.model.use_pallas, cfg.model.pallas_pool = 5, True, True
+        model = api._construct_model(cfg, False).to(cuda_device)
+        state = create_train_state(model, build_optimizer("adam", 1e-3), seed=1)
+        step = make_train_step()
+        tpw.pointwise_conv_cuda.launches = tpool.maxpool3d_s1_fwd_cuda.launches = 0
+        for _ in range(3):
+            state, _ = step(state, clips, labels)
+        torch.cuda.synchronize()
+        # 38 1x1x1 convs (the trio unfused in training), forward and dx
+        assert tpw.pointwise_conv_cuda.launches == 3 * 2 * 38 and tpool.maxpool3d_s1_fwd_cuda.launches == 27
+        runs.append({n: t.detach().clone() for n, t in state.model.state_dict().items()})
+    assert all(torch.equal(runs[0][n], runs[1][n]) for n in runs[0])
