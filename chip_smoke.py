@@ -15,7 +15,9 @@ non-zero without the final line:
    (a yardstick only) and the card's lower bound for the same work. The
    float32 pointwise GEMM at every 1x1x1 conv of the I3D search step,
    forward and dx, W in both layouts, with its plan and the sum over a
-   step's 40 launches (and the fused routes' 22). The
+   step's 40 launches (and the fused routes' 22). The gate pair in
+   float32 and all in bf16 (the bf16 train step's) at both clstm_kth
+   layers, beside ``_thnn_fused_lstm_cell``. The
    four fused branch-3 kernels at all nine branch-3 sites, per-frame
    against whole-sample too, timed beside the unfused kernel pair, whose
    bits the float32 entries must give; a summary row per entry sums the
@@ -134,14 +136,16 @@ non-zero without the final line:
 20. train_kernel_check, then train_i3d. The first holds the training
    path's kernel calls against their plain versions at its shapes, f32
    and bf16: the pointwise conv as ``Unit3D`` calls it in training (y,
-   dx, dW, db) and the gate VJP at both clstm_kth layers. train_i3d:
+   dx, dW, db) and the gate VJP at both clstm_kth layers (float32, bf16
+   gates with a float32 state, all bf16). train_i3d:
    training of i3d_smth from ``configs/config_i3d_smth.py``
    as loaded (batch 16, Adam, dropout 0.5) on four routes (f32 plain, f32
    kernels, bf16 default, bf16 kernels): one step of each kernel route
    against the plain route with the same tie rule (loss, every gradient,
    BN statistics; a control with one block's cotangent 10% off must
    exceed the gradient limit), the bf16 default route against the argmax
-   pair's plain versions (equal bits), two runs with equal bits, the loss falling over 20
+   pair's plain versions (equal bits), each bf16 route on float32 and on
+   bf16 clips (equal bits), two runs with equal bits, the loss falling over 20
    steps on one batch, float32 masters in bf16, launches per step, steady
    clips/s and device ms per step by kernel group, peak memory, busy
    share; ``api.train`` over a generated JPEG tree uninterrupted and cut
@@ -154,7 +158,16 @@ non-zero without the final line:
    16, f32 and bf16, each twice: equal bits.
 23. records_search: ``find_masks`` from ``configs/config_clstm_kth_records.py``
    on generated per-subject record shards, 10 steps, twice: equal bits.
-24. whole_search: ``find_masks`` at bench.py's setting (128 clips, 120
+24. checkpoint_cli: checkpoint I/O and ``python -m ivf_tpu_torch.cli`` at
+   full width, each run against the API with the weights in memory
+   (equal bits): I3D ``find-masks`` from a reference ``.pth.tar`` written
+   by the port's exporter (f32 with the pointwise kernel, bf16 default
+   with the argmax pair; then one ``python -m`` process: the same
+   pickles); a bf16 ConvLSTM ``train`` with the gate kernel (the
+   all-bf16 entries launch), resumed (equal bits), exported and loaded
+   back ``strict=True``; the TF family's ``find-masks`` from a TF bundle
+   the port wrote.
+25. whole_search: ``find_masks`` at bench.py's setting (128 clips, 120
    steps, bf16, targets arange(128) % 174) on the default route, the
    kernel route and the default route with the plain stem, each after a
    2-step warm-up: mask-steps/s, the device busy share of the run, peak
@@ -619,9 +632,89 @@ def phase_gate_check(gates, failures) -> dict:
             for k in lib_keys:
                 if not lib_errs[k][0] <= lib_errs[k][1]:
                     failures.append(f"{name} {site}: _thnn_fused_lstm_cell disagrees on {k}: {lib_errs[k]}")
+    cases.update(_all_bf16_gate_rows(gates, failures))
     for name, rows_ in cases.items():
         for row in rows_:
             emit({"phase": "kernel_check", "kernel": name, **row})
+    return cases
+
+
+ALL_BF16_GATE_TOL_REASON = (
+    "h', c', dz, dc bit for bit (no unequal element of the int16 views): the kernel and the plain "
+    "version round every op to bf16 at the same points (XLA's CPU rounding of the JAX package's "
+    "all-bf16 gate block, which the plain version has bit for bit on the CPU) with float32 "
+    "operations in the same order and the same CUDA expf / tanhf"
+)
+
+
+def _all_bf16_gate_rows(gates, failures) -> dict:
+    """The all-bfloat16 gate pair (``lstm_gates_{fwd,bwd}_bf16s``: the bf16
+    train step's bf16 gates and bf16 state) against its plain version on
+    the card at both clstm_kth layers as training calls them (16 clips,
+    the x- and h-gates apart at stride 2), the merged route and a ragged
+    size (one element a thread). Timed beside the plain version and the
+    library's ``_thnn_fused_lstm_cell`` pair in bf16 on the same values
+    (the yardstick; it takes bf16 gates and a bf16 state). Bounds: bytes
+    at 3.35 TB/s (22 B forward, 32 B backward per (row, channel) split)
+    against float32 operations on the CUDA cores."""
+    aten = torch.ops.aten
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(17)
+    b, (h1, w1) = CLSTM_BATCH, (CLSTM_HW[0] // 2, CLSTM_HW[1] // 2)
+    cases = {n: [] for n in BF16S_GATE_COUNTERS}
+    for site, lead, ch, with_gh in (("layer1", (b, h1, w1), 4, True), ("layer2", (b, h1 // 4, w1 // 4), 4, True),
+                                    ("layer1_merged", (b, h1, w1), 4, False), ("ragged", (3, 7, 9), 5, True)):
+        gx = (torch.randn(*lead, 4 * ch, generator=gen) * 3).bfloat16().to(dev)
+        gh = (torch.randn(*lead, 4 * ch, generator=gen) * 2).bfloat16().to(dev) if with_gh else None
+        c = (torch.randn(*lead, ch, generator=gen) * 2).bfloat16().to(dev)
+        dh, dc_out = (torch.randn(*lead, ch, generator=gen).bfloat16().to(dev) for _ in range(2))
+        h_new, c_new = gates.lstm_gates_fwd_bf16s_cuda(gx, gh, c)
+        dz, dc = gates.lstm_gates_bwd_bf16s_cuda(gx, gh, c, dh, dc_out)
+        h_ref, c_ref = gates.gate_math_plain(gx, gh, c)
+        dz_ref, dc_ref = gates.gate_math_bwd_plain(gx, gh, c, dh, dc_out)
+        rows = c.numel() // ch
+        lib_in = (gx.view(rows, 4 * ch), (gh if with_gh else torch.zeros_like(gx)).view(rows, 4 * ch),
+                  c.view(rows, ch))
+        try:
+            hy, cy, ws = aten._thnn_fused_lstm_cell(*lib_in)
+            lib_fwd = lambda: aten._thnn_fused_lstm_cell(*lib_in)  # noqa: E731
+            lib_bwd = lambda: aten._thnn_fused_lstm_cell_backward_impl(  # noqa: E731
+                dh.view(rows, ch), dc_out.view(rows, ch), lib_in[2], cy, ws, False)
+            lib_bwd()
+        except RuntimeError as exc:
+            lib_fwd = lib_bwd = None
+            emit({"phase": "kernel_check", "note": f"_thnn_fused_lstm_cell in bf16: {exc}"})
+        torch.cuda.synchronize()
+        numel, znumel = c.numel(), gx.numel()
+        z_in = znumel * (2 if with_gh else 1)
+        for name, outs, fn, plain, lib, nbytes, ops in (
+            ("lstm_gates_fwd_bf16s", {"h": (h_new, h_ref), "c": (c_new, c_ref)},
+             lambda: gates.lstm_gates_fwd_bf16s_cuda(gx, gh, c), lambda: gates.gate_math_plain(gx, gh, c),
+             lib_fwd, 2 * (z_in + 3 * numel), GATE_OPS_FWD * numel),
+            ("lstm_gates_bwd_bf16s", {"dz": (dz, dz_ref), "dc": (dc, dc_ref)},
+             lambda: gates.lstm_gates_bwd_bf16s_cuda(gx, gh, c, dh, dc_out),
+             lambda: gates.gate_math_bwd_plain(gx, gh, c, dh, dc_out),
+             lib_bwd, 2 * (z_in + znumel + 4 * numel), GATE_OPS_BWD * numel),
+        ):
+            errs = {k: (a.float() - r.float()).abs().max().item() for k, (a, r) in outs.items()}
+            unequal = {k: int((a.view(torch.int16) != r.view(torch.int16)).sum().item())
+                       for k, (a, r) in outs.items()}
+            bms, by = bound(nbytes, ops)
+            cases[name].append({
+                "site": site, "shape": [*lead, 4 * ch], "gates_h": with_gh,
+                "max_abs_err": max(errs.values()),
+                "errs": {k: {"err": e, "unequal": unequal[k]} for k, e in errs.items()},
+                "tol_reason": ALL_BF16_GATE_TOL_REASON,
+                "ms": device_ms(fn), "plain_ms": device_ms(plain),
+                "library_ms": device_ms(lib) if lib is not None else None,
+                "library_note": "aten._thnn_fused_lstm_cell (and its backward) in bf16 on the same values",
+                "cold_ms": {"kernel": device_ms(fn, cold=True),
+                            "library": device_ms(lib, cold=True) if lib is not None else None},
+                "bound_ms": bms, "bound_by": by,
+            })
+            for k, n_bad in unequal.items():
+                if n_bad:
+                    failures.append(f"{name} {site}: {k} has {n_bad} elements unequal to the plain version's")
     return cases
 
 
@@ -818,6 +911,8 @@ BF16_FUSED_COUNTERS = {
     "bf16_fused_tblock": ("fused_pool_conv_tblock_fwd_bf16", "fused_pool_conv_tblock_bwd_bf16"),
 }
 BF16_GATE_COUNTERS = ("lstm_gates_fwd_bf16", "lstm_gates_bwd_bf16")
+# the all-bfloat16 pair: the bf16 train step's state is bf16 (it casts the clips)
+BF16S_GATE_COUNTERS = ("lstm_gates_fwd_bf16s", "lstm_gates_bwd_bf16s")
 ALL_BF16_COUNTERS = (BF16_COUNTERS + BF16_GATE_COUNTERS
                      + tuple(n for names in BF16_FUSED_COUNTERS.values() for n in names))
 
@@ -3783,7 +3878,9 @@ TRAIN_CLSTM_ROUTES = {
     "bf16_gate_kernel": dict(use_pallas=True, compute_dtype="bfloat16"),
     "bf16_plain": dict(compute_dtype="bfloat16"),
 }
-CLSTM_GATES = {"float32": ("lstm_gates_fwd", "lstm_gates_bwd"), "bfloat16": BF16_GATE_COUNTERS}
+# the gate entries a train step launches: in bf16 the all-bf16 pair (the
+# step casts the clips, so the state is bf16)
+CLSTM_GATES = {"float32": ("lstm_gates_fwd", "lstm_gates_bwd"), "bfloat16": BF16S_GATE_COUNTERS}
 CLSTM_KERNEL_L2 = 0.01  # the TF presets' Keras l2 (config_clstm_kth_records.py)
 TRAIN_CLSTM_F32_TOL = {"loss_rel": 1e-6, "grad_gap": 1e-4, "stats": 1e-6}
 TRAIN_CLSTM_BF16_TOL = {"loss_rel": 1e-3, "grad_gap": 0.02, "stats": 1e-3}
@@ -3825,8 +3922,9 @@ TRAIN_KERNEL_TOL_REASON = (
     "bfloat16 within one bf16 ulp (2**-7) of the largest value (the GEMM and the plain product "
     "round once per output, summing in another order); dW and db: plain float32 sums rounded once "
     "to the weight's dtype, against a float64 product, within 1e-4 (f32) or one bf16 ulp (bf16) of "
-    "the largest value; the gates: h', c', dc within 1e-6 of max(1, largest), dz within 1e-6 (f32) "
-    "or one bf16 ulp (bf16) of max(1, largest)"
+    "the largest value; the gates: h', c', dc within 1e-6 of max(1, largest) with a float32 state "
+    "and dz within 1e-6 (f32) or one bf16 ulp (bf16 gates) of max(1, largest); with a bf16 state "
+    "(the bf16 train step's) h', c', dc and dz bit for bit"
 )
 
 
@@ -3837,7 +3935,9 @@ def phase_train_kernel_check(pw, gates, failures, card: str) -> None:
     view of a (Cout, Cin) weight, ``relu=False``, no bias in the trunk)
     under autograd, y and dx through the kernel (two launches) and dW / db
     as plain products; ``gate_math`` under autograd at both clstm_kth
-    layers (one launch each way). Tolerances: ``TRAIN_KERNEL_TOL_REASON``.
+    layers (one launch each way), float32, bf16 gates with a float32
+    state (the search's), and all bf16 (the bf16 train step's).
+    Tolerances: ``TRAIN_KERNEL_TOL_REASON``.
     These launches are outside the main path's counting."""
     from ivf_tpu_torch.precision import reference_numerics
 
@@ -3876,13 +3976,16 @@ def phase_train_kernel_check(pw, gates, failures, card: str) -> None:
                          "shape": [n, cin, cout], "bias": use_bias, "launches": launches,
                          "err_over_max": {k: e for k, (e, _) in errs.items()},
                          "tol": {k: t for k, (_, t) in errs.items()}, "ok": good})
-    for gate_dtype in (torch.float32, torch.bfloat16):
-        fwd, bwd = ((gates.lstm_gates_fwd_bf16_cuda, gates.lstm_gates_bwd_bf16_cuda) if gate_dtype == torch.bfloat16
-                    else (gates.lstm_gates_fwd_cuda, gates.lstm_gates_bwd_cuda))
+    gate_entries = {
+        (torch.float32, torch.float32): (gates.lstm_gates_fwd_cuda, gates.lstm_gates_bwd_cuda),
+        (torch.bfloat16, torch.float32): (gates.lstm_gates_fwd_bf16_cuda, gates.lstm_gates_bwd_bf16_cuda),
+        (torch.bfloat16, torch.bfloat16): (gates.lstm_gates_fwd_bf16s_cuda, gates.lstm_gates_bwd_bf16s_cuda),
+    }
+    for (gate_dtype, state_dtype), (fwd, bwd) in gate_entries.items():
         for site, lead in GATES_TRAIN:
             z = (torch.randn(*lead, 16, generator=gen) * 3).to(gate_dtype).to(dev).requires_grad_(True)
-            c = torch.randn(*lead, 4, generator=gen).to(dev).requires_grad_(True)
-            dh, dc_out = (torch.randn(*lead, 4, generator=gen).to(dev) for _ in range(2))
+            c = torch.randn(*lead, 4, generator=gen).to(state_dtype).to(dev).requires_grad_(True)
+            dh, dc_out = (torch.randn(*lead, 4, generator=gen).to(state_dtype).to(dev) for _ in range(2))
             before = (fwd.launches, bwd.launches)
             h_new, c_new = gates.gate_math(z, None, c)
             dz, dc = torch.autograd.grad((h_new, c_new), (z, c), (dh, dc_out))
@@ -3894,12 +3997,18 @@ def phase_train_kernel_check(pw, gates, failures, card: str) -> None:
             def err(a, ref):
                 return (a.detach().float() - ref.float()).abs().max().item() / max(1.0, ref.float().abs().max().item())
 
-            tol_z = 2.0**-7 if gate_dtype == torch.bfloat16 else 1e-6
-            errs = {"h": (err(h_new, h_ref), 1e-6), "c": (err(c_new, c_ref), 1e-6), "dc": (err(dc, dc_ref), 1e-6),
-                    "dz": (err(dz, dz_ref), tol_z)}
+            all_bf16 = state_dtype == torch.bfloat16  # bit for bit: every op rounded at the same points
+            tol_z = 0.0 if all_bf16 else 2.0**-7 if gate_dtype == torch.bfloat16 else 1e-6
+            tol_s = 0.0 if all_bf16 else 1e-6
+            errs = {"h": (err(h_new, h_ref), tol_s), "c": (err(c_new, c_ref), tol_s),
+                    "dc": (err(dc, dc_ref), tol_s), "dz": (err(dz, dz_ref), tol_z)}
             good = launches == (1, 1) and all(e <= t for e, t in errs.values())
+            if all_bf16:
+                good &= all(torch.equal(a.detach().view(torch.int16), r.view(torch.int16))
+                            for a, r in ((h_new, h_ref), (c_new, c_ref), (dc, dc_ref), (dz, dz_ref)))
             ok &= good
             rows.append({"kernel": "gate_math", "site": site, "gates": str(gate_dtype).split(".")[-1],
+                         "state": str(state_dtype).split(".")[-1],
                          "shape": [*lead, 16], "launches": list(launches),
                          "err_over_max": {k: e for k, (e, _) in errs.items()},
                          "tol": {k: t for k, (_, t) in errs.items()}, "ok": good})
@@ -3962,6 +4071,28 @@ def _sgd1_step(api, cfg, clips, labels, control: str = None) -> dict:
     state, metrics = step(state, clips, labels)
     grads = {n: before[n] - p.detach() for n, p in state.params().items()}
     return {"loss": float(metrics["loss"]), "grads": grads, "stats": _state_bits(state)}
+
+
+def _clip_cast_keeps_bits(api, cfg, clips) -> bool:
+    """One bf16 training forward and backward of the preset's seeded model
+    on uint8 clips as float32 (what the train step fed the model before
+    it cast the clips) and as bf16 (what it feeds it now), dropout drawn
+    from one step's generator: equal logits, gradients and BN
+    statistics."""
+    from ivf_tpu_torch.models.layers import set_dropout_generator
+    from ivf_tpu_torch.train.state import step_generator
+
+    runs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        model = _train_state(api, cfg).model.train()
+        set_dropout_generator(model, step_generator(0, 0, clips.device))
+        params = dict(model.named_parameters())
+        compute = {n: p.to(torch.bfloat16) for n, p in params.items()}
+        logits = torch.func.functional_call(model, compute, (clips.to(dtype),), strict=False)
+        grads = torch.autograd.grad(logits.float().logsumexp(-1).sum(), list(params.values()))
+        runs.append([logits.detach(), *grads, *(b.clone() for b in model.buffers())])
+        del model, params, compute, logits, grads
+    return all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def _step_gap(a: dict, b: dict, names=None) -> dict:
@@ -4106,7 +4237,9 @@ def phase_train_i3d(api, counters, failures, card: str) -> None:
        the gradient limit. Against the default tie rule the gap is
        reported, not held (the known divergence: the kernels credit every
        tied maximum). The bf16 default route (the argmax pair) against
-       the same step with the pair's plain versions: equal bits.
+       the same step with the pair's plain versions: equal bits. Each
+       bf16 route's forward and backward on the clips as float32 and as
+       bf16 (the train step casts them): equal bits.
     2. Each route run twice for ``TRAIN_BITS_STEPS`` steps: equal bits
        (parameters, BN statistics) and losses.
     3. ``api.train`` on a generated JPEG tree (3 train batches, 1
@@ -4162,13 +4295,20 @@ def phase_train_i3d(api, counters, failures, card: str) -> None:
               "tol": TRAIN_EQUAL_TOL, "tol_reason": "the argmax pair is bit-equal to its plain versions"})
         require("bf16_default_argmax_vs_plain", _within(gap, TRAIN_EQUAL_TOL), gap)
         del steps
+        # the bf16 step casts the clips to bf16 (as the JAX package's does):
+        # I3D's first conv rounded them to bf16 before, so the bits stay
+        for route in ("bf16_default", "bf16_kernels"):
+            same = _clip_cast_keeps_bits(api, cfg_of[route], clips)
+            emit({"phase": "train_i3d_clip_cast", "card": card, "route": route, "equal_bits": same})
+            require(f"{route}_clip_cast_keeps_bits", same, "float32 and bf16 clips gave other bits")
         # 2, 4, 5, 6: per route, a run on one fixed batch and a second short run
         rows = {}
         for route, cfg in cfg_of.items():
             r = _route_run(api, counters, cfg, clips, labels)
             bits, losses = _bits_run(api, cfg, clips, labels)
             equal = _same_state(bits, r["snapshot"][0]) and losses == r["snapshot"][1]
-            masters = all(t.dtype == torch.float32 for t in r["state"].model.state_dict().values())
+            masters = all(t.dtype == (torch.float32 if t.is_floating_point() else torch.long)
+                          for t in r["state"].model.state_dict().values())
             mine = TRAIN_I3D_KERNELS[route]
             launched = r["launches_per_step"]
             rows[route] = _emit_route("train_i3d", route, r, card, TRAIN_BATCH, {
@@ -4434,6 +4574,220 @@ def phase_records_search(api, counters, failures, card: str) -> None:
             failures.append(f"records_search: equal {equal}, finite {finite}, kept {kept}, launches {launched}")
 
 
+CKPT_CLI_CLIPS, CKPT_CLI_STEPS, CKPT_CLI_SEED = 4, 5, 61
+# the two I3D routes of the `find-masks` runs: flags and the kernels each must launch
+CKPT_CLI_I3D_ROUTES = {
+    "f32_pointwise": (["--use_pallas", "1"], ("pointwise_conv",)),
+    "bf16_default": (["-cdt", "bfloat16"], ARGMAX_COUNTERS),
+}
+# the route run as a `python -m ivf_tpu_torch.cli` process (the other runs `cli.main` in this one)
+CKPT_CLI_PROCESS_ROUTE = "bf16_default"
+CKPT_CLI_CLSTM_FLAGS = ["-cdt", "bfloat16", "-pls", "1"]  # bf16 training on the gate kernel
+CKPT_CLI_TF_SUBJECTS = RECORDS_SUBJECTS[:3]  # one validation clip each
+
+
+def _preset_module(path: Path, preset: Path, **flat) -> str:
+    """A config module (``Config.load`` reads its ``config``) that loads a
+    preset of ``configs/`` as it is and sets the reference's flat keys
+    ``flat``: the output and data folders a run writes and reads."""
+    path.write_text(
+        "import runpy\n\n"
+        f"config = dict(runpy.run_path({str(preset)!r})['config'])\n"
+        f"config.update({flat!r})\n"
+    )
+    return str(path)
+
+
+def _keras_tensors(sd: dict, layers: int) -> dict:
+    """A TF-family ConvLSTM state dict under the Keras graph's names
+    (``video_features_tf/models/clstm.py``): the inverse of
+    ``utils/import_tf.py``'s walk."""
+    out = {}
+    for i in range(layers):
+        sfx = "" if i == 0 else f"_{i}"
+        out[f"conv_lst_m2d{sfx}/kernel"] = sd[f"clstm.cells.{i}.wx"].permute(2, 3, 1, 0)
+        out[f"conv_lst_m2d{sfx}/recurrent_kernel"] = sd[f"clstm.cells.{i}.wh"].permute(2, 3, 1, 0)
+        out[f"conv_lst_m2d{sfx}/bias"] = sd[f"clstm.cells.{i}.bx"]
+        for tf_name, name in (("gamma", "weight"), ("beta", "bias"), ("moving_mean", "running_mean"),
+                              ("moving_variance", "running_var")):
+            out[f"batch_normalization{sfx}/{tf_name}"] = sd[f"clstm.bns.{i}.{name}"]
+    out["dense/kernel"] = sd["end_fc.weight"].t()
+    out["dense/bias"] = sd["end_fc.bias"]
+    return {k: v.detach().cpu().contiguous() for k, v in out.items()}
+
+
+def _pickled_run(run_dir: Path) -> dict:
+    """A find_masks run's records as its two result pickles hold them."""
+    import pickle
+
+    def load(kind):
+        with open(next((run_dir / "results").glob(f"all{kind}Results_*.p")), "rb") as f:
+            return pickle.load(f)
+
+    return {"tm": load("TimeMask"), "gc": load("GradCam")}
+
+
+def phase_checkpoint_cli(api, counters, failures, card: str, weights: dict) -> dict:
+    """Checkpoint I/O and the command line at full width
+    (``python -m ivf_tpu_torch.cli``), each run against the API with the
+    same weights passed in memory.
+
+    I3D (``configs/config_i3d_smth.py`` as loaded: 174 classes,
+    16x224x224; a generated JPEG tree of 4 validation clips; ``-bs 4``,
+    ``opt_iter`` 300 -> 5): the seeded weights exported with the port's
+    exporter to a reference-layout ``.pth.tar``; ``find-masks -c ...
+    --checkpoint <file>`` on the f32 route with ``--use_pallas 1`` through
+    ``cli.main`` in this process (launch counters set to 0 just before and
+    read just after: the pointwise kernel must launch), and on the bf16
+    default route as one ``python -m ivf_tpu_torch.cli`` process (exit 0;
+    the argmax pool pair must launch in the same route's in-memory run);
+    each run's records, the process's as its pickles hold them, equal bit
+    for bit, per clip, to ``api.find_masks`` with the weights in memory.
+
+    ConvLSTM (``configs/config_clstm_kth.py`` as loaded; a generated KTH
+    tree of 16 train and 16 validation clips of 32x120x160): ``cli train
+    -cdt bfloat16 -pls 1`` for one epoch (one step; the all-bf16 gate
+    entries must launch, and no other gate entry), then ``--resume`` to
+    the second epoch, against an uninterrupted two-epoch run: equal bits;
+    ``export-checkpoint`` of that run (its ``model_best``) loads back
+    ``strict=True`` with its bits. The TF family
+    (``configs/config_clstm_kth_records.py`` as loaded, on generated
+    shards of three of its validation subjects, ``val_subjects`` cut to
+    those, ``opt_iter`` 100 -> 5): its seeded
+    weights written as a Keras-named TF bundle with the port's
+    ``save_bundle``; ``find-masks --checkpoint <prefix>`` gives the bits of
+    the in-memory run.
+
+    Returns the all-bf16 gate entries' launches of the first train run
+    (the kernels line's)."""
+    import numpy as np
+
+    from ivf_tpu_torch import cli
+    from ivf_tpu_torch.data.records import RecordWriter
+    from ivf_tpu_torch.utils import export_torch, import_torch, tf_bundle
+    from ivf_tpu_torch.utils.checkpoint import Checkpointer
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    rng = np.random.RandomState(CKPT_CLI_SEED)
+    checks, seconds = {}, {}
+
+    def require(label, ok, detail):
+        if not ok:
+            failures.append(f"checkpoint_cli {label}: {detail}")
+        checks[label] = bool(ok)
+
+    def counted(run):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, {k: fn.launches for k, fn in counters.items() if fn.launches}, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        out_dir = tmp / "out"
+        # ---- I3D from a reference .pth.tar
+        smth = tmp / "smth"
+        _write_jpegs({smth / "validation" / str(i * 41 % CLASSES) / f"clip{i}":
+                      rng.randint(0, 256, (CLIP_T, CLIP_HW, CLIP_HW, 3)).astype(np.uint8)
+                      for i in range(CKPT_CLI_CLIPS)})
+        pth = str(tmp / "i3d.pth.tar")
+        export_torch.save_checkpoint_file(pth, export_torch.i3d_state_dict_to_reference(weights), arch="i3d_smth")
+        i3d_cfg = _preset_module(tmp / "i3d_cfg.py", root / "configs" / "config_i3d_smth.py",
+                                 output_dir=str(out_dir), data_folder=str(smth))
+        common = ["-c", i3d_cfg, "-bs", str(CKPT_CLI_CLIPS), "-opti", str(CKPT_CLI_STEPS)]
+        for route, (flags, kernels) in CKPT_CLI_I3D_ROUTES.items():
+            cli_args = ["find-masks", *common, "--checkpoint", pth, "--subDir", f"cli_{route}", *flags]
+            if route == CKPT_CLI_PROCESS_ROUTE:
+                t0 = time.perf_counter()
+                proc = subprocess.run([sys.executable, "-m", "ivf_tpu_torch.cli", *cli_args], cwd=str(root),
+                                      capture_output=True, text=True, timeout=600)
+                seconds[f"i3d_{route}_process"] = time.perf_counter() - t0
+                require(f"i3d_{route}_process_exit_0", proc.returncode == 0, proc.stderr[-2000:])
+                run = _pickled_run(out_dir / f"cli_{route}") if proc.returncode == 0 else {"tm": [], "gc": []}
+            else:
+                (tm, gc), cli_launched, seconds[f"i3d_{route}_cli"] = counted(lambda: cli.main(cli_args))
+                run = {"tm": tm, "gc": gc}
+            cfg = cli._load_cfg(cli.build_parser().parse_args(
+                ["find-masks", *common, "--subDir", f"api_{route}", *flags]))
+            want, api_launched, seconds[f"i3d_{route}_api"] = counted(
+                lambda: api.find_masks(cfg, weights, split="validation", save_viz=False))
+            launched = api_launched if route == CKPT_CLI_PROCESS_ROUTE else cli_launched
+            require(f"i3d_{route}_cli_equals_api", _same_bits_by_id(run, {"tm": want[0], "gc": want[1]})
+                    and len(run["tm"]) == CKPT_CLI_CLIPS, len(run["tm"]))
+            require(f"i3d_{route}_kernels_launched", all(launched.get(k, 0) > 0 for k in kernels), launched)
+            masks = np.stack([r["time_mask"] for r in run["tm"]]) if run["tm"] else np.full(1, np.nan)
+            require(f"i3d_{route}_finite", np.isfinite(masks).all() and masks.min() >= 0 and masks.max() <= 1
+                    and all(np.isfinite(r["GCHeatMap"]).all() for r in run["gc"]), "masks or CAMs")
+
+        # ---- ConvLSTM: bf16 training through the CLI, resumed, exported
+        kth = tmp / "kth"
+        tags = data_kth_tags(CLSTM_BATCH)
+        for split in ("train", "validation"):
+            _write_jpegs({kth / split / str(i): rng.randint(0, 256, (CLSTM_T, *CLSTM_HW, 3)).astype(np.uint8)
+                          for i in range(CLSTM_BATCH)})
+            for i, tag in enumerate(tags):
+                (kth / split / str(i) / "class.txt").write_text(f"{i % CLSTM_CLASSES}\n")
+                (kth / split / str(i) / "label.txt").write_text(f"{tag}\n")
+        clstm_cfg = _preset_module(tmp / "clstm_cfg.py", root / "configs" / "config_clstm_kth.py",
+                                   output_dir=str(out_dir), data_folder=str(kth))
+        train = ["train", "-c", clstm_cfg, *CKPT_CLI_CLSTM_FLAGS]
+        _, train_launches, seconds["clstm_train_1"] = counted(lambda: cli.main(
+            [*train, "--subDir", "resumed", "-ne", "1"]))
+        gate_entries = CLSTM_GATES["bfloat16"]
+        require("clstm_all_bf16_gates_launched", all(train_launches.get(k, 0) > 0 for k in gate_entries)
+                and not any("lstm_gates" in k and k not in gate_entries for k in train_launches), train_launches)
+        (resumed, _), _, seconds["clstm_train_resume"] = counted(lambda: cli.main(
+            [*train, "--subDir", "resumed", "-ne", "2", "--resume"]))
+        (full, _), _, seconds["clstm_train_2"] = counted(lambda: cli.main([*train, "--subDir", "full", "-ne", "2"]))
+        require("clstm_resume_equal_bits", _same_state(_state_bits(resumed), _state_bits(full)) and
+                resumed.step == full.step == 2, (resumed.step, full.step))
+        exported = str(tmp / "clstm.pth.tar")
+        cli.main(["export-checkpoint", "-c", clstm_cfg, "--checkpoint", str(out_dir / "full"), "--out", exported])
+        cfg = cli._load_cfg(cli.build_parser().parse_args(["train", "-c", clstm_cfg]))
+        m = cfg.model
+        back = import_torch.convlstm_state_dict(
+            import_torch.load_checkpoint_file(exported), image_size=api._clip_hw(cfg), conv_stride=m.conv_stride,
+            pool_kernel=tuple(m.pool_kernel), lstm_layers=m.clstm_layers, nb_lstm_units=m.clstm_hidden)
+        model = api._construct_model(cfg, False)
+        strict = True
+        try:
+            model.load_state_dict(back, strict=True)
+        except RuntimeError:
+            strict = False
+        best = Checkpointer(str(out_dir / "full")).load_variables("model_best")
+        require("clstm_export_loads_strict", strict and _same_state(back, best), "export / import")
+        require("clstm_counts_batches", int(back["clstm.bn.num_batches_tracked"]) > 0,
+                int(back["clstm.bn.num_batches_tracked"]))
+
+        # ---- the TF family from a TF bundle written by the port
+        records = tmp / "records"
+        records.mkdir()
+        for s in CKPT_CLI_TF_SUBJECTS:
+            with RecordWriter(str(records / f"kth_subject_{s}.ivfrecords")) as w:
+                w.write(rng.randint(0, 256, (CLSTM_T, *CLSTM_HW, 3)).astype(np.uint8), label=s % CLSTM_CLASSES,
+                        video_id=f"person{s}_boxing_d1_1", extra={"subject": s})
+        tf_cfg = _preset_module(tmp / "tf_cfg.py", root / "configs" / "config_clstm_kth_records.py",
+                                output_dir=str(out_dir), records_folder=str(records),
+                                val_subjects=CKPT_CLI_TF_SUBJECTS)
+        tf_common = ["-c", tf_cfg, "-opti", str(CKPT_CLI_STEPS)]
+        cfg = cli._load_cfg(cli.build_parser().parse_args(["find-masks", *tf_common, "--subDir", "tf_api"]))
+        tf_weights = _clstm_scaled_weights(api, api.build_dataset(cfg, "validation")[0][0], cfg)
+        prefix = str(tmp / "tf" / "model.ckpt")
+        tf_bundle.save_bundle(prefix, _keras_tensors(tf_weights, cfg.model.clstm_layers))
+        (tm, gc), _, seconds["tf_cli"] = counted(lambda: cli.main(
+            ["find-masks", *tf_common, "--checkpoint", prefix, "--subDir", "tf_cli"]))
+        want = api.find_masks(cfg, tf_weights, split="validation", save_viz=False)
+        require("tf_bundle_cli_equals_api", _same_bits_by_id({"tm": tm, "gc": gc}, {"tm": want[0], "gc": want[1]})
+                and len(gc) > 0, (len(tm), len(gc)))
+    emit({"phase": "checkpoint_cli", "card": card, **checks, "seconds": seconds,
+          "train_launches": train_launches, "phase_seconds": time.perf_counter() - t_phase,
+          "required": "every check true"})
+    return {k: train_launches.get(k, 0) for k in gate_entries}
+
+
 def kernels_line(cases: dict, launches: dict) -> dict:
     """One entry per kernel, timed at its headline main-path shape;
     ``launches`` from the main path that runs it."""
@@ -4466,6 +4820,8 @@ def kernels_line(cases: dict, launches: dict) -> dict:
         headline[f"{name}_bf16"] = headline[name]
     headline["lstm_gates_fwd_bf16"] = headline["lstm_gates_fwd"]
     headline["lstm_gates_bwd_bf16"] = headline["lstm_gates_bwd"]
+    headline["lstm_gates_fwd_bf16s"] = headline["lstm_gates_fwd"]
+    headline["lstm_gates_bwd_bf16s"] = headline["lstm_gates_bwd"]
     out = []
     for name, (site, replaces, source) in headline.items():
         row = next(c for c in cases[name] if c["site"] == site and c.get("relu", True))
@@ -4487,6 +4843,9 @@ def kernels_line(cases: dict, launches: dict) -> dict:
             })
         elif name in BF16_GATE_COUNTERS:
             entry.update({"f32_kernel_ms": row["f32_kernel_ms"], "library": row["library_note"]})
+        elif name in BF16S_GATE_COUNTERS:
+            entry.update({"library": row["library_note"], "cold_ms": row["cold_ms"],
+                          "launches_of": "checkpoint_cli: the bf16 ConvLSTM `cli train` run (2 steps)"})
         out.append(entry)
     return {"kernels": out}
 
@@ -4521,6 +4880,8 @@ def launch_counters() -> dict:
         "fused_pool_conv_tblock_bwd_bf16": fb.fused_pool_conv_tblock_bwd_bf16_cuda,
         "lstm_gates_fwd_bf16": gates.lstm_gates_fwd_bf16_cuda,
         "lstm_gates_bwd_bf16": gates.lstm_gates_bwd_bf16_cuda,
+        "lstm_gates_fwd_bf16s": gates.lstm_gates_fwd_bf16s_cuda,
+        "lstm_gates_bwd_bf16s": gates.lstm_gates_bwd_bf16s_cuda,
     }
 
 
@@ -4570,6 +4931,7 @@ def main() -> int:
     phase_train_clstm(api, counters, failures, info["smi"])
     phase_cnn_3d(api, counters, failures, info["smi"])
     phase_records_search(api, counters, failures, info["smi"])
+    launches.update(phase_checkpoint_cli(api, counters, failures, info["smi"], f32_run["weights"]))
     phase_whole_search(api, counters, failures, info["smi"], f32_run["weights"])
     if failures:
         for f in failures:

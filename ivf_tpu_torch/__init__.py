@@ -23,12 +23,16 @@ names mirror ``ivf_tpu``:
   native/       the loader's batched libjpeg decoder (host C++, built with
                 g++ at first use; PIL where it cannot build)
   utils/        weight conversion from the JAX package's variable tree,
-                checkpoints, result files
-  config.py     the config tree and its preset loading (``Config.load``)
+                checkpoints, result files, TF bundles, the reference
+                TF and torch checkpoint imports and the torch export
+  config.py     the config tree, its preset loading (``Config.load``) and
+                the command-line overrides
   api.py        ``build_model`` / ``build_dataset`` / ``build_loader`` /
                 ``find_masks`` (with its filters, compaction, ``min_score``
                 probe and emission journal) / ``grad_cam_run`` / ``train``
-                / ``init_eval_state`` / ``infer``
+                / ``init_eval_state`` / ``infer``, loading
+                ``pretrained_model_path``
+  cli.py        ``python -m ivf_tpu_torch.cli <command>``
 
 Public tensors keep the JAX layout: clips are ``(B, T, H, W, C)``.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -41,8 +41,13 @@ config: with ``use_pallas`` the I3D's 1x1x1 convs (no bias, no ReLU, then
 BN) and the ConvLSTM's sigmoid gates, with ``pallas_pool`` the branch-3
 pools, in bfloat16 the argmax pool (``_bf16_argmax_upgrade``).
 
-Not ported yet (ROADMAP.md): ``mesh`` (Queue 1 item 13) and
-``pretrained_model_path`` (item 11); both raise.
+``init_eval_state`` and ``train`` load ``ModelConfig.pretrained_model_path``
+(``pretrained_state_dict``): a reference TF bundle, a reference torch
+file or a directory of the port's checkpoints. ``cli.py`` runs the entry
+points from the command line.
+
+Not ported yet (ROADMAP.md): ``mesh`` (Queue 1 item 13), reading a JAX
+orbax checkpoint directory (item 14) and serving (item 12); each raises.
 """
 
 from __future__ import annotations
@@ -1005,12 +1010,67 @@ def _check_no_mesh(mesh) -> None:
         raise NotImplementedError("mesh: data-parallel placement is not ported yet (ROADMAP.md, Queue 1 item 13)")
 
 
-def _check_no_pretrained(cfg: Config) -> None:
-    if cfg.model.pretrained_model_path not in ("", "no_ckpt", None):
-        raise NotImplementedError(
-            "pretrained_model_path: loading reference .pth.tar, TF bundles and orbax "
-            "directories is not ported yet (ROADMAP.md, Queue 1 item 11)"
+def _has_pretrained(cfg: Config) -> bool:
+    return cfg.model.pretrained_model_path not in ("", "no_ckpt", None)
+
+
+def pretrained_state_dict(cfg: Config) -> dict:
+    """The weights ``cfg.model.pretrained_model_path`` names, as the port's
+    state dict (``ivf_tpu/api.py:489-537``): a reference TF Saver prefix
+    (``<path>.index`` exists; ``utils/import_tf.py``), a reference torch
+    file (``.pth`` / ``.pth.tar`` / ``.pt``; ``utils/import_torch.py``, the
+    ConvLSTM's fc permuted for the config's geometry), or a directory of
+    the port's ``utils/checkpoint.py::Checkpointer`` (``model_best``, else
+    ``checkpoint``). A JAX orbax checkpoint directory (its ``checkpoint``
+    is a directory) cannot be read without JAX and raises
+    ``NotImplementedError`` (ROADMAP.md, Queue 1 item 14)."""
+    from ivf_tpu_torch.utils.checkpoint import Checkpointer
+
+    path = cfg.model.pretrained_model_path
+    i3d = "i3d" in cfg.model.conv_model.lower()
+    if os.path.exists(path + ".index"):  # TF Saver prefix
+        from ivf_tpu_torch.utils.import_tf import load_tf_checkpoint
+
+        return load_tf_checkpoint(path, "i3d" if i3d else "clstm")
+    if path.endswith((".pth", ".pth.tar", ".pt")):
+        from ivf_tpu_torch.utils.import_torch import convlstm_state_dict, i3d_state_dict, load_checkpoint_file
+
+        ref = load_checkpoint_file(path)
+        if i3d:
+            return i3d_state_dict(ref)
+        m = cfg.model
+        return convlstm_state_dict(
+            ref, image_size=_clip_hw(cfg), conv_stride=m.conv_stride, pool_kernel=tuple(m.pool_kernel),
+            lstm_layers=m.clstm_layers, nb_lstm_units=m.clstm_hidden,
         )
+    if any(os.path.isdir(os.path.join(path, n)) for n in ("checkpoint", "model_best")):
+        raise NotImplementedError(
+            f"pretrained_model_path {path!r} is a JAX orbax checkpoint directory, which "
+            "cannot be read without JAX (ROADMAP.md, Queue 1 item 14); export it with "
+            "the JAX package's export-checkpoint and pass the .pth.tar"
+        )
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"pretrained_model_path {path!r}: no TF bundle, torch file or checkpoint directory")
+    ckpt = Checkpointer(path)
+    return ckpt.load_variables("model_best" if ckpt.exists("model_best") else "checkpoint")
+
+
+def _load_pretrained(cfg: Config, state):
+    """Load ``pretrained_state_dict(cfg)`` into the state's model in place.
+    Every parameter must be there and every key must be the model's; a BN
+    statistic the file lacks keeps its value, as the JAX package keeps its
+    ``batch_stats`` when the import has none."""
+    sd = pretrained_state_dict(cfg)
+    model = state.model
+    missing = sorted(set(dict(model.named_parameters())) - set(sd))
+    unexpected = sorted(set(sd) - set(model.state_dict()))
+    if missing or unexpected:
+        raise KeyError(
+            f"pretrained_model_path {cfg.model.pretrained_model_path!r} does not fit "
+            f"{cfg.model.conv_model}: missing {missing[:5]}, unexpected {unexpected[:5]}"
+        )
+    model.load_state_dict(sd, strict=False)
+    return state
 
 
 def _train_state(cfg: Config, device, tx=None):
@@ -1052,8 +1112,9 @@ def train(
     included, with its learning rate and best loss; ``test_run`` cuts each
     epoch to 5 batches. ``eval_only`` runs one validation pass with
     predictions instead (float32, as in the JAX package). Returns (state,
-    history), or (state, evaluate's dict) for ``eval_only``. ``mesh`` and a
-    ``pretrained_model_path`` raise ``NotImplementedError``."""
+    history), or (state, evaluate's dict) for ``eval_only``. Without a
+    resume, a ``pretrained_model_path`` is loaded into the fresh state
+    (``pretrained_state_dict``). ``mesh`` raises ``NotImplementedError``."""
     from ivf_tpu_torch.train import PatienceHalving, ReduceLROnPlateau, evaluate, fit, make_eval_step
     from ivf_tpu_torch.train.optim import get_learning_rate
     from ivf_tpu_torch.utils.checkpoint import Checkpointer
@@ -1073,8 +1134,8 @@ def train(
         state, start_epoch, best_loss, batch_offset = ckpt.restore(state)
         at = f" batch {batch_offset}" if batch_offset else ""
         print(f" > resumed from epoch {start_epoch}{at} (best loss {best_loss:.4f})")
-    else:
-        _check_no_pretrained(cfg)
+    elif _has_pretrained(cfg):
+        state = _load_pretrained(cfg, state)
 
     if eval_only:
         res = evaluate(
@@ -1126,13 +1187,15 @@ def train(
 def init_eval_state(cfg: Config, softmax_override: Optional[bool] = None, device=None):
     """(model, state) for inference consumers (``ivf_tpu/api.py:538``): the
     configured model (float32, seeded) with an Adam(1e-3) state on
-    ``device``. A ``pretrained_model_path`` raises (Queue 1 item 11)."""
+    ``device``, loaded from ``pretrained_model_path`` when one is set
+    (``pretrained_state_dict``)."""
     from ivf_tpu_torch.train import build_optimizer
 
-    _check_no_pretrained(cfg)
     if softmax_override is not None:
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, soft_max=softmax_override))
     state = _train_state(cfg, device, tx=build_optimizer("adam", 1e-3))
+    if _has_pretrained(cfg):
+        state = _load_pretrained(cfg, state)
     return state.model.eval(), state
 
 

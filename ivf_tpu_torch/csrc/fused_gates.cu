@@ -1,5 +1,5 @@
-// Fused ConvLSTM gate block, forward and backward: float32, and bfloat16
-// gates with a float32 state.
+// Fused ConvLSTM gate block, forward and backward: float32, bfloat16 gates
+// with a float32 state, and all bfloat16.
 //
 // Replaces the Pallas TPU kernel ivf_tpu/ops/pallas/fused_gates.py,
 // function pallas_gate_math (kernel body _gate_kernel, pallas_call in
@@ -52,6 +52,26 @@
 // 28 forward (8 + 8 bf16 gates, 4 + 8 f32), 44 backward (16 + 8 bf16 in and
 // out of the gates, 20 f32), so layer 1 of clstm_kth moves 8.6 MB (2.6 us)
 // forward and 13.5 MB (4.0 us) backward.
+
+//
+// All-bfloat16 entries (lstm_gates_{fwd,bwd}_bf16s): the JAX package's bf16
+// train step casts the clips to bf16, so its recurrent state, and h', c',
+// their cotangents and dz, are bf16 too. XLA keeps no excess precision where
+// every consumer is bf16, so every operation of the kernel body and of the
+// autodiff of _ref_math rounds to bf16 (the plain version,
+// ops/kernels/fused_gates.py bf16_gate_forward / _gate_math_bwd_bf16, has
+// the JAX package's bits on the CPU); these kernels round at each of those
+// points, with __f*_rn intrinsics so nothing is contracted. Bytes per (row,
+// channel): 22 forward (8 + 8 gates, 2 c, 2 + 2 out), 32 backward (8 + 8
+// gates, 2 c, 2 + 2 cotangents, 8 dz, 2 dc), so layer 1 of clstm_kth moves
+// 6.8 MB (2.0 us) forward and 9.8 MB (2.9 us) backward. But the kernels
+// are bound by their arithmetic, not their bytes: about 150 dependent
+// float32 operations and bf16 roundings an element (accurate expf, tanhf
+// and divisions, so the plain version's bits hold). A thread takes one
+// element of c, as the float32 and bf16-gate kernels do. Threads that owned
+// 2, 4 or 8 consecutive elements (4- to 16-byte vectors) were no faster on
+// the H100 and the wider ones slower: a thread's chains leave too few
+// threads to hide the latency (PERF.md section 6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -198,6 +218,75 @@ lstm_gates_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ gx,
   }
 }
 
+// ---- all bfloat16 -----------------------------------------------------------
+
+// One (row, channel): z[4] = bf16(gx + gh) float-held, c bf16 float-held.
+__device__ __forceinline__ void gate_fwd_bf16s(const float z[4], float c, float& h, float& cn) {
+  const float i = bf16r(sigmoid_bf16(z[0]));
+  const float f = bf16r(sigmoid_bf16(z[1]));
+  const float g = bf16r(tanhf(z[2]));
+  const float o = bf16r(sigmoid_bf16(z[3]));
+  cn = bf16r(__fadd_rn(bf16r(__fmul_rn(f, c)), bf16r(__fmul_rn(i, g))));
+  h = bf16r(__fmul_rn(o, bf16r(tanhf(cn))));
+}
+
+// The autodiff of _ref_math, every op rounded; dz[4] and dc before their
+// last rounding, which the store does.
+__device__ __forceinline__ void gate_bwd_bf16s(const float z[4], float c, float dh, float dco,
+                                               float dz[4], float& dc) {
+  const float i = bf16r(sigmoid_bf16(z[0]));
+  const float f = bf16r(sigmoid_bf16(z[1]));
+  const float g = bf16r(tanhf(z[2]));
+  const float o = bf16r(sigmoid_bf16(z[3]));
+  const float tc = bf16r(tanhf(bf16r(__fadd_rn(bf16r(__fmul_rn(f, c)), bf16r(__fmul_rn(i, g))))));
+  const float e = bf16r(__fmul_rn(bf16r(__fmul_rn(o, dh)), bf16r(__fsub_rn(1.f, tc))));
+  const float dcn = bf16r(__fadd_rn(bf16r(__fadd_rn(dco, e)), bf16r(__fmul_rn(e, tc))));
+  const float dzc = bf16r(__fmul_rn(bf16r(__fmul_rn(i, dcn)), bf16r(__fsub_rn(1.f, g))));
+  dz[0] = __fmul_rn(bf16r(__fmul_rn(dcn, g)), bf16r(__fmul_rn(i, bf16r(__fsub_rn(1.f, i)))));
+  dz[1] = __fmul_rn(bf16r(__fmul_rn(dcn, c)), bf16r(__fmul_rn(f, bf16r(__fsub_rn(1.f, f)))));
+  dz[2] = __fadd_rn(dzc, bf16r(__fmul_rn(dzc, g)));
+  dz[3] = __fmul_rn(bf16r(__fmul_rn(dh, tc)), bf16r(__fmul_rn(o, bf16r(__fsub_rn(1.f, o)))));
+  dc = __fmul_rn(f, dcn);
+}
+
+__global__ void __launch_bounds__(kThreads)
+lstm_gates_fwd_bf16s_kernel(const __nv_bfloat16* __restrict__ gx,
+                            const __nv_bfloat16* __restrict__ gh,
+                            const __nv_bfloat16* __restrict__ c, __nv_bfloat16* __restrict__ h_out,
+                            __nv_bfloat16* __restrict__ c_out, long long n, int ch) {
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       e < n; e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long p = e / ch;
+    const int k = static_cast<int>(e - p * ch);
+    float z[4], h, cn;
+    load_gates(gx, gh, p * 4 * ch + k, ch, z);
+    gate_fwd_bf16s(z, __bfloat162float(c[e]), h, cn);
+    h_out[e] = __float2bfloat16_rn(h);
+    c_out[e] = __float2bfloat16_rn(cn);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+lstm_gates_bwd_bf16s_kernel(const __nv_bfloat16* __restrict__ gx,
+                            const __nv_bfloat16* __restrict__ gh,
+                            const __nv_bfloat16* __restrict__ c, const __nv_bfloat16* __restrict__ dh,
+                            const __nv_bfloat16* __restrict__ dc_out, __nv_bfloat16* __restrict__ dz,
+                            __nv_bfloat16* __restrict__ dc, long long n, int ch) {
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       e < n; e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long p = e / ch;
+    const int k = static_cast<int>(e - p * ch);
+    const long long base = p * 4 * ch + k;
+    float z[4], d[4], dcv;
+    load_gates(gx, gh, base, ch, z);
+    gate_bwd_bf16s(z, __bfloat162float(c[e]), __bfloat162float(dh[e]), __bfloat162float(dc_out[e]),
+                   d, dcv);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) dz[base + g * ch] = __float2bfloat16_rn(d[g]);
+    dc[e] = __float2bfloat16_rn(dcv);
+  }
+}
+
 int grid_for(long long n) {
   // enough blocks to fill the card several times over; the loop strides
   // over the rest
@@ -254,6 +343,30 @@ extern "C" int lstm_gates_bwd_bf16(const __nv_bfloat16* gx, const __nv_bfloat16*
   if (rows <= 0 || ch <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long n = rows * ch;
   lstm_gates_bwd_bf16_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      gx, gh, c, dh, dc_out, dz, dc, n, ch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As lstm_gates_fwd_f32, all bfloat16: gx, gh (may be null), c, h_out,
+// c_out.
+extern "C" int lstm_gates_fwd_bf16s(const __nv_bfloat16* gx, const __nv_bfloat16* gh,
+                                    const __nv_bfloat16* c, __nv_bfloat16* h_out,
+                                    __nv_bfloat16* c_out, long long rows, int ch, void* stream) {
+  if (rows <= 0 || ch <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = rows * ch;
+  lstm_gates_fwd_bf16s_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      gx, gh, c, h_out, c_out, n, ch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As lstm_gates_bwd_f32, all bfloat16.
+extern "C" int lstm_gates_bwd_bf16s(const __nv_bfloat16* gx, const __nv_bfloat16* gh,
+                                    const __nv_bfloat16* c, const __nv_bfloat16* dh,
+                                    const __nv_bfloat16* dc_out, __nv_bfloat16* dz,
+                                    __nv_bfloat16* dc, long long rows, int ch, void* stream) {
+  if (rows <= 0 || ch <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = rows * ch;
+  lstm_gates_bwd_bf16s_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       gx, gh, c, dh, dc_out, dz, dc, n, ch);
   return static_cast<int>(cudaGetLastError());
 }

@@ -57,7 +57,13 @@ class TorchBatchNorm(nn.Module):
     The batch statistics are taken in float32 and rounded to the input's
     dtype, as ``jnp.mean`` / ``jnp.var`` give them for a bfloat16 input;
     the running statistics keep their own dtype (float32 in training, the
-    master copy). The I3D reference uses eps=1e-3, momentum=0.01."""
+    master copy). The I3D reference uses eps=1e-3, momentum=0.01.
+
+    ``num_batches_tracked`` is torch's: a long scalar buffer that each
+    training-mode call adds one to (the statistics' update does not read
+    it, the momentum being fixed), so reference ``.pth.tar`` files load
+    with ``strict=True`` and exported ones carry it. A state dict without
+    it loads with 0, as torch's BatchNorm loads one of its old layout."""
 
     def __init__(self, channels: int, eps: float = 1e-3, momentum: float = 0.01):
         super().__init__()
@@ -67,7 +73,14 @@ class TorchBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
         self.eval()
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        key = prefix + "num_batches_tracked"
+        if key not in state_dict:
+            state_dict[key] = torch.zeros_like(self.num_batches_tracked)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     @torch.no_grad()
     def reset_parameters(self) -> None:
@@ -76,6 +89,7 @@ class TorchBatchNorm(nn.Module):
         self.bias.zero_()
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
+        self.num_batches_tracked.zero_()
 
     def fold(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The eval-mode affine ``(s, t)`` with ``bn(x) = x * s + t``."""
@@ -98,6 +112,7 @@ class TorchBatchNorm(nn.Module):
                 unbiased = var * (n / max(n - 1, 1))
                 rm.copy_((1 - m) * rm + (m * mean).to(rm.dtype))
                 rv.copy_((1 - m) * rv + (m * unbiased).to(rv.dtype))
+                self.num_batches_tracked.add_(1)
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
 

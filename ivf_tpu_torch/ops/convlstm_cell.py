@@ -21,7 +21,12 @@ from typing import Optional, Tuple
 import torch
 
 from ivf_tpu_torch.ops.conv import conv2d_same_torch
-from ivf_tpu_torch.ops.kernels.fused_gates import gate_math, mixed_gate_forward, sigmoid_bf16
+from ivf_tpu_torch.ops.kernels.fused_gates import (
+    bf16_gate_forward,
+    gate_math,
+    mixed_gate_forward,
+    sigmoid_bf16,
+)
 
 
 def keras_hard_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -50,11 +55,13 @@ def fused_gate_math(
     """The gate block in plain PyTorch. gates_*: (..., 4 Ch) in (i, f, c, o)
     order, ``gates_h`` None when the x- and h-convs were merged. Returns
     (h', c') in c's dtype. bfloat16 gates with a float32 c (the JAX
-    package's bf16 search) round where XLA rounds that jnp math
-    (``fused_gates.mixed_gate_forward``)."""
-    if gates_x.dtype == torch.bfloat16 and c.dtype == torch.float32:
+    package's bf16 search) or a bfloat16 c (its bf16 train step) round
+    where XLA rounds that jnp math (``fused_gates.mixed_gate_forward``,
+    ``fused_gates.bf16_gate_forward``)."""
+    if gates_x.dtype == torch.bfloat16 and c.dtype in (torch.float32, torch.bfloat16):
         act = _hard_sigmoid_bf16 if recurrent_activation == "hard_sigmoid" else sigmoid_bf16
-        return mixed_gate_forward(gates_x, gates_h, c, act)
+        block = mixed_gate_forward if c.dtype == torch.float32 else bf16_gate_forward
+        return block(gates_x, gates_h, c, act)
     hidden = c.shape[-1]
     z = gates_x if gates_h is None else gates_x + gates_h
     zi, zf, zc, zo = torch.split(z, hidden, dim=-1)

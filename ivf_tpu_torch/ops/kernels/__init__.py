@@ -3,7 +3,8 @@ version.
 
   pointwise_conv.py  <- ivf_tpu/ops/pallas/pointwise_conv.py (float32, bfloat16)
   maxpool3d.py       <- ivf_tpu/ops/pallas/maxpool3d.py (float32, bfloat16)
-  fused_gates.py     <- ivf_tpu/ops/pallas/fused_gates.py (float32; bf16 gates, float32 state)
+  fused_gates.py     <- ivf_tpu/ops/pallas/fused_gates.py (float32; bf16 gates with a float32
+                        or a bf16 state)
   fused_branch3.py   <- ivf_tpu/ops/pallas/fused_branch3.py (both variants; float32, bfloat16)
   argmax_pool.py     <- ivf_tpu/ops/conv.py::_max_pool3d_same_argmax (not Pallas)
   build.py           nvcc build + ctypes binding of ``csrc/*.cu``

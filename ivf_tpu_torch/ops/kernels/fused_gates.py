@@ -25,9 +25,10 @@ and ``dz`` is the gradient of both ``gates_x`` and ``gates_h``.
 bfloat16: the JAX package's bf16 search hands the kernel bfloat16 gates
 (its convs cast to the weights' dtype) and a float32 state (the carry
 keeps the clip's dtype), and returns ``h'`` and ``c'`` in ``c``'s dtype.
-That mixed case, and the all-float32 one, are the two this module takes;
-any other mix raises ``TypeError``. Its arithmetic is the JAX package's on
-the CPU, rounding where XLA rounds:
+Its bf16 train step casts the clips to bfloat16, so there the state is
+bfloat16 too. Those two cases, and the all-float32 one, are the three
+this module takes; any other mix raises ``TypeError``. The mixed case's
+arithmetic is the JAX package's on the CPU, rounding where XLA rounds:
 
 * forward (the Pallas kernel body, compiled as one fusion):
   ``z = bf16(gates_x + gates_h)``; XLA's bf16 logistic
@@ -39,9 +40,17 @@ the CPU, rounding where XLA rounds:
   operation of its jaxpr rounds, the float32 ones do not; ``dz`` is
   bfloat16 and ``dc`` float32.
 
-The kernel entries ``lstm_gates_{fwd,bwd}_bf16`` compute in float32
-registers and round at the same points; they count their launches apart
-from the float32 entries.
+All bfloat16 (gates, c, and so h', c', dh', dc', dz, dc): XLA keeps no
+excess precision where every consumer is bfloat16, so every operation of
+the Pallas kernel body and of the ``_ref_math`` autodiff rounds, the
+logistic ``bf16(1 / bf16(1 + bf16(exp(-x))))`` included
+(``bf16_gate_forward``, ``_gate_math_bwd_bf16``; the compiled HLO of both
+shows a bf16 convert after every op).
+
+The kernel entries ``lstm_gates_{fwd,bwd}_bf16`` (bf16 gates, f32 state)
+and ``lstm_gates_{fwd,bwd}_bf16s`` (all bf16) compute in float32
+registers and round at the same points; each pair counts its launches
+apart from the others.
 """
 
 from __future__ import annotations
@@ -112,18 +121,44 @@ def mixed_gate_forward(gates_x, gates_h, c, act) -> Tuple[torch.Tensor, torch.Te
     return act(zo) * torch.tanh(new_c), new_c
 
 
+def bf16_gate_forward(gates_x, gates_h, c, act) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gate block with bfloat16 gates and a bfloat16 c as XLA compiles
+    the JAX package's gate math on the CPU: every op rounds to bfloat16.
+    ``act`` gives a gate's bf16 activation before its last rounding.
+    Differentiable (through ``act``'s and the casts' backward); returns
+    bfloat16 (h', c')."""
+    zi, zf, zc, zo = _mixed_z(gates_x, gates_h, c)
+    i, f, o = _bf16(act(zi)), _bf16(act(zf)), _bf16(act(zo))
+    new_c = _bf16(_bf16(f * c.float()) + _bf16(i * _bf16(torch.tanh(zc))))
+    return _bf16(o * _bf16(torch.tanh(new_c))).bfloat16(), new_c.bfloat16()
+
+
 def _mixed(gates_x: torch.Tensor) -> bool:
     return gates_x.dtype == torch.bfloat16
 
 
+def _all_bf16(c: torch.Tensor) -> bool:
+    return c.dtype == torch.bfloat16
+
+
+# the (gates, state) dtypes of each kernel entry pair, by its C name's suffix
+_DTYPES = {
+    "f32": (torch.float32, torch.float32),
+    "bf16": (torch.bfloat16, torch.float32),
+    "bf16s": (torch.bfloat16, torch.bfloat16),
+}
+
+
 def check_dtypes(gates_x, gates_h, c) -> None:
-    """The two dtype cases of the JAX paths: all float32, or bfloat16
-    gates with a float32 state. Anything else raises ``TypeError``."""
+    """The three dtype cases of the JAX paths: all float32, bfloat16 gates
+    with a float32 state, or all bfloat16. Anything else raises
+    ``TypeError``."""
     gh = gates_x.dtype if gates_h is None else gates_h.dtype
-    if c.dtype != torch.float32 or gates_x.dtype != gh or gh not in (torch.float32, torch.bfloat16):
+    if gates_x.dtype != gh or (gh, c.dtype) not in _DTYPES.values():
         raise TypeError(
             f"fused_gates: gates {gates_x.dtype}/{gh} with state {c.dtype}; the kernels "
-            "take float32 gates or bfloat16 gates, each with a float32 state"
+            "take float32 gates with a float32 state, or bfloat16 gates with a float32 "
+            "or a bfloat16 state"
         )
 
 
@@ -133,6 +168,8 @@ def gate_math_plain(
     """The plain forward, the JAX package's jnp twin ``_ref_math`` (with
     bf16 gates, the Pallas kernel's rounding): returns (h', c') in c's
     dtype."""
+    if _all_bf16(c):
+        return bf16_gate_forward(gates_x, gates_h, c, sigmoid_bf16)
     if _mixed(gates_x):
         return mixed_gate_forward(gates_x, gates_h, c, sigmoid_bf16)
     i, f, g, o = _gates(gates_x, gates_h, c)
@@ -164,6 +201,29 @@ def _gate_math_bwd_mixed(gates_x, gates_h, c, dh, dc_out):
     return dz.bfloat16(), f * dcn
 
 
+def _gate_math_bwd_bf16(gates_x, gates_h, c, dh, dc_out):
+    """The autodiff of ``_ref_math`` all in bfloat16, op by op in the order
+    of its compiled HLO, every op rounded; returns bfloat16 (dz, dc)."""
+    b = _bf16
+    zi, zf, zc, zo = _mixed_z(gates_x, gates_h, c)
+    i, f, g, o = (b(sigmoid_bf16(zi)), b(sigmoid_bf16(zf)), b(torch.tanh(zc)), b(sigmoid_bf16(zo)))
+    cf, dh, dc_out = c.float(), dh.float(), dc_out.float()
+    tc = b(torch.tanh(b(b(f * cf) + b(i * g))))
+    e = b(b(o * dh) * b(1 - tc))
+    dcn = b(b(dc_out + e) + b(e * tc))  # dc' + dh o (1 - tanh(c')^2)
+    dzc = b(b(i * dcn) * b(1 - g))
+    dz = torch.cat(
+        [
+            b(dcn * g) * b(i * b(1 - i)),
+            b(dcn * cf) * b(f * b(1 - f)),
+            dzc + b(dzc * g),
+            b(dh * tc) * b(o * b(1 - o)),
+        ],
+        dim=-1,
+    )
+    return dz.bfloat16(), (f * dcn).bfloat16()
+
+
 def gate_math_bwd_plain(
     gates_x: torch.Tensor,
     gates_h: Optional[torch.Tensor],
@@ -173,7 +233,9 @@ def gate_math_bwd_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain backward, the formulas of the module docstring (with bf16
     gates, the JAX autodiff's rounding): returns (dz (..., 4 Ch) in the
-    gates' dtype, dc (..., Ch) float32)."""
+    gates' dtype, dc (..., Ch) in c's dtype)."""
+    if _all_bf16(c):
+        return _gate_math_bwd_bf16(gates_x, gates_h, c, dh, dc_out)
     if _mixed(gates_x):
         return _gate_math_bwd_mixed(gates_x, gates_h, c, dh, dc_out)
     i, f, g, o = _gates(gates_x, gates_h, c)
@@ -195,7 +257,7 @@ def gate_math_bwd_plain(
 def _lib() -> ctypes.CDLL:
     lib = build.library("fused_gates")
     ptr, rows_ch = ctypes.c_void_p, [ctypes.c_longlong, ctypes.c_int]
-    for suffix in ("f32", "bf16"):
+    for suffix in _DTYPES:
         fwd, bwd = getattr(lib, f"lstm_gates_fwd_{suffix}"), getattr(lib, f"lstm_gates_bwd_{suffix}")
         fwd.argtypes = [ptr] * 5 + rows_ch + [ptr]
         fwd.restype = ctypes.c_int
@@ -204,11 +266,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda_operands(gates_x, gates_h, c, gate_dtype, *state_like) -> None:
-    named = [("gates_x", gates_x, gate_dtype), ("c", c, torch.float32)]
+def _check_cuda_operands(gates_x, gates_h, c, gate_dtype, state_dtype, *state_like) -> None:
+    named = [("gates_x", gates_x, gate_dtype), ("c", c, state_dtype)]
     if gates_h is not None:
         named.append(("gates_h", gates_h, gate_dtype))
-    named += [(f"grad{k}", t, torch.float32) for k, t in enumerate(state_like)]
+    named += [(f"grad{k}", t, state_dtype) for k, t in enumerate(state_like)]
     for name, t, dtype in named:
         if not t.is_cuda or t.device != c.device:
             raise ValueError(f"fused_gates: {name} must be on {c.device}")
@@ -231,8 +293,8 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch_fwd(suffix, gate_dtype, counter, gates_x, gates_h, c):
-    _check_cuda_operands(gates_x, gates_h, c, gate_dtype)
+def _launch_fwd(suffix, counter, gates_x, gates_h, c):
+    _check_cuda_operands(gates_x, gates_h, c, *_DTYPES[suffix])
     h_out, c_out = torch.empty_like(c), torch.empty_like(c)
     if c.numel() == 0:
         return h_out, c_out
@@ -247,8 +309,8 @@ def _launch_fwd(suffix, gate_dtype, counter, gates_x, gates_h, c):
     return h_out, c_out
 
 
-def _launch_bwd(suffix, gate_dtype, counter, gates_x, gates_h, c, dh, dc_out):
-    _check_cuda_operands(gates_x, gates_h, c, gate_dtype, dh, dc_out)
+def _launch_bwd(suffix, counter, gates_x, gates_h, c, dh, dc_out):
+    _check_cuda_operands(gates_x, gates_h, c, *_DTYPES[suffix], dh, dc_out)
     dz, dc = torch.empty_like(gates_x), torch.empty_like(c)
     if c.numel() == 0:
         return dz, dc
@@ -269,7 +331,7 @@ def lstm_gates_fwd_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``lstm_gates_fwd_f32``; returns (h', c'). Counts its launches
     in ``lstm_gates_fwd_cuda.launches``."""
-    return _launch_fwd("f32", torch.float32, lstm_gates_fwd_cuda, gates_x, gates_h, c)
+    return _launch_fwd("f32", lstm_gates_fwd_cuda, gates_x, gates_h, c)
 
 
 def lstm_gates_bwd_cuda(
@@ -281,7 +343,7 @@ def lstm_gates_bwd_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``lstm_gates_bwd_f32``; returns (dz, dc). Counts its launches
     in ``lstm_gates_bwd_cuda.launches``."""
-    return _launch_bwd("f32", torch.float32, lstm_gates_bwd_cuda, gates_x, gates_h, c, dh, dc_out)
+    return _launch_bwd("f32", lstm_gates_bwd_cuda, gates_x, gates_h, c, dh, dc_out)
 
 
 def lstm_gates_fwd_bf16_cuda(
@@ -289,7 +351,7 @@ def lstm_gates_fwd_bf16_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``lstm_gates_fwd_bf16``: bfloat16 gates, float32 c; returns
     float32 (h', c'). Counts in ``lstm_gates_fwd_bf16_cuda.launches``."""
-    return _launch_fwd("bf16", torch.bfloat16, lstm_gates_fwd_bf16_cuda, gates_x, gates_h, c)
+    return _launch_fwd("bf16", lstm_gates_fwd_bf16_cuda, gates_x, gates_h, c)
 
 
 def lstm_gates_bwd_bf16_cuda(
@@ -301,21 +363,48 @@ def lstm_gates_bwd_bf16_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``lstm_gates_bwd_bf16``; returns (dz bfloat16, dc float32).
     Counts in ``lstm_gates_bwd_bf16_cuda.launches``."""
-    return _launch_bwd(
-        "bf16", torch.bfloat16, lstm_gates_bwd_bf16_cuda, gates_x, gates_h, c, dh, dc_out
-    )
+    return _launch_bwd("bf16", lstm_gates_bwd_bf16_cuda, gates_x, gates_h, c, dh, dc_out)
 
 
-for _fn in (
-    lstm_gates_fwd_cuda, lstm_gates_bwd_cuda, lstm_gates_fwd_bf16_cuda, lstm_gates_bwd_bf16_cuda
-):
-    _fn.launches = 0
+def lstm_gates_fwd_bf16s_cuda(
+    gates_x: torch.Tensor, gates_h: Optional[torch.Tensor], c: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``lstm_gates_fwd_bf16s``: bfloat16 gates and c; returns
+    bfloat16 (h', c'). Counts in ``lstm_gates_fwd_bf16s_cuda.launches``."""
+    return _launch_fwd("bf16s", lstm_gates_fwd_bf16s_cuda, gates_x, gates_h, c)
+
+
+def lstm_gates_bwd_bf16s_cuda(
+    gates_x: torch.Tensor,
+    gates_h: Optional[torch.Tensor],
+    c: torch.Tensor,
+    dh: torch.Tensor,
+    dc_out: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``lstm_gates_bwd_bf16s``: everything bfloat16; returns (dz,
+    dc). Counts in ``lstm_gates_bwd_bf16s_cuda.launches``."""
+    return _launch_bwd("bf16s", lstm_gates_bwd_bf16s_cuda, gates_x, gates_h, c, dh, dc_out)
+
+
+_ENTRIES = {  # suffix -> (forward, backward) wrappers
+    "f32": (lstm_gates_fwd_cuda, lstm_gates_bwd_cuda),
+    "bf16": (lstm_gates_fwd_bf16_cuda, lstm_gates_bwd_bf16_cuda),
+    "bf16s": (lstm_gates_fwd_bf16s_cuda, lstm_gates_bwd_bf16s_cuda),
+}
+
+
+for _pair in _ENTRIES.values():
+    for _fn in _pair:
+        _fn.launches = 0
+
+
+def _entries(gates_x, c):
+    return _ENTRIES[next(k for k, dts in _DTYPES.items() if dts == (gates_x.dtype, c.dtype))]
 
 
 def _forward(gates_x, gates_h, c):
     if c.is_cuda:
-        fn = lstm_gates_fwd_bf16_cuda if _mixed(gates_x) else lstm_gates_fwd_cuda
-        return fn(gates_x, gates_h, c)
+        return _entries(gates_x, c)[0](gates_x, gates_h, c)
     if c.device.type == "cpu":
         return gate_math_plain(gates_x, gates_h, c)
     raise RuntimeError(f"fused_gates: no kernel for device {c.device}")
@@ -323,8 +412,7 @@ def _forward(gates_x, gates_h, c):
 
 def _backward(gates_x, gates_h, c, dh, dc_out):
     if c.is_cuda:
-        fn = lstm_gates_bwd_bf16_cuda if _mixed(gates_x) else lstm_gates_bwd_cuda
-        return fn(gates_x, gates_h, c, dh, dc_out)
+        return _entries(gates_x, c)[1](gates_x, gates_h, c, dh, dc_out)
     if c.device.type == "cpu":
         return gate_math_bwd_plain(gates_x, gates_h, c, dh, dc_out)
     raise RuntimeError(f"fused_gates: no kernel for device {c.device}")
@@ -351,7 +439,8 @@ def gate_math(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sigmoid-gate LSTM block over contiguous gates (..., 4 Ch) in
     (i, f, c, o) order and state c (..., Ch); ``gates_h`` may be None.
-    Gates float32 or bfloat16, c float32 (``check_dtypes``). Returns
-    (h', c') in float32; differentiable in all three."""
+    Gates float32 with c float32, or gates bfloat16 with c float32 or
+    bfloat16 (``check_dtypes``). Returns (h', c') in c's dtype;
+    differentiable in all three."""
     check_dtypes(gates_x, gates_h, c)
     return _GateMath.apply(gates_x, gates_h, c)

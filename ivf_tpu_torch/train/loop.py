@@ -11,18 +11,20 @@
     the float32 masters;
   * BatchNorm running statistics update in the forward (training mode);
     dropout draws from ``train/state.py::step_generator(seed, step)``;
-  * uint8 clips are cast to float32 once on the device;
+  * uint8 clips are cast once on the device (to float32, or bfloat16 in
+    the bf16 step);
   * ``compute_dtype='bfloat16'``: mixed precision. The forward and backward
     run on a differentiable bfloat16 copy of the parameters
     (``torch.func.functional_call``), while the master parameters, the
     optimizer state, the BN running statistics (updated in float32 from
     the batch's bfloat16 statistics), the loss and the gradients stay
-    float32, as ``ivf_tpu/train/loop.py:66-137`` keeps them. The clips stay
-    float32 up to the first conv, which rounds them to bfloat16 (exact for
-    uint8 pixels): I3D and ``cnn_3d`` see the JAX package's values; the
-    ConvLSTM's state stays float32 (bfloat16 gates, as in the search),
-    where the JAX package's train step carries a bfloat16 state (a known
-    divergence, queued in ROADMAP.md's Queue 3).
+    float32, as ``ivf_tpu/train/loop.py:66-137`` keeps them. The clips are
+    cast to bfloat16 on the device, as ``ivf_tpu/train/loop.py:87-90``
+    casts them (exact for uint8 pixels): I3D's and ``cnn_3d``'s first conv
+    rounds its input to bfloat16 either way, and the ConvLSTM, whose zero
+    carry takes the clip's dtype, carries a bfloat16 state through the
+    all-bfloat16 gate block, as the JAX package's does; the bf16 eval step
+    casts them too. The search keeps float32 clips and a float32 state.
 
 Metric reads are deferred: ``train_epoch`` keeps each step's device
 scalars and reads them in bulk every 64 steps, at print points and at the
@@ -63,11 +65,11 @@ def _kernel_l2_penalty(params: Dict[str, torch.Tensor], coeff: float) -> torch.T
     return coeff * total
 
 
-def _device_inputs(model, clips: torch.Tensor, labels: torch.Tensor):
+def _device_inputs(model, clips: torch.Tensor, labels: torch.Tensor, dtype=torch.float32):
     dev = next(model.parameters()).device
     clips, labels = clips.to(dev), labels.to(dev)
-    if clips.dtype == torch.uint8:
-        clips = clips.float()
+    if clips.dtype in (torch.uint8, torch.float32):
+        clips = clips.to(dtype)
     return clips, labels
 
 
@@ -80,7 +82,7 @@ def make_train_step(loss_type: str = "cross_entropy", kernel_l2: float = 0.0, co
     @reference_numerics_fn
     def train_step(state: TrainState, clips: torch.Tensor, labels: torch.Tensor):
         model = state.model.train()
-        clips, labels = _device_inputs(model, clips, labels)
+        clips, labels = _device_inputs(model, clips, labels, torch.bfloat16 if bf16 else torch.float32)
         set_dropout_generator(model, step_generator(state.seed, state.step, clips.device))
         params = state.params()
         try:
@@ -109,7 +111,8 @@ def make_eval_step(loss_type: str = "cross_entropy", compute_dtype: str = "float
     float32 ``logits``. In bfloat16 the model runs as ``find_masks`` runs
     it (``precision.inference_model``): a bfloat16 copy of the float32
     master, made once per state step, so an evaluation between two train
-    steps casts once."""
+    steps casts once; the clips are cast to bfloat16 as the train step
+    casts them (``ivf_tpu/train/loop.py:148-151``)."""
     bf16 = compute_dtype == "bfloat16"
     copy_of = {}
 
@@ -124,7 +127,7 @@ def make_eval_step(loss_type: str = "cross_entropy", compute_dtype: str = "float
     @reference_numerics_fn
     def eval_step(state: TrainState, clips: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
         model = bf16_copy(state) if bf16 else state.model.eval()
-        clips, labels = _device_inputs(model, clips, labels)
+        clips, labels = _device_inputs(model, clips, labels, torch.bfloat16 if bf16 else torch.float32)
         logits = model(clips).float()
         loss = _compute_loss(logits, labels, loss_type)
         top1, top5 = topk_accuracy(logits, labels, (1, 5))

@@ -8,8 +8,11 @@ optimizer state, the epoch, the step, the run's seed, the best loss and,
 for a mid-epoch save, the batch offset, so a run resumes exactly. Every
 file is written to a temporary name in the directory and renamed over the
 old one, so a crash mid-write leaves the previous checkpoint whole.
-Reading the JAX package's orbax directories is not ported (ROADMAP.md,
-Queue 1 item 11).
+``api.pretrained_state_dict`` reads such a directory as a
+``pretrained_model_path`` (``load_variables``). Reading the JAX package's
+orbax directories needs JAX and is not ported (ROADMAP.md, Queue 1 item
+14): the JAX package's ``export-checkpoint`` turns one into a ``.pth.tar``
+the port imports.
 """
 
 from __future__ import annotations

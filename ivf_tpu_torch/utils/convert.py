@@ -28,6 +28,12 @@ def _t(arr) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.array(arr, dtype=np.float32)))
 
 
+def _count() -> torch.Tensor:
+    """A BN's ``num_batches_tracked``: the JAX tree keeps no count, so 0,
+    as the JAX package's exporter writes it."""
+    return torch.zeros((), dtype=torch.long)
+
+
 def i3d_variables_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
 
@@ -53,6 +59,7 @@ def i3d_variables_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch
                 walk_stats(v, scope + (k,))
             elif k == "mean":
                 sd[key(scope, "running_mean")] = _t(v)
+                sd[key(scope, "num_batches_tracked")] = _count()
             elif k == "var":
                 sd[key(scope, "running_var")] = _t(v)
 
@@ -66,6 +73,7 @@ def _bn_entries(sd, prefix, params, stats) -> None:
     sd[prefix + ".bias"] = _t(params["bias"])
     sd[prefix + ".running_mean"] = _t(stats["mean"])
     sd[prefix + ".running_var"] = _t(stats["var"])
+    sd[prefix + ".num_batches_tracked"] = _count()
 
 
 def convlstm_variables_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -39,6 +39,16 @@ RECORD_KEYS = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: where test workers share the cores, threads
+    that wait on each other make the port's runs many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_variables(model, seed=0, logit_scale=0.005):
     rng = np.random.RandomState(seed)
     tree = jax.eval_shape(model.init, jax.random.PRNGKey(0), jnp.zeros((1, 8, 32, 32, 3)))
@@ -205,7 +215,7 @@ IMPL_TOL = {"argmax_full": (1e-4, 1e-5), "shift": (0.05, 0.05), "eqbwd": (0.05, 
         ("model.pool_impl", "select_and_scatter"),
     ],
 )
-def test_unported_settings_raise(jax_run, tmp_path, field, value):
+def test_pool_impls_match_jax_and_unported_settings_raise(jax_run, tmp_path, field, value):
     """What the port lacks raises (``cnn_3d``, and a pool impl the JAX
     package does not have either); nothing falls back. The pool impls the
     port added since run ``find_masks`` and match the JAX package's
@@ -242,13 +252,13 @@ def _port_modules():
 
 def test_importing_the_port_loads_no_jax():
     """Every module of the package, imported in a fresh interpreter, leaves
-    jax, ivf_tpu, cv2 and matplotlib out of sys.modules."""
+    jax, ivf_tpu, ml_dtypes, cv2 and matplotlib out of sys.modules."""
     code = (
         "import importlib, sys\n"
         f"for name in {_port_modules()!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'ivf_tpu', 'cv2', 'matplotlib'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'ivf_tpu', 'ml_dtypes', 'cv2', 'matplotlib'))\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -262,8 +272,9 @@ def test_importing_the_port_loads_no_jax():
 @pytest.mark.parametrize("module", _port_modules())
 def test_port_sources_import_nothing_of_jax(module):
     """No import statement of the package names jax, its libraries,
-    ivf_tpu (the port copies what it needs instead), cv2 or matplotlib (the
-    card host has neither; the port renders with numpy and Pillow)."""
+    ivf_tpu (the port copies what it needs instead), ml_dtypes, cv2 or
+    matplotlib (the card host has none of the last three; the port reads
+    bfloat16 through torch and renders with numpy and Pillow)."""
     path = PKG_DIR.parent.joinpath(*module.split("."))
     path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
     tree = ast.parse(path.read_text())
@@ -273,5 +284,5 @@ def test_port_sources_import_nothing_of_jax(module):
             roots.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             roots.add(node.module.split(".")[0])
-    assert not roots & {"jax", "jaxlib", "flax", "optax", "ivf_tpu", "cv2", "matplotlib"}, roots
+    assert not roots & {"jax", "jaxlib", "flax", "optax", "ivf_tpu", "ml_dtypes", "cv2", "matplotlib"}, roots
     assert "import_module" not in path.read_text()

@@ -52,6 +52,16 @@ ROUTES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: where test workers share the cores, threads
+    that wait on each other make the port's runs many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _bits(a) -> np.ndarray:
     """The 16-bit patterns of a bfloat16 JAX array or torch tensor."""
     if isinstance(a, torch.Tensor):
@@ -580,7 +590,7 @@ def test_bf16_argmax_upgrade_copies_and_leaves_float32(dtype, impl, want):
 
 
 @pytest.mark.parametrize("impl", ["shift", "eqbwd", "argmax_full", "argmax_shift"])
-def test_bf16_where_it_is_not_ported_raises(weights, impl):
+def test_bf16_pool_impls_match_jax_and_unknown_impls_raise(weights, impl):
     """The pool impls that raised in bfloat16 before the port had them now
     build through ``build_model`` (nothing falls back to another pool: the
     model carries the impl) and match the JAX model with the same impl at

@@ -43,6 +43,16 @@ from ivf_tpu_torch.ops.kernels import fused_gates as tgates
 from ivf_tpu_torch.utils.convert import convlstm_variables_to_state_dict
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: where test workers share the cores, threads
+    that wait on each other make the port's runs many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
@@ -521,21 +531,28 @@ def test_bf16_gate_math_and_vjp_match_pallas(with_gh):
 
 
 @pytest.mark.parametrize(
-    "gx_dtype,gh_dtype,c_dtype",
+    "gx_dtype,gh_dtype,c_dtype,taken",
     [
-        (torch.bfloat16, torch.bfloat16, torch.bfloat16),
-        (torch.float32, None, torch.bfloat16),
-        (torch.bfloat16, torch.float32, torch.float32),
+        (torch.bfloat16, torch.bfloat16, torch.bfloat16, True),
+        (torch.float32, None, torch.bfloat16, False),
+        (torch.bfloat16, torch.float32, torch.float32, False),
+        (torch.bfloat16, None, torch.float16, False),
     ],
-    ids=["all_bf16", "bf16_state", "mixed_gates"],
+    ids=["all_bf16", "bf16_state", "mixed_gates", "half_state"],
 )
-def test_gate_math_refuses_dtypes_no_jax_path_gives(gx_dtype, gh_dtype, c_dtype):
-    """float32 gates with a float32 c, or bf16 gates with a float32 c, and
-    nothing else: the all-bf16 call is on no JAX path."""
+def test_gate_math_refuses_dtypes_no_jax_path_gives(gx_dtype, gh_dtype, c_dtype, taken):
+    """float32 gates with a float32 c, or bf16 gates with a float32 c (the
+    search) or a bf16 c (the bf16 train step, which casts the clips), and
+    nothing else: every other mix raises."""
     gx = torch.zeros(2, 3, 16, dtype=gx_dtype)
     gh = None if gh_dtype is None else torch.zeros(2, 3, 16, dtype=gh_dtype)
+    c = torch.zeros(2, 3, 4, dtype=c_dtype)
+    if taken:
+        h, c_new = tgates.gate_math(gx, gh, c)
+        assert h.dtype == c_new.dtype == c_dtype
+        return
     with pytest.raises(TypeError, match="fused_gates"):
-        tgates.gate_math(gx, gh, torch.zeros(2, 3, 4, dtype=c_dtype))
+        tgates.gate_math(gx, gh, c)
 
 
 @pytest.mark.parametrize("act", ["sigmoid", "hard_sigmoid"])

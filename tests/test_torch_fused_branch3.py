@@ -30,6 +30,16 @@ VARIANTS = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: where test workers share the cores, threads
+    that wait on each other make the port's runs many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _ties(shape, rng):
     """relu(N(0, 1)) rounded to halves: half exact zeros, few values."""
     return np.maximum(np.round(rng.randn(*shape) * 2) / 2, 0).astype(np.float32)

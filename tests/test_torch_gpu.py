@@ -6,8 +6,9 @@ entries, the argmax-index pool), the I3D kernel paths of ``find_masks``
 ones included) at full width and the ConvLSTM's (float32 and bfloat16) at
 a small size, float32 results that do not
 depend on the global TF32 flags, and two runs with equal bits; the
-space-to-depth stem against the plain stem, convergence refill
-against the search without it (``chip_smoke.py``'s refill phase at a
+space-to-depth stem against the plain stem, the all-bf16 gate pair of
+the bf16 train step, reference checkpoints loaded back on the card,
+convergence refill against the search without it (``chip_smoke.py``'s refill phase at a
 small size, so run from the repository's root), and a resumed run against
 an uninterrupted one. Skips
 without a CUDA device. This file
@@ -885,7 +886,9 @@ def test_bf16_entries_raise_on_what_they_do_not_take(cuda_device):
     with pytest.raises(TypeError):
         tgates.lstm_gates_fwd_bf16_cuda(gx.bfloat16(), None, c.bfloat16())  # bf16 state
     with pytest.raises(TypeError):
-        tgates.gate_math(gx.bfloat16(), None, c.bfloat16())
+        tgates.gate_math(gx.bfloat16(), None, c.half())  # no JAX path gives a float16 state
+    with pytest.raises(TypeError):
+        tgates.lstm_gates_fwd_bf16s_cuda(gx.bfloat16(), None, c)  # float32 state
     x = torch.zeros(1, 2, 3, 3, 4, device=cuda_device)
     w, b = torch.zeros(4, 3, device=cuda_device), torch.zeros(3, device=cuda_device)
     with pytest.raises(TypeError):
@@ -1098,6 +1101,113 @@ def test_training_gate_vjp_matches_plain(cuda_device, shape, gates):
         assert (got.detach() - ref).abs().max().item() <= 1e-6 * max(1.0, ref.abs().max().item())
     tol = BF16_ULP if gates == torch.bfloat16 else 1e-6
     assert (dz.float() - dz_ref.float()).abs().max().item() <= tol * max(1.0, dz_ref.float().abs().max().item())
+
+
+ALL_BF16_GATE_SHAPES = {  # (leading shape, Ch, gates_h, element offset of every operand)
+    "layer1": ((16, 60, 80), 4, True, 0),  # clstm_kth training, stride 2: x- and h-gates apart
+    "layer2": ((16, 15, 20), 4, True, 0),
+    "layer1_merged": ((16, 60, 80), 4, False, 0),
+    "ch8": ((3, 7, 9), 8, True, 0),
+    "ragged_ch": ((3, 7, 9), 5, True, 0),
+    "odd_rows": ((3, 7), 4, True, 0),
+    "misaligned": ((4, 6, 8), 4, True, 1),  # every base one element off 4-byte alignment
+}
+
+
+@pytest.mark.parametrize("case", list(ALL_BF16_GATE_SHAPES))
+def test_all_bf16_gate_kernels_match_plain(cuda_device, case):
+    """The all-bfloat16 pair (the bf16 train step's state is bf16) under
+    autograd, as ``gate_math`` runs it in training: one launch each way,
+    no other gate entry; h', c', dz and dc against the plain versions,
+    which round every op as XLA does. Both sides run the same float32
+    operations (the same CUDA ``expf`` / ``tanhf``) rounded at the same
+    points, so every output is held bit for bit, and a second launch
+    repeats the bits."""
+    lead, ch, with_gh, off = ALL_BF16_GATE_SHAPES[case]
+    gen = torch.Generator().manual_seed(13)
+
+    def operand(width, scale):
+        n = int(np.prod(lead)) * width
+        flat = (torch.randn(n + off, generator=gen) * scale).bfloat16().to(cuda_device)
+        return flat[off:].view(*lead, width)
+
+    gx = operand(4 * ch, 3).requires_grad_(True)
+    gh = operand(4 * ch, 2).requires_grad_(True) if with_gh else None
+    c = operand(ch, 2).requires_grad_(True)
+    dh, dc_out = operand(ch, 1), operand(ch, 1)
+    fwd, bwd = tgates.lstm_gates_fwd_bf16s_cuda, tgates.lstm_gates_bwd_bf16s_cuda
+    others = (tgates.lstm_gates_fwd_cuda, tgates.lstm_gates_bwd_cuda, tgates.lstm_gates_fwd_bf16_cuda,
+              tgates.lstm_gates_bwd_bf16_cuda)
+    before = [fn.launches for fn in (fwd, bwd, *others)]
+    h_new, c_new = tgates.gate_math(gx, gh, c)
+    inputs = [gx, c] + ([gh] if with_gh else [])
+    grads = torch.autograd.grad((h_new, c_new), inputs, (dh, dc_out))
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in (fwd, bwd, *others)] == [before[0] + 1, before[1] + 1, *before[2:]]
+    assert all(t.dtype == torch.bfloat16 for t in (h_new, c_new, *grads))
+    h_ref, c_ref = tgates.gate_math_plain(gx.detach(), None if gh is None else gh.detach(), c.detach())
+    dz_ref, dc_ref = tgates.gate_math_bwd_plain(gx.detach(), None if gh is None else gh.detach(), c.detach(),
+                                                dh, dc_out)
+    for got, ref in ((h_new, h_ref), (c_new, c_ref), (grads[0], dz_ref), (grads[1], dc_ref)):
+        assert torch.equal(got.detach().view(torch.int16), ref.view(torch.int16))
+    if with_gh:
+        assert torch.equal(grads[2], grads[0])
+    again = fwd(gx.detach(), None if gh is None else gh.detach(), c.detach())
+    assert torch.equal(again[0].view(torch.int16), h_new.view(torch.int16))
+
+
+@pytest.mark.parametrize("flags", [dict(pool_impl="argmax"), dict(use_pallas=True, pallas_pool=True)],
+                         ids=["bf16_default", "bf16_kernels"])
+def test_bf16_train_step_clip_cast_keeps_i3d_bits(cuda_device, flags):
+    """The bf16 train step casts the clips to bf16 (as the JAX package's):
+    I3D's first conv rounded a float32 clip to bf16 before, so one bf16
+    training forward and backward at 16x224x224 (5 classes, 2 clips) gives
+    equal logits, gradients and BN statistics from either dtype."""
+    clips = torch.from_numpy(np.random.RandomState(1).randint(0, 256, (2, 16, 224, 224, 3)).astype(np.uint8))
+    clips = clips.to(cuda_device)
+    runs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = Config()
+        cfg.model.num_classes, cfg.model.dropout = 5, 0.0
+        for key, value in flags.items():
+            setattr(cfg.model, key, value)
+        model = api._construct_model(cfg, False).to(cuda_device).train()
+        params = dict(model.named_parameters())
+        compute = {n: p.to(torch.bfloat16) for n, p in params.items()}
+        logits = torch.func.functional_call(model, compute, (clips.to(dtype),), strict=False)
+        grads = torch.autograd.grad(logits.float().logsumexp(-1).sum(), list(params.values()))
+        runs.append([logits.detach(), *grads, *(b.clone() for b in model.buffers())])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_reference_checkpoints_round_trip_on_the_card(cuda_device, tmp_path):
+    """The clstm_kth preset and the default I3D (174 classes) on the card:
+    seeded weights exported as reference ``.pth.tar`` files load back
+    through ``pretrained_model_path`` (``init_eval_state`` on the card) with
+    equal state dicts and equal logits."""
+    from ivf_tpu_torch.utils import export_torch
+
+    for name in ("clstm", "i3d"):
+        cfg = Config.load("configs/config_clstm_kth.py") if name == "clstm" else Config()
+        model = api._construct_model(cfg, False).to(cuda_device).eval()
+        sd = model.state_dict()
+        m = cfg.model
+        ref = (export_torch.i3d_state_dict_to_reference(sd) if name == "i3d" else
+               export_torch.convlstm_state_dict_to_reference(
+                   sd, image_size=api._clip_hw(cfg), conv_stride=m.conv_stride, pool_kernel=tuple(m.pool_kernel),
+                   lstm_layers=m.clstm_layers, nb_lstm_units=m.clstm_hidden))
+        path = str(tmp_path / f"{name}.pth.tar")
+        export_torch.save_checkpoint_file(path, ref, arch=m.conv_model)
+        cfg.model.pretrained_model_path = path
+        loaded, _ = api.init_eval_state(cfg)
+        assert next(loaded.parameters()).is_cuda
+        assert sorted(loaded.state_dict()) == sorted(sd)
+        assert all(torch.equal(loaded.state_dict()[k], t) for k, t in sd.items())
+        hw = api._clip_hw(cfg)
+        clip = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (1, cfg.data.clip_size, *hw, 3))
+                                .astype(np.float32)).to(cuda_device)
+        with torch.no_grad():
+            assert torch.equal(loaded(clip), model(clip))
 
 
 def test_i3d_train_step_on_the_card_repeats_its_bits_and_launches_its_kernels(cuda_device):

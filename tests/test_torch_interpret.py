@@ -26,6 +26,16 @@ from ivf_tpu_torch.interpret import perturb as tpt
 T, K = 8, 4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: where test workers share the cores, threads
+    that wait on each other make the port's runs many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 

@@ -28,6 +28,16 @@ SHAPE = (1, 8, 32, 32, 3)
 SMALL = dict(num_classes=5, pool_shape=(1, 1, 1))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: where test workers share the cores, threads
+    that wait on each other make the port's runs many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def make_jax_variables(model, shape, seed=0, logit_scale=0.005):
     """Numpy-drawn {'params', 'batch_stats'} for a JAX I3D."""
     rng = np.random.RandomState(seed)

@@ -346,8 +346,9 @@ def test_infer_files_and_top_k_match_jax(tmp_path):
 
 def test_bf16_eval_step_runs_the_search_model(tmp_path):
     """In bfloat16 the eval step runs the model ``build_model`` makes for
-    the search (both through ``precision.inference_model``): the logits of
-    a float32 master's eval step equal, bit for bit, those of
+    the search (both through ``precision.inference_model``) on the clips
+    cast to bfloat16, as the JAX package's eval step casts them: the logits
+    of a float32 master's eval step equal, bit for bit, those of
     ``build_model`` on the same seeded weights; the master stays float32;
     the copy is made once per state step, and a train step makes the next
     one."""
@@ -360,9 +361,9 @@ def test_bf16_eval_step_runs_the_search_model(tmp_path):
     eval_step = make_eval_step(compute_dtype="bfloat16")
     got = eval_step(state, clips, labels)["logits"]
     with torch.no_grad():
-        want = tapi.build_model(cfg, device="cpu")(clips.float()).float()
+        want = tapi.build_model(cfg, device="cpu")(clips.bfloat16()).float()
     assert torch.equal(got, want)
-    assert all(t.dtype == torch.float32 for t in state.model.state_dict().values())
+    assert all(t.dtype == torch.float32 for t in state.model.state_dict().values() if t.is_floating_point())
     assert torch.equal(eval_step(state, clips, labels)["logits"], got)
     state, _ = make_train_step(compute_dtype="bfloat16")(state, clips, labels)
     assert not torch.equal(eval_step(state, clips, labels)["logits"], got)
@@ -420,7 +421,8 @@ def test_train_driver_runs_resumes_and_writes_its_files(tmp_path):
 
 def test_entry_points_raise_on_what_is_not_ported(monkeypatch, tmp_path):
     """No card and no device: ``train``, ``init_eval_state`` and ``infer``
-    raise rather than run on the CPU. ``mesh`` and a pretrained checkpoint
+    raise rather than run on the CPU. ``mesh`` and a JAX orbax checkpoint
+    directory as ``pretrained_model_path`` (its ``checkpoint`` a directory)
     raise ``NotImplementedError`` naming their Queue 1 item."""
     cfg = _tiny_cfg(tmp_path)
     data = SyntheticClips(4, t=T, hw=HW, num_classes=3)
@@ -433,10 +435,11 @@ def test_entry_points_raise_on_what_is_not_ported(monkeypatch, tmp_path):
         tapi.train(cfg, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         tapi.infer(cfg, mesh=object(), device="cpu")
-    cfg.model.pretrained_model_path = str(tmp_path / "model.pth.tar")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    (tmp_path / "orbax" / "checkpoint").mkdir(parents=True)
+    cfg.model.pretrained_model_path = str(tmp_path / "orbax")
+    with pytest.raises(NotImplementedError, match="item 14"):
         tapi.init_eval_state(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         tapi.train(cfg, train_dataset=data, val_dataset=data, device="cpu")
 
 

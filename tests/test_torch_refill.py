@@ -43,6 +43,16 @@ COUNTERS = ("search_launches", "searched_rows", "padded_rows", "segments_launche
             "refill_flushes", "refill_requeued_rows")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: where test workers share the cores, threads
+    that wait on each other make the port's runs many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _configure(cfg, out_dir, name, **mask):
     cfg.output_dir, cfg.model_name = str(out_dir), name
     for key, value in MODEL.items():

@@ -31,6 +31,16 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
 DTYPES = [torch.float32, torch.bfloat16]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: where test workers share the cores, threads
+    that wait on each other make the port's runs many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _case(shape, dtype, cout=8, bias=True, seed=0):
     rng = np.random.RandomState(seed)
     x = rng.randn(*shape).astype(np.float32)

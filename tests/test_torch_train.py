@@ -169,8 +169,14 @@ def check_float32_step(model, got, want, loss, want_loss, grad_tol, loss_tol, st
     scale = max(np.abs(want[n]).max() for n in params)
     for n in params:
         np.testing.assert_allclose(got[n], want[n], rtol=0, atol=grad_tol * scale, err_msg=n)
-    for n, _ in model.named_buffers():
+    for n in statistics(model):
         np.testing.assert_allclose(got[n], want[n], rtol=0, atol=stat_tol, err_msg=n)
+
+
+def statistics(model) -> list:
+    """The names of the BN running statistics, the buffers JAX keeps too
+    (not torch's ``num_batches_tracked`` counts)."""
+    return [n for n, b in model.named_buffers() if b.is_floating_point()]
 
 
 def check_bf16_step(model, got, want, loss, want_loss, loss_tol, stat_tol):
@@ -178,11 +184,11 @@ def check_bf16_step(model, got, want, loss, want_loss, loss_tol, stat_tol):
     ``stat_tol`` of its; every gradient finite; the float32 masters and BN
     statistics stay float32."""
     assert abs(loss - want_loss) < loss_tol, (loss, want_loss)
-    for n, _ in model.named_buffers():
+    for n in statistics(model):
         np.testing.assert_allclose(got[n], want[n], rtol=0, atol=stat_tol, err_msg=n)
     assert all(np.isfinite(got[n]).all() for n, _ in model.named_parameters())
     assert all(p.dtype == torch.float32 for p in model.parameters())
-    assert all(b.dtype == torch.float32 for b in model.buffers())
+    assert all(b.dtype == (torch.float32 if b.is_floating_point() else torch.long) for b in model.buffers())
 
 
 def grad_norm_ratios(got: dict, want: dict, names) -> dict:
@@ -301,6 +307,8 @@ def test_i3d_bf16_training_block_matches_jax(site, route):
     for n in names:
         assert abs(np.linalg.norm(got[n]) / np.linalg.norm(want[n]) - 1) < 0.05, n
     for n, b in block.named_buffers():
+        if not b.is_floating_point():
+            continue  # num_batches_tracked
         assert b.dtype == torch.float32
         np.testing.assert_allclose(b.numpy(), want[n], rtol=0, atol=5e-4, err_msg=n)
     _, _, dx, got = port_block(control=True)
