@@ -347,6 +347,9 @@ CLSTM_BF16_TOL_REASON = (
 # three sigmoids, two tanh and the state update (forward); the recompute
 # plus the five gradient formulas (backward)
 GATE_OPS_FWD, GATE_OPS_BWD = 20, 40
+# operations per bf16 input of the all-bf16 pair's table build: exp, add,
+# divide, subtract and multiply of the sigmoid and its factor, and tanh
+GATE_TABLE_OPS = 6
 
 
 def emit(obj: dict) -> None:
@@ -647,27 +650,44 @@ ALL_BF16_GATE_TOL_REASON = (
 )
 
 
+# the sites of the all-bf16 pair's rows: (site, leading shape, Ch, with
+# gates_h); clstm_kth's layers at batch 16 as training calls them
+ALL_BF16_GATE_SITES = (
+    ("layer1", (CLSTM_BATCH, CLSTM_HW[0] // 2, CLSTM_HW[1] // 2), 4, True),
+    ("layer2", (CLSTM_BATCH, CLSTM_HW[0] // 8, CLSTM_HW[1] // 8), 4, True),
+    ("layer1_merged", (CLSTM_BATCH, CLSTM_HW[0] // 2, CLSTM_HW[1] // 2), 4, False),
+    ("ragged", (3, 7, 9), 5, True),
+)
+
+
+def _all_bf16_operands(gen, lead, ch, with_gh, dev):
+    """Seeded all-bf16 gate operands: (gates_x, gates_h or None, c, dh,
+    dc_out)."""
+    gx = (torch.randn(*lead, 4 * ch, generator=gen) * 3).bfloat16().to(dev)
+    gh = (torch.randn(*lead, 4 * ch, generator=gen) * 2).bfloat16().to(dev) if with_gh else None
+    c = (torch.randn(*lead, ch, generator=gen) * 2).bfloat16().to(dev)
+    dh, dc_out = (torch.randn(*lead, ch, generator=gen).bfloat16().to(dev) for _ in range(2))
+    return gx, gh, c, dh, dc_out
+
+
 def _all_bf16_gate_rows(gates, failures) -> dict:
     """The all-bfloat16 gate pair (``lstm_gates_{fwd,bwd}_bf16s``: the bf16
     train step's bf16 gates and bf16 state) against its plain version on
     the card at both clstm_kth layers as training calls them (16 clips,
     the x- and h-gates apart at stride 2), the merged route and a ragged
-    size (one element a thread). Timed beside the plain version and the
-    library's ``_thnn_fused_lstm_cell`` pair in bf16 on the same values
-    (the yardstick; it takes bf16 gates and a bf16 state). Bounds: bytes
-    at 3.35 TB/s (22 B forward, 32 B backward per (row, channel) split)
-    against float32 operations on the CUDA cores."""
+    size. Timed beside the plain version and the library's
+    ``_thnn_fused_lstm_cell`` pair in bf16 on the same values (the
+    yardstick; it takes bf16 gates and a bf16 state). Bounds: bytes at
+    3.35 TB/s (22 B forward, 32 B backward per (row, channel) split)
+    against float32 operations on the CUDA cores. Then the pair's tables
+    (``_gate_table_row``) and every bf16 pattern in every operand slot
+    (``_all_bf16_exhaustive``)."""
     aten = torch.ops.aten
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(17)
-    b, (h1, w1) = CLSTM_BATCH, (CLSTM_HW[0] // 2, CLSTM_HW[1] // 2)
     cases = {n: [] for n in BF16S_GATE_COUNTERS}
-    for site, lead, ch, with_gh in (("layer1", (b, h1, w1), 4, True), ("layer2", (b, h1 // 4, w1 // 4), 4, True),
-                                    ("layer1_merged", (b, h1, w1), 4, False), ("ragged", (3, 7, 9), 5, True)):
-        gx = (torch.randn(*lead, 4 * ch, generator=gen) * 3).bfloat16().to(dev)
-        gh = (torch.randn(*lead, 4 * ch, generator=gen) * 2).bfloat16().to(dev) if with_gh else None
-        c = (torch.randn(*lead, ch, generator=gen) * 2).bfloat16().to(dev)
-        dh, dc_out = (torch.randn(*lead, ch, generator=gen).bfloat16().to(dev) for _ in range(2))
+    for site, lead, ch, with_gh in ALL_BF16_GATE_SITES:
+        gx, gh, c, dh, dc_out = _all_bf16_operands(gen, lead, ch, with_gh, dev)
         h_new, c_new = gates.lstm_gates_fwd_bf16s_cuda(gx, gh, c)
         dz, dc = gates.lstm_gates_bwd_bf16s_cuda(gx, gh, c, dh, dc_out)
         h_ref, c_ref = gates.gate_math_plain(gx, gh, c)
@@ -715,7 +735,203 @@ def _all_bf16_gate_rows(gates, failures) -> dict:
             for k, n_bad in unequal.items():
                 if n_bad:
                     failures.append(f"{name} {site}: {k} has {n_bad} elements unequal to the plain version's")
+    cases["lstm_gate_tables"] = [_gate_table_row(gates, failures)]
+    _all_bf16_exhaustive(gates, failures)
     return cases
+
+
+def _build_gate_lib(gates, src: Path):
+    """``src`` (a checkout's ``csrc/fused_gates.cu``, its headers beside
+    it) compiled into ``_build/fused_gates_other.so``: (bound library,
+    ptxas lines of its all-bf16 kernels)."""
+    import ctypes
+
+    from ivf_tpu_torch.ops.kernels import build
+
+    build.BUILD_DIR.mkdir(exist_ok=True)
+    so = build.BUILD_DIR / "fused_gates_other.so"
+    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(src.parent), "-o", str(so), str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}")
+    ptxas, kernel = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(lstm_gates_(?:fwd|bwd)_bf16s\w*?)E", line)
+        kernel = m[1] if m else (None if "Compiling entry" in line else kernel)
+        if kernel and ("registers" in line or "spill" in line):
+            ptxas.setdefault(kernel, []).append(line.split(":", 1)[-1].strip())
+    return gates.bind(ctypes.CDLL(str(so))), ptxas
+
+
+@contextmanager
+def _gate_lib(gates, lib):
+    """The gate wrappers on another build of ``csrc/fused_gates.cu``: a
+    build with activation tables gets its own at its first all-bf16 call
+    (dropped on exit); a build without them ignores this build's, which
+    stay registered."""
+    saved_lib, saved_tables = gates._lib, dict(gates._tables)
+    gates._lib = lambda: lib
+    if hasattr(lib, "lstm_gate_tables_build"):
+        gates._tables.clear()
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        gates._tables.clear()
+        gates._tables.update(saved_tables)
+        gates._lib = saved_lib
+
+
+def _bf16s_site_ms(gates, ops) -> dict:
+    """Device ms of the all-bf16 pair on one site's operands through the
+    wrappers (warm: the larger of two readings; cold: inputs from device
+    memory) and its outputs' bits against the plain version's."""
+    gx, gh, c, dh, dc_out = ops
+    fwd = lambda: gates.lstm_gates_fwd_bf16s_cuda(gx, gh, c)  # noqa: E731
+    bwd = lambda: gates.lstm_gates_bwd_bf16s_cuda(gx, gh, c, dh, dc_out)  # noqa: E731
+    got = (*fwd(), *bwd())
+    want = (*gates.gate_math_plain(gx, gh, c), *gates.gate_math_bwd_plain(gx, gh, c, dh, dc_out))
+    return {
+        "fwd_ms": max(device_ms(fwd), device_ms(fwd)), "bwd_ms": max(device_ms(bwd), device_ms(bwd)),
+        "fwd_cold_ms": device_ms(fwd, cold=True), "bwd_cold_ms": device_ms(bwd, cold=True),
+        "equal_bits": all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(got, want)),
+        "outputs": got,
+    }
+
+
+def _clstm_bf16_step(api, cfg, clips, labels):
+    """One bf16 ConvLSTM train step (the preset's optimizer) from the
+    seeded state after two warm steps: (profile of the step, as
+    ``_train_profile``, its wall ms)."""
+    from ivf_tpu_torch.train import make_train_step
+
+    state = _train_state(api, cfg)
+    step = make_train_step(kernel_l2=cfg.model.kernel_l2, compute_dtype=cfg.model.compute_dtype)
+    for _ in range(2):
+        state, _ = step(state, clips, labels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, clips, labels)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return _train_profile(lambda: step(state, clips, labels)), wall
+
+
+def gates_compare(other: str) -> int:
+    """``python3 chip_smoke.py --gates-compare DIR``: the all-bf16 gate pair
+    of the checkout in DIR (its ``csrc/fused_gates.cu`` built beside this
+    one's; the C entries take the same arguments) against this one's in
+    one process, in turns (other, this, this, other): at every site of
+    ``ALL_BF16_GATE_SITES`` device ms forward and backward, warm and cold,
+    and equal bits between the two and to the plain version; then one bf16
+    ConvLSTM train step (``train_clstm``'s ``bf16_gate_kernel`` route, SGD
+    lr 1, one seeded batch) with each: equal loss, gradients and BN
+    statistics; and the device ms of a step of the preset's optimizer with
+    each, in turns (~1 min)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from ivf_tpu_torch import api
+    from ivf_tpu_torch.ops.kernels import fused_gates as gates
+
+    src = Path(other).resolve() / "ivf_tpu_torch" / "csrc" / "fused_gates.cu"
+    other_lib, ptxas = _build_gate_lib(gates, src)
+    emit({"phase": "gates_compare", "other": str(src), "nvidia_smi": nvidia_smi(), "other_ptxas": ptxas})
+    dev = torch.device("cuda")
+    gates._ensure_tables(dev)
+    ok = True
+    for site, lead, ch, with_gh in ALL_BF16_GATE_SITES:
+        ops = _all_bf16_operands(torch.Generator().manual_seed(17), lead, ch, with_gh, dev)
+        turns = {"other": [], "this": []}
+        for side in ("other", "this", "this", "other"):
+            with _gate_lib(gates, other_lib) if side == "other" else contextlib.nullcontext():
+                turns[side].append(_bf16s_site_ms(gates, ops))
+        same = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                   for a, b in zip(turns["other"][0]["outputs"], turns["this"][0]["outputs"]))
+        row = {f"{side}_{k}": [t[k] for t in ts] for side, ts in turns.items()
+               for k in ("fwd_ms", "bwd_ms", "fwd_cold_ms", "bwd_cold_ms")}
+        plain = all(t["equal_bits"] for ts in turns.values() for t in ts)
+        emit({"phase": "gates_compare", "site": site, "shape": [*lead, 4 * ch], "gates_h": with_gh,
+              "equal_bits_other_this": same, "equal_bits_plain": plain, **row})
+        ok = ok and same and plain
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = _train_preset(api, "config_clstm_kth.py", tmp, "bf16_gate_kernel", kernel_l2=CLSTM_KERNEL_L2,
+                            **TRAIN_CLSTM_ROUTES["bf16_gate_kernel"])
+        (clips, labels), = _clstm_train_batches(1, 31)
+        this = _sgd1_step(api, cfg, clips, labels)
+        with _gate_lib(gates, other_lib):
+            that = _sgd1_step(api, cfg, clips, labels)
+        same = (this["loss"] == that["loss"] and _same_state(this["grads"], that["grads"])
+                and _same_state(this["stats"], that["stats"]))
+        steps = {"other": [], "this": []}
+        for side in ("other", "this", "this", "other"):
+            with _gate_lib(gates, other_lib) if side == "other" else contextlib.nullcontext():
+                prof, wall = _clstm_bf16_step(api, cfg, clips, labels)
+            steps[side].append({"device_ms": prof["device_ms"], "wall_ms": wall,
+                                "gate_kernels_ms": prof["groups_ms"].get("fused_gates kernels")})
+        emit({"phase": "gates_compare", "check": "bf16 ConvLSTM train step", "equal_bits_other_this": same,
+              "loss": this["loss"], "steps": steps})
+        ok = ok and same
+    return 0 if ok else 1
+
+
+def _gate_table_row(gates, failures) -> dict:
+    """The all-bf16 pair's activation tables (``lstm_gate_tables_build``:
+    three kernels, once per device and process) against their plain twin
+    on the card (``gate_table_twin``: the plain block's activations, with
+    the same CUDA ``expf`` / ``tanhf``, and the same derivation): equal
+    ranges and every packed entry bit for bit. Timed as a release and a
+    rebuild (device time of its kernels and its two small copies) beside
+    the twin on the card; the bound is the packed bytes written against
+    ``GATE_TABLE_OPS`` float32 operations per input."""
+    dev = torch.device("cuda")
+    gates._ensure_tables(dev)
+    info = gates.gate_tables_info(dev)
+    twin = gates.gate_table_twin(dev)
+    regions = gates.packed_gate_tables(dev)
+    same_ranges = all(info[k] == twin[k] for k in ("slo", "sspan", "tlo", "tspan"))
+    unequal = {k: int((v != twin[k]).sum()) if same_ranges else None for k, v in regions.items()}
+    if not same_ranges or any(unequal.values()):
+        failures.append(f"lstm_gate_tables: ranges {info} against the twin's, unequal entries {unequal}")
+
+    def rebuild():
+        gates.release_gate_tables()
+        gates._ensure_tables(dev)
+
+    bms, by = bound(twin["bytes"], GATE_TABLE_OPS * 65536)
+    return {
+        "site": "all_bf16", "shape": [65536], "ranges": info, "packed_bytes": twin["bytes"],
+        "max_abs_err": 0.0 if same_ranges and not any(unequal.values()) else float("inf"),
+        "unequal": unequal, "tol_reason": "every entry bit for bit: the same functions on the same inputs",
+        "ms": device_ms(rebuild, reps=5, warmup=1), "plain_ms": device_ms(lambda: gates.gate_table_twin(dev), reps=5),
+        "library_ms": None, "library_note": "none: no PyTorch call builds the tables",
+        "bound_ms": bms, "bound_by": by,
+    }
+
+
+def _all_bf16_exhaustive(gates, failures) -> None:
+    """The all-bf16 pair with every one of the 65,536 bf16 patterns in each
+    operand slot in turn (the four gates, c, dh, dc'; ``exhaustive_operands``,
+    7 x 65,536 elements of Ch 4, the others seeded), without and with
+    ``gates_h``: h', c', dz and dc against the plain versions on the card,
+    bit for bit, NaNs included; a failure names the first unequal input."""
+    dev = torch.device("cuda")
+    for with_gh in (False, True):
+        t0 = time.perf_counter()
+        gx, gh, c, dh, dc_out = gates.exhaustive_operands(with_gh, ch=4, seed=23, device=dev)
+        h, cn = gates.lstm_gates_fwd_bf16s_cuda(gx, gh, c)
+        dz, dc = gates.lstm_gates_bwd_bf16s_cuda(gx, gh, c, dh, dc_out)
+        h_ref, c_ref = gates.gate_math_plain(gx, gh, c)
+        dz_ref, dc_ref = gates.gate_math_bwd_plain(gx, gh, c, dh, dc_out)
+        bad = gates.first_unequal({"h": h, "c": cn, "dz": dz, "dc": dc},
+                                  {"h": h_ref, "c": c_ref, "dz": dz_ref, "dc": dc_ref}, 4)
+        torch.cuda.synchronize()
+        emit({"phase": "kernel_check", "check": "all_bf16_exhaustive", "gates_h": with_gh,
+              "slots": list(gates.EXHAUSTIVE_SLOTS), "elements": c.numel(), "first_unequal": bad,
+              "nan_outputs": int(torch.isnan(dz.float()).sum()), "seconds": time.perf_counter() - t0,
+              "required": "first_unequal null"})
+        if bad is not None:
+            failures.append(f"all-bf16 gates, every bf16 pattern (gates_h={with_gh}): {bad}")
 
 
 def phase_fused_check(fb, pool, pw, failures) -> dict:
@@ -4664,6 +4880,7 @@ def phase_checkpoint_cli(api, counters, failures, card: str, weights: dict) -> d
 
     from ivf_tpu_torch import cli
     from ivf_tpu_torch.data.records import RecordWriter
+    from ivf_tpu_torch.ops.kernels import fused_gates as gates
     from ivf_tpu_torch.utils import export_torch, import_torch, tf_bundle
     from ivf_tpu_torch.utils.checkpoint import Checkpointer
 
@@ -4734,10 +4951,12 @@ def phase_checkpoint_cli(api, counters, failures, card: str, weights: dict) -> d
         clstm_cfg = _preset_module(tmp / "clstm_cfg.py", root / "configs" / "config_clstm_kth.py",
                                    output_dir=str(out_dir), data_folder=str(kth))
         train = ["train", "-c", clstm_cfg, *CKPT_CLI_CLSTM_FLAGS]
+        gates.release_gate_tables()  # so that this run builds them, as a fresh process does
         _, train_launches, seconds["clstm_train_1"] = counted(lambda: cli.main(
             [*train, "--subDir", "resumed", "-ne", "1"]))
-        gate_entries = CLSTM_GATES["bfloat16"]
+        gate_entries = CLSTM_GATES["bfloat16"] + ("lstm_gate_tables",)
         require("clstm_all_bf16_gates_launched", all(train_launches.get(k, 0) > 0 for k in gate_entries)
+                and train_launches.get("lstm_gate_tables") == 1
                 and not any("lstm_gates" in k and k not in gate_entries for k in train_launches), train_launches)
         (resumed, _), _, seconds["clstm_train_resume"] = counted(lambda: cli.main(
             [*train, "--subDir", "resumed", "-ne", "2", "--resume"]))
@@ -4822,6 +5041,8 @@ def kernels_line(cases: dict, launches: dict) -> dict:
     headline["lstm_gates_bwd_bf16"] = headline["lstm_gates_bwd"]
     headline["lstm_gates_fwd_bf16s"] = headline["lstm_gates_fwd"]
     headline["lstm_gates_bwd_bf16s"] = headline["lstm_gates_bwd"]
+    headline["lstm_gate_tables"] = ("all_bf16", "ivf_tpu/ops/pallas/fused_gates.py:33",
+                                    "ivf_tpu_torch/csrc/fused_gates.cu")
     out = []
     for name, (site, replaces, source) in headline.items():
         row = next(c for c in cases[name] if c["site"] == site and c.get("relu", True))
@@ -4846,6 +5067,10 @@ def kernels_line(cases: dict, launches: dict) -> dict:
         elif name in BF16S_GATE_COUNTERS:
             entry.update({"library": row["library_note"], "cold_ms": row["cold_ms"],
                           "launches_of": "checkpoint_cli: the bf16 ConvLSTM `cli train` run (2 steps)"})
+        elif name == "lstm_gate_tables":
+            entry.update({"library": row["library_note"], "ranges": row["ranges"],
+                          "launches_of": "checkpoint_cli: the bf16 ConvLSTM `cli train` run, the tables "
+                                         "released just before it (once per device and process)"})
         out.append(entry)
     return {"kernels": out}
 
@@ -4882,6 +5107,7 @@ def launch_counters() -> dict:
         "lstm_gates_bwd_bf16": gates.lstm_gates_bwd_bf16_cuda,
         "lstm_gates_fwd_bf16s": gates.lstm_gates_fwd_bf16s_cuda,
         "lstm_gates_bwd_bf16s": gates.lstm_gates_bwd_bf16s_cuda,
+        "lstm_gate_tables": gates.lstm_gate_tables_cuda,
     }
 
 
@@ -4964,6 +5190,8 @@ if __name__ == "__main__":
                              lambda ap, failures: [argmax_rows(ap, failures)]))
     if sys.argv[1:] == ["--pool-sweep"]:
         sys.exit(pool_sweep())
+    if len(sys.argv) == 3 and sys.argv[1] == "--gates-compare":
+        sys.exit(gates_compare(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--pool-compare":
         sys.exit(pool_compare(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--whole-compare":

@@ -50,13 +50,17 @@ shows a bf16 convert after every op).
 The kernel entries ``lstm_gates_{fwd,bwd}_bf16`` (bf16 gates, f32 state)
 and ``lstm_gates_{fwd,bwd}_bf16s`` (all bf16) compute in float32
 registers and round at the same points; each pair counts its launches
-apart from the others.
+apart from the others. The all-bf16 pair reads its activations from
+tables of the exact device functions over all 65,536 bf16 inputs, built
+once per device at first use (``lstm_gate_tables_cuda``, counted apart);
+``gate_table_twin`` is their plain twin, for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -253,9 +257,9 @@ def gate_math_bwd_plain(
     return dz, dcn * f
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = build.library("fused_gates")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the argument types of ``csrc/fused_gates.cu``'s entries on
+    ``lib``."""
     ptr, rows_ch = ctypes.c_void_p, [ctypes.c_longlong, ctypes.c_int]
     for suffix in _DTYPES:
         fwd, bwd = getattr(lib, f"lstm_gates_fwd_{suffix}"), getattr(lib, f"lstm_gates_bwd_{suffix}")
@@ -263,7 +267,223 @@ def _lib() -> ctypes.CDLL:
         fwd.restype = ctypes.c_int
         bwd.argtypes = [ptr] * 7 + rows_ch + [ptr]
         bwd.restype = ctypes.c_int
+    if hasattr(lib, "lstm_gate_tables_build"):
+        lib.lstm_gate_tables_sizes.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+        lib.lstm_gate_tables_sizes.restype = None
+        lib.lstm_gate_tables_build.argtypes = [ptr, ptr, ctypes.c_longlong, ptr]
+        lib.lstm_gate_tables_info.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        for name in ("lstm_gate_tables_build", "lstm_gate_tables_info", "lstm_gate_tables_release"):
+            getattr(lib, name).restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return bind(build.library("fused_gates"))
+
+
+_tables = {}  # CUDA device index -> its packed activation tables (kept alive)
+_tables_lock = threading.Lock()
+
+
+def _index(device: torch.device) -> int:
+    device = torch.device(device)
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+def lstm_gate_tables_cuda(device: torch.device) -> None:
+    """Build ``device``'s activation tables for the all-bf16 entries
+    (``lstm_gate_tables_build``: three kernels on the current stream, which
+    it synchronizes) and keep them; raises if they do not build. Counts
+    its builds in ``lstm_gate_tables_cuda.launches``."""
+    lib = _lib()
+    sizes = (ctypes.c_longlong * 2)()
+    lib.lstm_gate_tables_sizes(sizes)
+    with torch.cuda.device(device):
+        scratch = torch.empty(sizes[0], dtype=torch.uint8, device=device)
+        packed = torch.empty(sizes[1], dtype=torch.uint8, device=device)
+        rc = lib.lstm_gate_tables_build(scratch.data_ptr(), packed.data_ptr(), sizes[1],
+                                        torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"lstm_gate_tables_build on {device} failed with "
+            + ("ranges that do not fit its shared-memory budget" if rc == -1 else f"CUDA error {rc}")
+        )
+    _tables[_index(device)] = packed
+    lstm_gate_tables_cuda.launches += 1
+
+
+def _ensure_tables(device: torch.device) -> None:
+    if _index(device) not in _tables:
+        with _tables_lock:
+            if _index(device) not in _tables:
+                lstm_gate_tables_cuda(device)
+
+
+def packed_gate_tables(device: torch.device) -> Optional[dict]:
+    """``device``'s packed tables as the kernels read them, as int32 bits
+    in ``gate_table_twin``'s layout (its "s" and "t"); None before they are
+    built."""
+    packed = _tables.get(_index(device))
+    info = gate_tables_info(device)
+    if packed is None or info is None:
+        return None
+    words = packed.view(torch.int16).to(torch.int32) & 0xFFFF
+    ns = info["s_entries"]
+    return {"s": words[:2 * (info["sspan"] + 2)], "t": words[ns:ns + 2 * (info["tspan"] + 2)]}
+
+
+def gate_tables_info(device: torch.device) -> Optional[dict]:
+    """``device``'s table ranges as the card derived them (magnitude bits),
+    or None before they are built."""
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        if _lib().lstm_gate_tables_info(out) != 0:
+            return None
+    return dict(zip(("slo", "sspan", "tlo", "tspan", "s_entries", "t_entries"), out))
+
+
+def release_gate_tables() -> None:
+    """Forget every device's tables (the next all-bf16 launch builds them
+    again)."""
+    with _tables_lock:
+        for index in list(_tables):
+            with torch.cuda.device(index):
+                torch.cuda.synchronize()
+                _lib().lstm_gate_tables_release()
+            del _tables[index]
+
+
+# the kernels' table constants (csrc/fused_gates.cu): the magnitude bits of
+# inf (above them NaN), and the most bytes the packed tables may take
+_INF_BITS = 0x7F80
+GATE_TABLE_BYTES_MAX = 48 * 1024
+
+
+def _bf16_of_bits(u: torch.Tensor) -> torch.Tensor:
+    """bfloat16 values of the bit patterns ``u`` (int32 in [0, 65536))."""
+    return torch.where(u >= 32768, u - 65536, u).to(torch.int16).view(torch.bfloat16)
+
+
+def _bits_of(t: torch.Tensor) -> torch.Tensor:
+    """The bit patterns of ``t`` rounded to bfloat16, int32."""
+    return t.bfloat16().view(torch.int16).to(torch.int32) & 0xFFFF
+
+
+def _exact_activations(u: torch.Tensor):
+    """The all-bf16 block's two activations of the bf16 inputs ``u``,
+    exactly as the plain block computes them, as bits: ``bf16(s(z))`` and
+    ``bf16(tanh(z))``."""
+    z = _bf16_of_bits(u).float()
+    return _bits_of(sigmoid_bf16(z)), _bits_of(torch.tanh(z))
+
+
+def _packed(values: torch.Tensor, lo: int, span: int) -> torch.Tensor:
+    """Per sign, the value at +-0, the values at magnitudes [lo, lo + span)
+    and the value at +-inf: the kernels' layout of one family."""
+    mags = torch.arange(lo - 1, lo + span + 1, device=values.device)
+    mags[0], mags[-1] = 0, _INF_BITS
+    return torch.cat([values[mags], values[mags | 0x8000]])
+
+
+def gate_table_twin(device="cpu") -> dict:
+    """The plain twin of the all-bf16 kernels' activation tables
+    (``lstm_gate_tables_build`` in ``csrc/fused_gates.cu``), for the
+    tests; nothing on the main path uses it. Evaluates the plain block's
+    activations on all 65,536 bf16 inputs and derives the ranges of
+    magnitude bits [lo, lo + span) outside which a value is a constant of
+    the input's sign (the value at +-0 below, at +-inf from the end on) or,
+    for tanh below lo, the input itself; packs each family as the kernels
+    do (``_packed``). Returns the ranges, the packed families (bits) and
+    the bytes of the kernels' tables (S and T regions, each 16-byte
+    aligned), which each block copies into shared memory. On ``device``:
+    on the card, with the kernels' own ``expf`` / ``tanhf``."""
+    u = torch.arange(65536, dtype=torch.int32, device=device)
+    s, t = _exact_activations(u)
+    a, sign = u & 0x7FFF, u & 0x8000
+    finite = a < _INF_BITS
+
+    def bounds(small_differs, large_differs):
+        return int(a[finite & small_differs].min()), int(a[finite & large_differs].max()) + 1
+
+    slo, shi = bounds(s != s[sign], s != s[sign | _INF_BITS])
+    tlo, thi = bounds(t != u, t != t[sign | _INF_BITS])
+    ns, nt = (-(-2 * (span + 2) // 8) * 8 for span in (shi - slo, thi - tlo))
+    return {
+        "slo": slo, "sspan": shi - slo, "tlo": tlo, "tspan": thi - tlo,
+        "s": _packed(s, slo, shi - slo), "t": _packed(t, tlo, thi - tlo),
+        "bytes": 2 * (ns + nt),
+    }
+
+
+def gate_table_lookup(twin: dict, u: torch.Tensor):
+    """The kernels' reading of the tables for bf16 inputs ``u`` (int32
+    bits), in plain PyTorch: a clamped index per family (the sign's small
+    constant, the table, or the sign's large constant), tanh passing its
+    input through below its range, and the exact functions for NaN.
+    Returns the bits of (s, tanh)."""
+    a, sign = u & 0x7FFF, u >> 15
+
+    def slot(lo, span):
+        return sign * (span + 2) + (a - lo + 1).clamp(0, span + 1)
+
+    s = twin["s"][slot(twin["slo"], twin["sspan"])]
+    t = torch.where(a < twin["tlo"], u, twin["t"][slot(twin["tlo"], twin["tspan"])])
+    nan = a > _INF_BITS
+    exact = _exact_activations(u[nan])
+    for out, x in zip((s, t), exact):
+        out[nan] = x
+    return s, t
+
+
+# the operand slots of ``exhaustive_operands``, in the order of its blocks
+EXHAUSTIVE_SLOTS = ("z_i", "z_f", "z_c", "z_o", "c", "dh", "dc_out")
+
+
+def exhaustive_operands(with_gh: bool, ch: int = 4, seed: int = 0, device="cpu"):
+    """All-bf16 gate operands that put each of the 65,536 bf16 bit
+    patterns into every operand slot in turn, for the tests: block j of
+    65,536 consecutive elements of c holds every pattern, in order, in slot
+    ``EXHAUSTIVE_SLOTS[j]`` (a gate of z, c, dh or dc'), the other operands
+    seeded normals (gates x3 and x2, c x2). With ``gates_h`` the patterns'
+    gate in it is -0.0, so z is the pattern itself, NaN payloads and -0
+    included. Returns (gates_x, gates_h or None, c, dh, dc_out), rows of
+    ``ch`` channels."""
+    gen = torch.Generator().manual_seed(seed)
+    n = len(EXHAUSTIVE_SLOTS) * 65536
+    rows = n // ch
+    patterns = _bf16_of_bits(torch.arange(65536, dtype=torch.int32))
+    gx = (torch.randn(rows, 4, ch, generator=gen) * 3).bfloat16()
+    gh = (torch.randn(rows, 4, ch, generator=gen) * 2).bfloat16() if with_gh else None
+    c, dh, dc_out = ((torch.randn(n, generator=gen) * scale).bfloat16() for scale in (2, 1, 1))
+    for j, slot in enumerate(EXHAUSTIVE_SLOTS):
+        block = slice(j * 65536, (j + 1) * 65536)
+        if j < 4:
+            for t, value in ((gx, patterns), (gh, torch.tensor(-0.0, dtype=torch.bfloat16))):
+                if t is not None:
+                    flat = t[:, j, :].reshape(-1)
+                    flat[block] = value
+                    t[:, j, :] = flat.view(rows, ch)
+        else:
+            {"c": c, "dh": dh, "dc_out": dc_out}[slot][block] = patterns
+    gates = [t if t is None else t.view(rows, 4 * ch).to(device) for t in (gx, gh)]
+    return (*gates, *(t.view(rows, ch).to(device) for t in (c, dh, dc_out)))
+
+
+def first_unequal(got: dict, want: dict, ch: int) -> Optional[str]:
+    """The first output of ``got`` (name -> bf16 tensor of
+    ``exhaustive_operands``' shapes) whose bits differ from ``want``'s,
+    named by its slot and input pattern; None when all are equal."""
+    for name, a in got.items():
+        bad = (a.view(torch.int16) != want[name].view(torch.int16)).flatten().nonzero()
+        if len(bad):
+            i = int(bad[0])
+            e = (i // (4 * ch)) * ch + i % ch if a.shape[-1] == 4 * ch else i
+            return (f"{name}: {len(bad)} unequal, first at element {e} (slot "
+                    f"{EXHAUSTIVE_SLOTS[e // 65536]}, input 0x{e % 65536:04x}): "
+                    f"0x{int(a.flatten()[i].view(torch.int16)) & 0xFFFF:04x} against "
+                    f"0x{int(want[name].flatten()[i].view(torch.int16)) & 0xFFFF:04x}")
+    return None
 
 
 def _check_cuda_operands(gates_x, gates_h, c, gate_dtype, state_dtype, *state_like) -> None:
@@ -295,6 +515,8 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _launch_fwd(suffix, counter, gates_x, gates_h, c):
     _check_cuda_operands(gates_x, gates_h, c, *_DTYPES[suffix])
+    if suffix == "bf16s":
+        _ensure_tables(c.device)
     h_out, c_out = torch.empty_like(c), torch.empty_like(c)
     if c.numel() == 0:
         return h_out, c_out
@@ -311,6 +533,8 @@ def _launch_fwd(suffix, counter, gates_x, gates_h, c):
 
 def _launch_bwd(suffix, counter, gates_x, gates_h, c, dh, dc_out):
     _check_cuda_operands(gates_x, gates_h, c, *_DTYPES[suffix], dh, dc_out)
+    if suffix == "bf16s":
+        _ensure_tables(c.device)
     dz, dc = torch.empty_like(gates_x), torch.empty_like(c)
     if c.numel() == 0:
         return dz, dc
@@ -396,6 +620,7 @@ _ENTRIES = {  # suffix -> (forward, backward) wrappers
 for _pair in _ENTRIES.values():
     for _fn in _pair:
         _fn.launches = 0
+lstm_gate_tables_cuda.launches = 0
 
 
 def _entries(gates_x, c):

@@ -7,7 +7,8 @@ ones included) at full width and the ConvLSTM's (float32 and bfloat16) at
 a small size, float32 results that do not
 depend on the global TF32 flags, and two runs with equal bits; the
 space-to-depth stem against the plain stem, the all-bf16 gate pair of
-the bf16 train step, reference checkpoints loaded back on the card,
+the bf16 train step (with every bf16 pattern in every operand slot, and
+its activation tables against their plain twin), reference checkpoints loaded back on the card,
 convergence refill against the search without it (``chip_smoke.py``'s refill phase at a
 small size, so run from the repository's root), and a resumed run against
 an uninterrupted one. Skips
@@ -1154,6 +1155,44 @@ def test_all_bf16_gate_kernels_match_plain(cuda_device, case):
         assert torch.equal(grads[2], grads[0])
     again = fwd(gx.detach(), None if gh is None else gh.detach(), c.detach())
     assert torch.equal(again[0].view(torch.int16), h_new.view(torch.int16))
+
+
+@pytest.mark.parametrize("with_gh", [False, True], ids=["merged", "gates_h"])
+def test_all_bf16_gate_kernels_every_bf16_pattern(cuda_device, with_gh):
+    """Every one of the 65,536 bf16 patterns in each operand slot in turn
+    (the four gates, c, dh, dc'; ``exhaustive_operands``, the others
+    seeded), without and with ``gates_h``: h', c', dz and dc bit for bit
+    against the plain versions on the card, NaNs included; a failure names
+    the first unequal input. Then the tables released: the next launch
+    builds them once more and gives the same bits."""
+    gx, gh, c, dh, dc_out = tgates.exhaustive_operands(with_gh, ch=4, seed=29, device=cuda_device)
+    h, cn = tgates.lstm_gates_fwd_bf16s_cuda(gx, gh, c)
+    dz, dc = tgates.lstm_gates_bwd_bf16s_cuda(gx, gh, c, dh, dc_out)
+    h_ref, c_ref = tgates.gate_math_plain(gx, gh, c)
+    dz_ref, dc_ref = tgates.gate_math_bwd_plain(gx, gh, c, dh, dc_out)
+    bad = tgates.first_unequal({"h": h, "c": cn, "dz": dz, "dc": dc},
+                               {"h": h_ref, "c": c_ref, "dz": dz_ref, "dc": dc_ref}, 4)
+    assert bad is None, bad
+    tgates.release_gate_tables()
+    builds = tgates.lstm_gate_tables_cuda.launches
+    again = tgates.lstm_gates_bwd_bf16s_cuda(gx, gh, c, dh, dc_out)
+    torch.cuda.synchronize()
+    assert tgates.lstm_gate_tables_cuda.launches == builds + 1
+    assert all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(again, (dz, dc)))
+
+
+def test_gate_tables_match_their_twin(cuda_device):
+    """The card's activation tables against ``gate_table_twin`` run on the
+    card (the plain block's activations with the same CUDA ``expf`` /
+    ``tanhf``, the same derivation): equal ranges, and every packed entry
+    of the S (sigmoid) and T (tanh) regions bit for bit."""
+    tgates._ensure_tables(cuda_device)
+    info = tgates.gate_tables_info(cuda_device)
+    twin = tgates.gate_table_twin(cuda_device)
+    assert {k: info[k] for k in ("slo", "sspan", "tlo", "tspan")} == {
+        k: twin[k] for k in ("slo", "sspan", "tlo", "tspan")}
+    for name, bits in tgates.packed_gate_tables(cuda_device).items():
+        assert torch.equal(bits, twin[name]), name
 
 
 @pytest.mark.parametrize("flags", [dict(pool_impl="argmax"), dict(use_pallas=True, pallas_pool=True)],
