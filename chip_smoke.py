@@ -551,65 +551,32 @@ def phase_gate_check(gates, failures) -> dict:
     layers of the clstm_kth main path (batch 16), the merged-conv route
     (no ``gates_h``) and a ragged size; ``_thnn_fused_lstm_cell`` (and its
     backward) on the same inputs as the yardstick, checked to agree.
-
-    Tolerances: h' in (-1, 1) within 1e-6 absolute; c', dz and dc within
-    1e-6 of max(1, their largest magnitude): accurate expf/tanhf in both,
-    but the kernel contracts products into FMAs where PyTorch rounds each
-    elementwise op, a few ulps apart."""
+    Tolerances: ``_f32_gate_errs``."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(4)
-    b, (h1, w1) = CLSTM_BATCH, (CLSTM_HW[0] // 2, CLSTM_HW[1] // 2)
-    sites = [  # (site, leading shape, Ch, with gates_h)
-        ("layer1", (b, h1, w1), 4, True),
-        ("layer2", (b, h1 // 4, w1 // 4), 4, True),
-        ("layer1_merged", (b, h1, w1), 4, False),
-        ("ragged", (3, 7, 9), 5, True),
-        ("ragged_merged", (3, 7, 9), 5, False),
-    ]
-    aten = torch.ops.aten
     cases = {"lstm_gates_fwd": [], "lstm_gates_bwd": []}
-    for site, lead, ch, with_gh in sites:
-        gx = torch.randn(*lead, 4 * ch, generator=gen).to(dev)
-        gh = torch.randn(*lead, 4 * ch, generator=gen).to(dev) if with_gh else None
-        c, dh, dc_out = (torch.randn(*lead, ch, generator=gen).to(dev) for _ in range(3))
+    for site, lead, ch, with_gh in F32_GATE_SITES:
+        gx, gh, c, dh, dc_out = _f32_gate_operands(gen, lead, ch, with_gh, dev)
         h_new, c_new = gates.lstm_gates_fwd_cuda(gx, gh, c)
         dz, dc = gates.lstm_gates_bwd_cuda(gx, gh, c, dh, dc_out)
         h_ref, c_ref = gates.gate_math_plain(gx, gh, c)
         dz_ref, dc_ref = gates.gate_math_bwd_plain(gx, gh, c, dh, dc_out)
-        # the library call: the same function on (rows, 4 Ch) views
-        rows = c.numel() // ch
-        lib_in = (gx.view(rows, 4 * ch), (gh if with_gh else torch.zeros_like(gx)).view(rows, 4 * ch),
-                  c.view(rows, ch))
-        hy, cy, ws = aten._thnn_fused_lstm_cell(*lib_in)
-        dgates, dcx, _ = aten._thnn_fused_lstm_cell_backward_impl(
-            dh.view(rows, ch), dc_out.view(rows, ch), lib_in[2], cy, ws, False)
+        lib_fwd, lib_bwd, lib_out = _gate_library((gx, gh, c, dh, dc_out))
         torch.cuda.synchronize()
-
-        def err(a, b_):
-            return (a - b_).abs().max().item()
-
-        def rel_tol(ref):
-            return 1e-6 * max(1.0, ref.abs().max().item())
-
-        fwd_errs = {"h": (err(h_new, h_ref), 1e-6), "c": (err(c_new, c_ref), rel_tol(c_ref))}
-        bwd_errs = {"dz": (err(dz, dz_ref), rel_tol(dz_ref)), "dc": (err(dc, dc_ref), rel_tol(dc_ref))}
-        lib_errs = {
-            "h": (err(hy.view_as(h_new), h_new), 1e-6), "c": (err(cy.view_as(c_new), c_new), rel_tol(c_ref)),
-            "dz": (err(dgates.view_as(dz), dz), rel_tol(dz_ref)), "dc": (err(dcx.view_as(dc), dc), rel_tol(dc_ref)),
-        }
+        refs = (h_ref, c_ref, dz_ref, dc_ref)
+        errs = _f32_gate_errs((h_new, c_new, dz, dc), refs)
+        fwd_errs, bwd_errs = {k: errs[k] for k in ("h", "c")}, {k: errs[k] for k in ("dz", "dc")}
+        lib_errs = _f32_gate_errs(lib_out, (h_new, c_new, dz, dc), limits_of=refs)
         numel, znumel = c.numel(), gx.numel()
         z_in = znumel * (2 if with_gh else 1)
         for name, errs, fn, plain, lib, nbytes, ops, lib_keys in (
             ("lstm_gates_fwd", fwd_errs,
              lambda: gates.lstm_gates_fwd_cuda(gx, gh, c), lambda: gates.gate_math_plain(gx, gh, c),
-             lambda: aten._thnn_fused_lstm_cell(*lib_in),
-             4 * (z_in + 3 * numel), GATE_OPS_FWD * numel, ("h", "c")),
+             lib_fwd, 4 * (z_in + 3 * numel), GATE_OPS_FWD * numel, ("h", "c")),
             ("lstm_gates_bwd", bwd_errs,
              lambda: gates.lstm_gates_bwd_cuda(gx, gh, c, dh, dc_out),
              lambda: gates.gate_math_bwd_plain(gx, gh, c, dh, dc_out),
-             lambda: aten._thnn_fused_lstm_cell_backward_impl(
-                 dh.view(rows, ch), dc_out.view(rows, ch), lib_in[2], cy, ws, False),
-             4 * (z_in + znumel + 4 * numel), GATE_OPS_BWD * numel, ("dz", "dc")),
+             lib_bwd, 4 * (z_in + znumel + 4 * numel), GATE_OPS_BWD * numel, ("dz", "dc")),
         ):
             bms, by = bound(nbytes, ops)
             lib_err = {k: lib_errs[k][0] for k in lib_keys}
@@ -658,6 +625,62 @@ ALL_BF16_GATE_SITES = (
     ("layer1_merged", (CLSTM_BATCH, CLSTM_HW[0] // 2, CLSTM_HW[1] // 2), 4, False),
     ("ragged", (3, 7, 9), 5, True),
 )
+
+
+# the sites of the float32 pair's rows: the all-bf16 pair's and a ragged
+# size without gates_h
+F32_GATE_SITES = ALL_BF16_GATE_SITES + (("ragged_merged", (3, 7, 9), 5, False),)
+
+
+def _f32_gate_operands(gen, lead, ch, with_gh, dev, off: int = 0):
+    """Seeded float32 gate operands: (gates_x, gates_h or None, c, dh,
+    dc_out), each a view ``off`` elements into its storage."""
+
+    def operand(width):
+        n = torch.Size(lead).numel() * width
+        return torch.randn(n + off, generator=gen).to(dev)[off:].view(*lead, width)
+
+    gx = operand(4 * ch)
+    gh = operand(4 * ch) if with_gh else None
+    c, dh, dc_out = (operand(ch) for _ in range(3))
+    return gx, gh, c, dh, dc_out
+
+
+def _gate_library(ops):
+    """``_thnn_fused_lstm_cell`` and its backward on one site's float32
+    operands as (rows, 4 Ch) views (zeros for a null gates_h), the same
+    function as the gate pair: (forward call, backward call, their outputs
+    h', c', dz, dc shaped as the pair's)."""
+    aten = torch.ops.aten
+    gx, gh, c, dh, dc_out = ops
+    ch = c.shape[-1]
+    rows = c.numel() // ch
+    lib_in = (gx.view(rows, 4 * ch), (gh if gh is not None else torch.zeros_like(gx)).view(rows, 4 * ch),
+              c.view(rows, ch))
+    hy, cy, ws = aten._thnn_fused_lstm_cell(*lib_in)
+
+    def fwd():
+        return aten._thnn_fused_lstm_cell(*lib_in)
+
+    def bwd():
+        return aten._thnn_fused_lstm_cell_backward_impl(dh.view(rows, ch), dc_out.view(rows, ch), lib_in[2], cy, ws,
+                                                         False)
+
+    dgates, dcx, _ = bwd()
+    return fwd, bwd, (hy.view_as(c), cy.view_as(c), dgates.view_as(gx), dcx.view_as(c))
+
+
+def _f32_gate_errs(got, want, limits_of=None) -> dict:
+    """h', c', dz and dc against ``want``: {name: (largest error, limit)}.
+    Limits (of ``limits_of``, else of ``want``): h' in (-1, 1) within 1e-6
+    absolute; c', dz and dc within 1e-6 of max(1, their largest magnitude):
+    accurate expf/tanhf in both, but the kernel contracts products into
+    FMAs where PyTorch rounds each elementwise op, a few ulps apart."""
+    out = {}
+    for name, a, b, lim in zip(("h", "c", "dz", "dc"), got, want, limits_of or want):
+        tol = 1e-6 if name == "h" else 1e-6 * max(1.0, lim.abs().max().item())
+        out[name] = ((a - b).abs().max().item(), tol)
+    return out
 
 
 def _all_bf16_operands(gen, lead, ch, with_gh, dev):
@@ -740,10 +763,24 @@ def _all_bf16_gate_rows(gates, failures) -> dict:
     return cases
 
 
+def _gate_ptxas(report: str) -> dict:
+    """The ptxas lines (registers, spills) of the float32 and all-bf16 gate
+    kernels in an nvcc report, by kernel (its mangled name from
+    ``lstm_gates_`` to its parameters)."""
+    ptxas, kernel = {}, None
+    for line in report.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"(lstm_gates_(?:fwd|bwd)\w*?)(?=EvP|EP)", line)
+            kernel = m[1] if m and "_bf16_kernel" not in m[1] else None
+        elif kernel and ("registers" in line or "spill" in line):
+            ptxas.setdefault(kernel, []).append(line.split(":", 1)[-1].strip())
+    return ptxas
+
+
 def _build_gate_lib(gates, src: Path):
     """``src`` (a checkout's ``csrc/fused_gates.cu``, its headers beside
     it) compiled into ``_build/fused_gates_other.so``: (bound library,
-    ptxas lines of its all-bf16 kernels)."""
+    its gate kernels' ptxas lines)."""
     import ctypes
 
     from ivf_tpu_torch.ops.kernels import build
@@ -754,13 +791,7 @@ def _build_gate_lib(gates, src: Path):
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}")
-    ptxas, kernel = {}, None
-    for line in proc.stdout.splitlines():
-        m = re.search(r"Compiling entry function '\w*?(lstm_gates_(?:fwd|bwd)_bf16s\w*?)E", line)
-        kernel = m[1] if m else (None if "Compiling entry" in line else kernel)
-        if kernel and ("registers" in line or "spill" in line):
-            ptxas.setdefault(kernel, []).append(line.split(":", 1)[-1].strip())
-    return gates.bind(ctypes.CDLL(str(so))), ptxas
+    return gates.bind(ctypes.CDLL(str(so))), _gate_ptxas(proc.stdout)
 
 
 @contextmanager
@@ -782,25 +813,32 @@ def _gate_lib(gates, lib):
         gates._lib = saved_lib
 
 
-def _bf16s_site_ms(gates, ops) -> dict:
-    """Device ms of the all-bf16 pair on one site's operands through the
-    wrappers (warm: the larger of two readings; cold: inputs from device
-    memory) and its outputs' bits against the plain version's."""
+def _pair_site(fwd_fn, bwd_fn, ops, timed: bool = True) -> dict:
+    """One gate pair's outputs (h', c', dz, dc) on one site's operands
+    through its wrappers; ``timed``: with its device ms each way, warm and
+    cold (inputs from device memory), each the larger of two readings."""
     gx, gh, c, dh, dc_out = ops
-    fwd = lambda: gates.lstm_gates_fwd_bf16s_cuda(gx, gh, c)  # noqa: E731
-    bwd = lambda: gates.lstm_gates_bwd_bf16s_cuda(gx, gh, c, dh, dc_out)  # noqa: E731
-    got = (*fwd(), *bwd())
-    want = (*gates.gate_math_plain(gx, gh, c), *gates.gate_math_bwd_plain(gx, gh, c, dh, dc_out))
-    return {
-        "fwd_ms": max(device_ms(fwd), device_ms(fwd)), "bwd_ms": max(device_ms(bwd), device_ms(bwd)),
-        "fwd_cold_ms": device_ms(fwd, cold=True), "bwd_cold_ms": device_ms(bwd, cold=True),
-        "equal_bits": all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(got, want)),
-        "outputs": got,
-    }
+
+    def fwd():
+        return fwd_fn(gx, gh, c)
+
+    def bwd():
+        return bwd_fn(gx, gh, c, dh, dc_out)
+
+    row = {"outputs": (*fwd(), *bwd())}
+    if timed:  # the larger of two readings: the profiler now and then drops a kernel's events
+        for key, fn, cold in (("fwd_ms", fwd, False), ("bwd_ms", bwd, False), ("fwd_cold_ms", fwd, True),
+                              ("bwd_cold_ms", bwd, True)):
+            row[key] = max(device_ms(fn, cold=cold), device_ms(fn, cold=cold))
+    return row
 
 
-def _clstm_bf16_step(api, cfg, clips, labels):
-    """One bf16 ConvLSTM train step (the preset's optimizer) from the
+def _same_bits(a, b) -> bool:
+    return all(torch.equal(x.view(torch.uint8), y.view(torch.uint8)) for x, y in zip(a, b))
+
+
+def _clstm_step(api, cfg, clips, labels):
+    """One ConvLSTM train step (the preset's optimizer and dtype) from the
     seeded state after two warm steps: (profile of the step, as
     ``_train_profile``, its wall ms)."""
     from ivf_tpu_torch.train import make_train_step
@@ -817,61 +855,119 @@ def _clstm_bf16_step(api, cfg, clips, labels):
     return _train_profile(lambda: step(state, clips, labels)), wall
 
 
+TURNS = ("other", "this", "this", "other")
+TURN_KEYS = ("fwd_ms", "bwd_ms", "fwd_cold_ms", "bwd_cold_ms")
+
+# float32 sites for --gates-compare beside F32_GATE_SITES, one for each
+# layout the kernels pick: (site, leading shape, Ch, with gates_h, offset of
+# every operand in elements)
+F32_LAYOUT_SITES = (
+    ("ch6", (16, 15, 20), 6, True, 0),
+    ("ch8", (3, 7, 9), 8, True, 0),
+    ("odd_rows", (3, 7), 4, True, 0),
+    ("misaligned", (4, 6, 8), 4, True, 1),
+)
+
+
+def _compare_f32_sites(gates, other_lib, dev) -> bool:
+    """The float32 pair of both builds in turns at every site of
+    ``F32_GATE_SITES`` (timed, ``_thnn_fused_lstm_cell`` timed beside) and
+    ``F32_LAYOUT_SITES``; the bf16-gate / float32-state pair of both on the
+    same values. True when every output has equal bits in both builds and
+    the float32 pair is within ``_f32_gate_errs``'s limits of plain."""
+    ok = True
+    gen = torch.Generator().manual_seed(4)  # phase_gate_check's operands
+    sites = [(*site, 0, True) for site in F32_GATE_SITES] + [(*site, False) for site in F32_LAYOUT_SITES]
+    for site, lead, ch, with_gh, off, timed in sites:
+        ops = _f32_gate_operands(gen, lead, ch, with_gh, dev, off)
+        want = (*gates.gate_math_plain(*ops[:3]), *gates.gate_math_bwd_plain(*ops))
+        bf16_ops = (ops[0].bfloat16(), None if ops[1] is None else ops[1].bfloat16(), *ops[2:])
+        turns, bf16_out = {"other": [], "this": []}, {}
+        for side in TURNS:
+            with _gate_lib(gates, other_lib) if side == "other" else contextlib.nullcontext():
+                turns[side].append(_pair_site(gates.lstm_gates_fwd_cuda, gates.lstm_gates_bwd_cuda, ops, timed))
+                if side not in bf16_out:
+                    bf16_out[side] = _pair_site(gates.lstm_gates_fwd_bf16_cuda, gates.lstm_gates_bwd_bf16_cuda,
+                                                bf16_ops, timed=False)["outputs"]
+        errs = {side: _f32_gate_errs(ts[0]["outputs"], want) for side, ts in turns.items()}
+        row = {"phase": "gates_compare", "pair": "f32", "site": site, "shape": [*lead, 4 * ch], "gates_h": with_gh,
+               "offset": off,
+               "equal_bits_other_this": _same_bits(turns["other"][0]["outputs"], turns["this"][0]["outputs"]),
+               "bf16_gates_equal_bits_other_this": _same_bits(bf16_out["other"], bf16_out["this"]),
+               "within_plain_limits": all(e <= t for es in errs.values() for e, t in es.values()),
+               "errs": {side: {k: {"err": e, "tol": t} for k, (e, t) in es.items()} for side, es in errs.items()}}
+        if timed:
+            row.update({f"{side}_{k}": [t[k] for t in ts] for side, ts in turns.items() for k in TURN_KEYS})
+            lib_fwd, lib_bwd, _ = _gate_library(ops)
+            row["library_ms"] = {key: max(device_ms(fn, cold=cold), device_ms(fn, cold=cold)) for key, fn, cold in (
+                ("fwd_ms", lib_fwd, False), ("bwd_ms", lib_bwd, False), ("fwd_cold_ms", lib_fwd, True),
+                ("bwd_cold_ms", lib_bwd, True))}
+        emit(row)
+        ok = (ok and row["equal_bits_other_this"] and row["bf16_gates_equal_bits_other_this"]
+              and row["within_plain_limits"])
+    return ok
+
+
 def gates_compare(other: str) -> int:
-    """``python3 chip_smoke.py --gates-compare DIR``: the all-bf16 gate pair
-    of the checkout in DIR (its ``csrc/fused_gates.cu`` built beside this
-    one's; the C entries take the same arguments) against this one's in
-    one process, in turns (other, this, this, other): at every site of
-    ``ALL_BF16_GATE_SITES`` device ms forward and backward, warm and cold,
-    and equal bits between the two and to the plain version; then one bf16
-    ConvLSTM train step (``train_clstm``'s ``bf16_gate_kernel`` route, SGD
-    lr 1, one seeded batch) with each: equal loss, gradients and BN
-    statistics; and the device ms of a step of the preset's optimizer with
-    each, in turns (~1 min)."""
+    """``python3 chip_smoke.py --gates-compare DIR``: the gate pairs of the
+    checkout in DIR (its ``csrc/fused_gates.cu`` built beside this one's;
+    the C entries take the same arguments) against this one's in one
+    process, in turns (other, this, this, other). The float32 pair
+    (``_compare_f32_sites``): device ms forward and backward, warm and
+    cold, beside ``_thnn_fused_lstm_cell``'s; equal bits, also of the
+    bf16-gate / float32-state pair. The all-bf16 pair at every site of
+    ``ALL_BF16_GATE_SITES``: device ms, equal bits between the two and to
+    the plain version. Then one float32 and one bf16 ConvLSTM train step
+    (``train_clstm``'s gate-kernel routes, SGD lr 1, one seeded batch)
+    with each: equal loss, gradients and BN statistics; and the device ms
+    of a step of the preset's optimizer with each, in turns (~2 min)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from ivf_tpu_torch import api
+    from ivf_tpu_torch.ops.kernels import build
     from ivf_tpu_torch.ops.kernels import fused_gates as gates
 
     src = Path(other).resolve() / "ivf_tpu_torch" / "csrc" / "fused_gates.cu"
+    this_ptxas = _gate_ptxas(build.build(["fused_gates"])["fused_gates"])
     other_lib, ptxas = _build_gate_lib(gates, src)
-    emit({"phase": "gates_compare", "other": str(src), "nvidia_smi": nvidia_smi(), "other_ptxas": ptxas})
+    emit({"phase": "gates_compare", "other": str(src), "nvidia_smi": nvidia_smi(), "other_ptxas": ptxas,
+          "this_ptxas": this_ptxas})
     dev = torch.device("cuda")
+    ok = _compare_f32_sites(gates, other_lib, dev)
     gates._ensure_tables(dev)
-    ok = True
     for site, lead, ch, with_gh in ALL_BF16_GATE_SITES:
         ops = _all_bf16_operands(torch.Generator().manual_seed(17), lead, ch, with_gh, dev)
+        want = (*gates.gate_math_plain(*ops[:3]), *gates.gate_math_bwd_plain(*ops))
         turns = {"other": [], "this": []}
-        for side in ("other", "this", "this", "other"):
+        for side in TURNS:
             with _gate_lib(gates, other_lib) if side == "other" else contextlib.nullcontext():
-                turns[side].append(_bf16s_site_ms(gates, ops))
-        same = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
-                   for a, b in zip(turns["other"][0]["outputs"], turns["this"][0]["outputs"]))
-        row = {f"{side}_{k}": [t[k] for t in ts] for side, ts in turns.items()
-               for k in ("fwd_ms", "bwd_ms", "fwd_cold_ms", "bwd_cold_ms")}
-        plain = all(t["equal_bits"] for ts in turns.values() for t in ts)
-        emit({"phase": "gates_compare", "site": site, "shape": [*lead, 4 * ch], "gates_h": with_gh,
-              "equal_bits_other_this": same, "equal_bits_plain": plain, **row})
+                turns[side].append(_pair_site(gates.lstm_gates_fwd_bf16s_cuda, gates.lstm_gates_bwd_bf16s_cuda, ops))
+        same = _same_bits(turns["other"][0]["outputs"], turns["this"][0]["outputs"])
+        plain = all(_same_bits(t["outputs"], want) for ts in turns.values() for t in ts)
+        row = {f"{side}_{k}": [t[k] for t in ts] for side, ts in turns.items() for k in TURN_KEYS}
+        emit({"phase": "gates_compare", "pair": "bf16s", "site": site, "shape": [*lead, 4 * ch],
+              "gates_h": with_gh, "equal_bits_other_this": same, "equal_bits_plain": plain, **row})
         ok = ok and same and plain
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = _train_preset(api, "config_clstm_kth.py", tmp, "bf16_gate_kernel", kernel_l2=CLSTM_KERNEL_L2,
-                            **TRAIN_CLSTM_ROUTES["bf16_gate_kernel"])
         (clips, labels), = _clstm_train_batches(1, 31)
-        this = _sgd1_step(api, cfg, clips, labels)
-        with _gate_lib(gates, other_lib):
-            that = _sgd1_step(api, cfg, clips, labels)
-        same = (this["loss"] == that["loss"] and _same_state(this["grads"], that["grads"])
-                and _same_state(this["stats"], that["stats"]))
-        steps = {"other": [], "this": []}
-        for side in ("other", "this", "this", "other"):
-            with _gate_lib(gates, other_lib) if side == "other" else contextlib.nullcontext():
-                prof, wall = _clstm_bf16_step(api, cfg, clips, labels)
-            steps[side].append({"device_ms": prof["device_ms"], "wall_ms": wall,
-                                "gate_kernels_ms": prof["groups_ms"].get("fused_gates kernels")})
-        emit({"phase": "gates_compare", "check": "bf16 ConvLSTM train step", "equal_bits_other_this": same,
-              "loss": this["loss"], "steps": steps})
-        ok = ok and same
+        for route in ("f32_gate_kernel", "bf16_gate_kernel"):
+            cfg = _train_preset(api, "config_clstm_kth.py", tmp, route, kernel_l2=CLSTM_KERNEL_L2,
+                                **TRAIN_CLSTM_ROUTES[route])
+            this = _sgd1_step(api, cfg, clips, labels)
+            with _gate_lib(gates, other_lib):
+                that = _sgd1_step(api, cfg, clips, labels)
+            same = (this["loss"] == that["loss"] and _same_state(this["grads"], that["grads"])
+                    and _same_state(this["stats"], that["stats"]))
+            steps = {"other": [], "this": []}
+            for side in TURNS:
+                with _gate_lib(gates, other_lib) if side == "other" else contextlib.nullcontext():
+                    prof, wall = _clstm_step(api, cfg, clips, labels)
+                steps[side].append({"device_ms": prof["device_ms"], "wall_ms": wall,
+                                    "gate_kernels_ms": prof["groups_ms"].get("fused_gates kernels")})
+            emit({"phase": "gates_compare", "check": f"{route.split('_')[0]} ConvLSTM train step",
+                  "equal_bits_other_this": same, "loss": this["loss"], "steps": steps})
+            ok = ok and same
     return 0 if ok else 1
 
 

@@ -15,16 +15,20 @@
 // by bytes (3.35 TB/s). At the clstm_kth layer-1 shapes (16 x 60 x 80 rows,
 // Ch = 4) the forward moves 13.5 MB (4.0 us) and the backward 19.7 MB
 // (5.9 us); layer 2 (16 x 15 x 20 rows) moves under 1 MB, less than a
-// launch costs.
+// launch costs. From device memory the float32 backward runs within a few
+// percent of a build that makes the same loads and stores with its
+// arithmetic replaced by sums (PERF.md).
 //
 // Design: one pass over the operands as they lie, with nothing copied.
 // The TPU version split z four ways, zero-padded each part to (rows, 128)
-// tiles and summed gx + gh before the call. Here one thread owns one
-// (row p, channel k) and reads its four gates in place from the NHWC gate
-// tensors at p * 4Ch + g * Ch + k; gx + gh is added in registers (gh may
-// be null when the x- and h-convs were merged into one). The threads of a
-// warp cover 32 consecutive (p, k), so the four gate loads of a warp
-// together read one contiguous span of the gate tensor.
+// tiles and summed gx + gh before the call. Here a thread owns V
+// consecutive channels of one row p and reads its four gates in place from
+// the NHWC gate tensors at p * 4Ch + g * Ch + k, V values a load; gx + gh
+// is added in registers (gh may be null when the x- and h-convs were merged
+// into one). The float32 pair takes two channels a thread where it can:
+// four (one 16-byte access per gate) made each thread's dependent chains
+// four long and lost at every size; one channel keeps every operand's
+// access 4 bytes wide.
 //
 // Backward: the kernel recomputes the gates from the saved operands and
 // writes dz (p, 4Ch) and dc (p, Ch) in one pass, where eager PyTorch would
@@ -91,6 +95,7 @@
 
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -98,66 +103,136 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// ---- float32 ----------------------------------------------------------------
+
+// The float32 kernels: a thread takes V consecutive channels of one row and
+// moves each operand's V values as one V * 4-byte access (lstm_gates_*_f32
+// take V = 2 where Ch is even and every base 8-byte aligned, else 1); a
+// grid of kF32Threads-thread blocks, at most kF32BlocksPerSm an SM, strides
+// over the rest. Element e = p Ch + k of c has gate g at
+// 4 p Ch + g Ch + k = 4 e - 3 k + g Ch, so a thread walks e and k alone:
+// one division a thread, for its first k. The index is 32-bit where the
+// gate tensor has fewer than 2^31 elements, else 64-bit: 64-bit index
+// arithmetic made the backward 7-12% slower from L2 (PERF.md).
+constexpr int kF32Threads = 64;
+constexpr int kF32BlocksPerSm = 16;
+
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-__device__ __forceinline__ void load_gates(const float* __restrict__ gx,
-                                           const float* __restrict__ gh,
-                                           long long base, int ch, float z[4]) {
+template <int V, typename I>
+__device__ __forceinline__ void load_f32(const float* __restrict__ p, I i, float (&x)[V]) {
+  if constexpr (V == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p + i);
+    x[0] = v.x, x[1] = v.y;
+  } else {
+    x[0] = p[i];
+  }
+}
+
+template <int V, typename I>
+__device__ __forceinline__ void store_f32(float* __restrict__ p, I i, const float (&x)[V]) {
+  if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p + i) = make_float2(x[0], x[1]);
+  } else {
+    p[i] = x[0];
+  }
+}
+
+// z[g] = gx + gh (gh may be null) of the V channels from gate index base
+template <int V, typename I>
+__device__ __forceinline__ void load_z(const float* __restrict__ gx, const float* __restrict__ gh, I base,
+                                       int ch, float (&z)[4][V]) {
 #pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    z[g] = gx[base + g * ch];
-    if (gh != nullptr) z[g] += gh[base + g * ch];
+  for (int g = 0; g < 4; ++g) load_f32<V>(gx, base + static_cast<I>(g * ch), z[g]);
+  if (gh != nullptr) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      float y[V];
+      load_f32<V>(gh, base + static_cast<I>(g * ch), y);
+#pragma unroll
+      for (int j = 0; j < V; ++j) z[g][j] = __fadd_rn(z[g][j], y[j]);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-lstm_gates_fwd(const float* __restrict__ gx, const float* __restrict__ gh,
-               const float* __restrict__ c, float* __restrict__ h_out,
-               float* __restrict__ c_out, long long n, int ch) {
-  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       e < n; e += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long p = e / ch;
-    const int k = static_cast<int>(e - p * ch);
-    float z[4];
-    load_gates(gx, gh, p * 4 * ch + k, ch, z);
-    const float i = sigmoidf_(z[0]);
-    const float f = sigmoidf_(z[1]);
-    const float g = tanhf(z[2]);
-    const float o = sigmoidf_(z[3]);
-    const float cn = f * c[e] + i * g;
-    c_out[e] = cn;
-    h_out[e] = o * tanhf(cn);
+// c' = f c + i g. The parent build's nvcc contracted f * c + i * g into
+// fma(i, g, f * c); written out, so every build gives the same bits.
+__device__ __forceinline__ float cell_f32(float f, float c, float i, float g) {
+  return __fmaf_rn(i, g, __fmul_rn(f, c));
+}
+
+// Walks the thread's groups of V elements: the first at e = V times the
+// thread's index, then `stride` elements (stride_k channels) apart;
+// `body` takes each group's e and gate index 4 e - 3 k.
+template <int V, typename I, class Body>
+__device__ __forceinline__ void f32_walk(I n, int ch, I stride, int stride_k, Body body) {
+  I e = (static_cast<I>(blockIdx.x) * kF32Threads + threadIdx.x) * V;
+  int k = static_cast<int>(e % static_cast<I>(ch));
+  for (; e < n; e += stride) {
+    body(e, 4 * e - 3 * static_cast<I>(k));
+    k += stride_k;
+    if (k >= ch) k -= ch;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-lstm_gates_bwd(const float* __restrict__ gx, const float* __restrict__ gh,
-               const float* __restrict__ c, const float* __restrict__ dh,
-               const float* __restrict__ dc_out, float* __restrict__ dz,
-               float* __restrict__ dc, long long n, int ch) {
-  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       e < n; e += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long p = e / ch;
-    const int k = static_cast<int>(e - p * ch);
-    const long long base = p * 4 * ch + k;
-    float z[4];
-    load_gates(gx, gh, base, ch, z);
-    const float i = sigmoidf_(z[0]);
-    const float f = sigmoidf_(z[1]);
-    const float g = tanhf(z[2]);
-    const float o = sigmoidf_(z[3]);
-    const float cv = c[e];
-    const float tc = tanhf(f * cv + i * g);
-    const float dhv = dh[e];
-    const float dcn = dc_out[e] + dhv * o * (1.f - tc * tc);
-    dz[base] = dcn * g * i * (1.f - i);
-    dz[base + ch] = dcn * cv * f * (1.f - f);
-    dz[base + 2 * ch] = dcn * i * (1.f - g * g);
-    dz[base + 3 * ch] = dhv * tc * o * (1.f - o);
-    dc[e] = dcn * f;
-  }
+template <int V, typename I>
+__global__ void __launch_bounds__(kF32Threads, kF32BlocksPerSm)
+lstm_gates_fwd_f32_kernel(const float* __restrict__ gx, const float* __restrict__ gh,
+                          const float* __restrict__ c, float* __restrict__ h_out,
+                          float* __restrict__ c_out, I n, int ch, I stride, int stride_k) {
+  f32_walk<V>(n, ch, stride, stride_k, [&](I e, I base) {
+    float z[4][V], cv[V], h[V], cn[V];
+    load_z<V>(gx, gh, base, ch, z);
+    load_f32<V>(c, e, cv);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float i = sigmoidf_(z[0][j]);
+      const float f = sigmoidf_(z[1][j]);
+      const float g = tanhf(z[2][j]);
+      const float o = sigmoidf_(z[3][j]);
+      cn[j] = cell_f32(f, cv[j], i, g);
+      h[j] = __fmul_rn(o, tanhf(cn[j]));
+    }
+    store_f32<V>(c_out, e, cn);
+    store_f32<V>(h_out, e, h);
+  });
+}
+
+// The VJP, recomputing the gates; every product and sum as the parent
+// build's nvcc compiled them (its contractions into fma written out).
+template <int V, typename I>
+__global__ void __launch_bounds__(kF32Threads, kF32BlocksPerSm)
+lstm_gates_bwd_f32_kernel(const float* __restrict__ gx, const float* __restrict__ gh,
+                          const float* __restrict__ c, const float* __restrict__ dh,
+                          const float* __restrict__ dc_out, float* __restrict__ dz,
+                          float* __restrict__ dc, I n, int ch, I stride, int stride_k) {
+  f32_walk<V>(n, ch, stride, stride_k, [&](I e, I base) {
+    float z[4][V], cv[V], dhv[V], dco[V], d[4][V], dcv[V];
+    load_z<V>(gx, gh, base, ch, z);
+    load_f32<V>(c, e, cv);
+    load_f32<V>(dh, e, dhv);
+    load_f32<V>(dc_out, e, dco);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float i = sigmoidf_(z[0][j]);
+      const float f = sigmoidf_(z[1][j]);
+      const float g = tanhf(z[2][j]);
+      const float o = sigmoidf_(z[3][j]);
+      const float tc = tanhf(cell_f32(f, cv[j], i, g));
+      // dc' + dh' o (1 - tc^2)
+      const float dcn = __fmaf_rn(__fmul_rn(dhv[j], o), __fmaf_rn(-tc, tc, 1.f), dco[j]);
+      d[0][j] = __fmul_rn(__fmul_rn(__fmul_rn(dcn, g), i), __fsub_rn(1.f, i));
+      d[1][j] = __fmul_rn(__fmul_rn(__fmul_rn(dcn, cv[j]), f), __fsub_rn(1.f, f));
+      d[2][j] = __fmul_rn(__fmul_rn(dcn, i), __fmaf_rn(-g, g, 1.f));
+      d[3][j] = __fmul_rn(__fmul_rn(__fmul_rn(dhv[j], tc), o), __fsub_rn(1.f, o));
+      dcv[j] = __fmul_rn(dcn, f);
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g) store_f32<V>(dz, base + static_cast<I>(g * ch), d[g]);
+    store_f32<V>(dc, e, dcv);
+  });
 }
 
 // ---- bfloat16 gates, float32 state -----------------------------------------
@@ -640,36 +715,63 @@ lstm_gates_bwd_bf16s_kernel(const uint16_t* __restrict__ gx, const uint16_t* __r
   });
 }
 
-// The launch of an all-bf16 kernel: the current device's tables, its grid
-// and stride for V elements a thread, and the shared memory it takes.
-// Returns 0, or the error that stops the launch.
-struct Bf16sLaunch {
-  ActTab t;
-  int blocks, smem;
-  Stride stride;
-};
-
-int bf16s_launch(long long n, int ch, int v, Bf16sLaunch& l) {
-  int dev = 0;
-  const cudaError_t err = cudaGetDevice(&dev);
+// The current device and its SM count (read once). Returns 0, or the
+// error that stops a launch.
+int current_device(int& dev, int& sms) {
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices || g_tables[dev].packed == nullptr) return static_cast<int>(cudaErrorNotReady);
-  l.t = g_tables[dev];
-  l.smem = 2 * (l.t.ns + l.t.nt);
-  const long long need = (n / v + kBf16sThreads - 1) / kBf16sThreads;
-  const long long most = static_cast<long long>(g_sms[dev]) * kBf16sBlocksPerSm;
-  l.blocks = static_cast<int>(need < most ? need : most);
-  l.stride.e = static_cast<long long>(l.blocks) * kBf16sThreads * v;
-  l.stride.p = l.stride.e / ch;
-  l.stride.k = static_cast<int>(l.stride.e - l.stride.p * ch);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (g_sms[dev] == 0 &&
+      (err = cudaDeviceGetAttribute(&g_sms[dev], cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  sms = g_sms[dev];
   return 0;
 }
 
-// V = 2 when Ch is even and every base is 4-byte aligned; else 1.
-int bf16s_vec(int ch, std::initializer_list<const void*> ptrs) {
+// A grid-stride launch over the n elements of c (rows, ch), v a thread:
+// blocks of `threads`, at most `per_sm` an SM, and the grid's stride.
+struct Grid {
+  int blocks;
+  Stride stride;
+};
+
+Grid grid_stride(long long n, int ch, int v, int threads, int per_sm, int sms) {
+  Grid g;
+  const long long need = (n / v + threads - 1) / threads;
+  const long long most = static_cast<long long>(sms) * per_sm;
+  g.blocks = static_cast<int>(need < most ? need : most);
+  g.stride.e = static_cast<long long>(g.blocks) * threads * v;
+  g.stride.p = g.stride.e / ch;
+  g.stride.k = static_cast<int>(g.stride.e - g.stride.p * ch);
+  return g;
+}
+
+// Two elements a thread when ch is even and every base is a multiple of
+// `align` bytes (one access of two elements per operand); else one.
+int pair_width(int ch, int align, std::initializer_list<const void*> ptrs) {
   bool two = ch % 2 == 0;
-  for (const void* p : ptrs) two = two && reinterpret_cast<uintptr_t>(p) % 4 == 0;
+  for (const void* p : ptrs) two = two && reinterpret_cast<uintptr_t>(p) % align == 0;
   return two ? 2 : 1;
+}
+
+// The launch of an all-bf16 kernel: the current device's tables, its grid
+// for V elements a thread, and the shared memory it takes. Returns 0, or
+// the error that stops the launch.
+struct Bf16sLaunch {
+  ActTab t;
+  int smem;
+  Grid grid;
+};
+
+int bf16s_launch(long long n, int ch, int v, Bf16sLaunch& l) {
+  int dev = 0, sms = 0;
+  const int rc = current_device(dev, sms);
+  if (rc != 0) return rc;
+  if (g_tables[dev].packed == nullptr) return static_cast<int>(cudaErrorNotReady);
+  l.t = g_tables[dev];
+  l.smem = 2 * (l.t.ns + l.t.nt);
+  l.grid = grid_stride(n, ch, v, kBf16sThreads, kBf16sBlocksPerSm, sms);
+  return 0;
 }
 
 template <int V>
@@ -678,9 +780,9 @@ int launch_fwd_bf16s(const void* gx, const void* gh, const void* c, void* h_out,
   Bf16sLaunch l;
   const int rc = bf16s_launch(n, ch, V, l);
   if (rc != 0) return rc;
-  lstm_gates_fwd_bf16s_kernel<V><<<l.blocks, kBf16sThreads, l.smem, static_cast<cudaStream_t>(stream)>>>(
+  lstm_gates_fwd_bf16s_kernel<V><<<l.grid.blocks, kBf16sThreads, l.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(gx), static_cast<const uint16_t*>(gh), static_cast<const uint16_t*>(c),
-      static_cast<uint16_t*>(h_out), static_cast<uint16_t*>(c_out), n, ch, l.stride, l.t);
+      static_cast<uint16_t*>(h_out), static_cast<uint16_t*>(c_out), n, ch, l.grid.stride, l.t);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -690,11 +792,32 @@ int launch_bwd_bf16s(const void* gx, const void* gh, const void* c, const void* 
   Bf16sLaunch l;
   const int rc = bf16s_launch(n, ch, V, l);
   if (rc != 0) return rc;
-  lstm_gates_bwd_bf16s_kernel<V><<<l.blocks, kBf16sThreads, l.smem, static_cast<cudaStream_t>(stream)>>>(
+  lstm_gates_bwd_bf16s_kernel<V><<<l.grid.blocks, kBf16sThreads, l.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(gx), static_cast<const uint16_t*>(gh), static_cast<const uint16_t*>(c),
       static_cast<const uint16_t*>(dh), static_cast<const uint16_t*>(dc_out), static_cast<uint16_t*>(dz),
-      static_cast<uint16_t*>(dc), n, ch, l.stride, l.t);
+      static_cast<uint16_t*>(dc), n, ch, l.grid.stride, l.t);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 kernels' grid for v elements a thread. Returns 0, or the
+// error that stops the launch.
+int f32_grid(long long n, int ch, int v, Grid& g) {
+  int dev = 0, sms = 0;
+  const int rc = current_device(dev, sms);
+  if (rc == 0) g = grid_stride(n, ch, v, kF32Threads, kF32BlocksPerSm, sms);
+  return rc;
+}
+
+// f(V, index) with V as an integral_constant and a value of the index type:
+// 32-bit where the gate tensor's 4 n elements fit in an int.
+template <class F>
+int with_f32_layout(long long n, int v, F f) {
+  using U = uint32_t;
+  using L = long long;
+  using std::integral_constant;
+  if (4 * n < (1LL << 31))
+    return v == 2 ? f(integral_constant<int, 2>{}, U{}) : f(integral_constant<int, 1>{}, U{});
+  return v == 2 ? f(integral_constant<int, 2>{}, L{}) : f(integral_constant<int, 1>{}, L{});
 }
 
 int grid_for(long long n) {
@@ -714,9 +837,16 @@ extern "C" int lstm_gates_fwd_f32(const float* gx, const float* gh,
                                   long long rows, int ch, void* stream) {
   if (rows <= 0 || ch <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long n = rows * ch;
-  lstm_gates_fwd<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      gx, gh, c, h_out, c_out, n, ch);
-  return static_cast<int>(cudaGetLastError());
+  const int v = pair_width(ch, 8, {gx, gh, c, h_out, c_out});
+  Grid g;
+  const int rc = f32_grid(n, ch, v, g);
+  if (rc != 0) return rc;
+  return with_f32_layout(n, v, [&](auto vt, auto it) {
+    using I = decltype(it);
+    lstm_gates_fwd_f32_kernel<decltype(vt)::value, I><<<g.blocks, kF32Threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        gx, gh, c, h_out, c_out, static_cast<I>(n), ch, static_cast<I>(g.stride.e), g.stride.k);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // The VJP: given dh = dL/dh' and dc_out = dL/dc' (rows, ch), writes
@@ -727,9 +857,16 @@ extern "C" int lstm_gates_bwd_f32(const float* gx, const float* gh,
                                   long long rows, int ch, void* stream) {
   if (rows <= 0 || ch <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long n = rows * ch;
-  lstm_gates_bwd<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      gx, gh, c, dh, dc_out, dz, dc, n, ch);
-  return static_cast<int>(cudaGetLastError());
+  const int v = pair_width(ch, 8, {gx, gh, c, dh, dc_out, dz, dc});
+  Grid g;
+  const int rc = f32_grid(n, ch, v, g);
+  if (rc != 0) return rc;
+  return with_f32_layout(n, v, [&](auto vt, auto it) {
+    using I = decltype(it);
+    lstm_gates_bwd_f32_kernel<decltype(vt)::value, I><<<g.blocks, kF32Threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        gx, gh, c, dh, dc_out, dz, dc, static_cast<I>(n), ch, static_cast<I>(g.stride.e), g.stride.k);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // As lstm_gates_fwd_f32, with bfloat16 gates gx, gh and float32 c, h_out,
@@ -765,7 +902,7 @@ extern "C" int lstm_gates_fwd_bf16s(const __nv_bfloat16* gx, const __nv_bfloat16
                                     __nv_bfloat16* c_out, long long rows, int ch, void* stream) {
   if (rows <= 0 || ch <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long n = rows * ch;
-  return bf16s_vec(ch, {gx, gh, c, h_out, c_out}) == 2
+  return pair_width(ch, 4, {gx, gh, c, h_out, c_out}) == 2
              ? launch_fwd_bf16s<2>(gx, gh, c, h_out, c_out, n, ch, stream)
              : launch_fwd_bf16s<1>(gx, gh, c, h_out, c_out, n, ch, stream);
 }
@@ -777,7 +914,7 @@ extern "C" int lstm_gates_bwd_bf16s(const __nv_bfloat16* gx, const __nv_bfloat16
                                     __nv_bfloat16* dc, long long rows, int ch, void* stream) {
   if (rows <= 0 || ch <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long n = rows * ch;
-  return bf16s_vec(ch, {gx, gh, c, dh, dc_out, dz, dc}) == 2
+  return pair_width(ch, 4, {gx, gh, c, dh, dc_out, dz, dc}) == 2
              ? launch_bwd_bf16s<2>(gx, gh, c, dh, dc_out, dz, dc, n, ch, stream)
              : launch_bwd_bf16s<1>(gx, gh, c, dh, dc_out, dz, dc, n, ch, stream);
 }
@@ -823,8 +960,7 @@ extern "C" int lstm_gate_tables_build(void* scratch, void* packed, long long pac
   const long long bytes = 2LL * (t.ns + t.nt);
   if (t.sspan <= 0 || t.tspan <= 0 || bytes > packed_bytes || bytes > kTableBytesMax) return kTablesOutOfRange;
   act_pack_kernel<<<(t.ns + t.nt + 255) / 256, 256, 0, s>>>(sig, tnh, static_cast<uint16_t*>(packed), t);
-  if ((err = cudaStreamSynchronize(s)) != cudaSuccess || (err = cudaGetLastError()) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&g_sms[dev], cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+  if ((err = cudaStreamSynchronize(s)) != cudaSuccess || (err = cudaGetLastError()) != cudaSuccess)
     return static_cast<int>(err);
   g_tables[dev] = t;
   return 0;

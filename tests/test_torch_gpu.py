@@ -177,15 +177,36 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
         tgates.lstm_gates_fwd_cuda(torch.zeros(2, 5, 16), None, c)  # gates on the CPU
 
 
-@pytest.mark.parametrize("with_gh", [True, False], ids=["split", "merged"])
-@pytest.mark.parametrize("shape,ch", [((3, 7, 9), 5), ((16, 15, 20), 4)])
-def test_gate_kernels_match_plain(cuda_device, shape, ch, with_gh):
-    """Forward: h' within 1e-6, c' within 1e-6 of max|c'|; backward: dz and
-    dc within 1e-6 of max(1, their largest magnitude) (accurate expf/tanhf
-    and FMA contraction against PyTorch's separately rounded ops)."""
+F32_GATE_SHAPES = {  # (leading shape, Ch, gates_h, element offset of every operand)
+    "ch4": ((16, 15, 20), 4, True, 0),  # 2 channels a thread (Ch even, 8-byte-aligned bases)
+    "ch4_merged": ((16, 15, 20), 4, False, 0),  # gates_h None
+    "ch8": ((3, 7, 9), 8, True, 0),
+    "ch6": ((3, 7, 9), 6, True, 0),
+    "ch5": ((3, 7, 9), 5, True, 0),  # 1 channel a thread: Ch odd, an odd row count
+    "ch5_merged": ((3, 7, 9), 5, False, 0),
+    "odd_rows": ((3, 7), 4, True, 0),
+    "misaligned": ((4, 6, 8), 4, True, 1),  # every base 4 bytes off 8-byte alignment: 1 channel a thread
+    "walk_ch5": ((16, 60, 80), 5, True, 0),  # more elements than one pass of the grid: the walk wraps channels
+    "walk_ch10": ((16, 60, 80), 10, False, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(F32_GATE_SHAPES))
+def test_gate_kernels_match_plain(cuda_device, case):
+    """One launch each way, at every layout the float32 kernels pick (2 or
+    1 channels a thread). Forward: h' within 1e-6, c' within 1e-6 of
+    max|c'|; backward: dz and dc within 1e-6 of max(1, their largest
+    magnitude) (accurate expf/tanhf and FMA contraction against PyTorch's
+    separately rounded ops)."""
+    lead, ch, with_gh, off = F32_GATE_SHAPES[case]
     gen = torch.Generator().manual_seed(2)
-    gx, gh = (torch.randn(*shape, 4 * ch, generator=gen).to(cuda_device) for _ in range(2))
-    c, dh, dc_out = (torch.randn(*shape, ch, generator=gen).to(cuda_device) for _ in range(3))
+
+    def operand(width):
+        n = int(np.prod(lead)) * width
+        return torch.randn(n + off, generator=gen).to(cuda_device)[off:].view(*lead, width)
+
+    gx, gh = operand(4 * ch), operand(4 * ch)
+    c, dh, dc_out = operand(ch), operand(ch), operand(ch)
     gh = gh if with_gh else None
     before = (tgates.lstm_gates_fwd_cuda.launches, tgates.lstm_gates_bwd_cuda.launches)
     h_new, c_new = tgates.lstm_gates_fwd_cuda(gx, gh, c)
@@ -196,6 +217,45 @@ def test_gate_kernels_match_plain(cuda_device, shape, ch, with_gh):
     )
     h_ref, c_ref = tgates.gate_math_plain(gx, gh, c)
     dz_ref, dc_ref = tgates.gate_math_bwd_plain(gx, gh, c, dh, dc_out)
+    assert (h_new - h_ref).abs().max().item() <= 1e-6
+    assert (c_new - c_ref).abs().max().item() <= 1e-6 * c_ref.abs().max().item()
+    for got, ref in ((dz, dz_ref), (dc, dc_ref)):
+        assert (got - ref).abs().max().item() <= 1e-6 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("off", [0, 1], ids=["two_channels", "one_channel"])
+def test_gate_kernels_64bit_index(cuda_device, off):
+    """The float32 pair past 2^31 gate elements, where it indexes in 64
+    bits: merged gates of (2^27 + 1000, 16), ~30 GB on the card in all,
+    with every base aligned (2 channels a thread) or one float off (1). The
+    rows at both ends and a random sample of the rest against the plain
+    version, with test_gate_kernels_match_plain's limits."""
+    ch, rows = 4, (1 << 31) // 16 + 1000
+    if torch.cuda.get_device_properties(cuda_device).total_memory < (48 << 30):
+        pytest.skip("needs a card with 48 GB or more")
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def operand(width):
+        return torch.randn(rows * width + off, generator=gen, device=cuda_device)[off:].view(rows, width)
+
+    gx, c, dh, dc_out = operand(4 * ch), operand(ch), operand(ch), operand(ch)
+    before = (tgates.lstm_gates_fwd_cuda.launches, tgates.lstm_gates_bwd_cuda.launches)
+    outs = (*tgates.lstm_gates_fwd_cuda(gx, None, c), *tgates.lstm_gates_bwd_cuda(gx, None, c, dh, dc_out))
+    torch.cuda.synchronize()
+    assert (tgates.lstm_gates_fwd_cuda.launches, tgates.lstm_gates_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1
+    )
+    picked = torch.cat([
+        torch.arange(2048, device=cuda_device),
+        torch.randint(rows, (4096,), generator=gen, device=cuda_device),
+        torch.arange(rows - 2048, rows, device=cuda_device),
+    ])
+    gx_s, c_s, dh_s, dco_s = (t.index_select(0, picked) for t in (gx, c, dh, dc_out))
+    h_new, c_new, dz, dc = (t.index_select(0, picked) for t in outs)
+    del gx, c, dh, dc_out, outs
+    torch.cuda.empty_cache()
+    h_ref, c_ref = tgates.gate_math_plain(gx_s, None, c_s)
+    dz_ref, dc_ref = tgates.gate_math_bwd_plain(gx_s, None, c_s, dh_s, dco_s)
     assert (h_new - h_ref).abs().max().item() <= 1e-6
     assert (c_new - c_ref).abs().max().item() <= 1e-6 * c_ref.abs().max().item()
     for got, ref in ((dz, dz_ref), (dc, dc_ref)):
