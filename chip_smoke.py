@@ -119,9 +119,9 @@ non-zero without the final line:
    ids, the decoder used, its decode rate in clips/s, mask-steps/s and the
    device busy share.
 18. artifacts: ``find_masks(..., save_viz=True)`` at full width on the
-   bfloat16 kernel route, 8 clips in loader batches of 4 (the first
+   bfloat16 kernel route, 4 clips in loader batches of 2 (the first
    flush's rendering overlaps the second's search), 10 steps, Grad-CAM
-   on, then the clstm_kth ConvLSTM with the gate kernel on 4 clips (a KTH
+   on, then the clstm_kth ConvLSTM with the gate kernel on 2 clips (a KTH
    run: the PerturbImgs too); each beside the same run without viz:
    equal bits, every clip's folder, ClassScore files equal to its scores,
    images, GIF and mask files, every journaled id's folder, the files'
@@ -167,9 +167,23 @@ non-zero without the final line:
    all-bf16 entries launch), resumed (equal bits), exported and loaded
    back ``strict=True``; the TF family's ``find-masks`` from a TF bundle
    the port wrote.
-25. whole_search: ``find_masks`` at bench.py's setting (128 clips, 120
+25. serve, in a process of its own (``--serve-child``), as a server
+   runs: ``ivf_tpu_torch/serve.py`` at full width, float32: i3d_smth
+   on the kernel route (``use_pallas`` + ``pallas_pool``), the fused
+   ``tblock`` route and the stock route, clstm_kth with the gate kernel and
+   without; each model from ``init_eval_state`` with the main path's
+   seeded weights, exported on the card, saved, loaded, and called at
+   every bucket 1-128 against the live model (equal bits, else rtol 1e-6
+   / atol 1e-7), the launch counters around each artifact call (the
+   forward's kernels exactly, 0 on the stock routes), clips/s of the
+   artifact and of the live model per bucket in 10 alternating pairs
+   (medians, the pairs' median ratio), device ms by group at 128;
+   then ``cli serve --artifact --smoke`` and a burst of 512 requests
+   through the batcher (occupancy, p50 / p95 latency) with ``/stats``.
+26. whole_search: ``find_masks`` at bench.py's setting (128 clips, 120
    steps, bf16, targets arange(128) % 174) on the default route, the
-   kernel route and the default route with the plain stem, each after a
+   kernel route (30 steps) and the default route with the plain stem (30
+   steps), each after a
    2-step warm-up: mask-steps/s, the device busy share of the run, peak
    memory, the emission journal's bytes and the wait for its writer.
 
@@ -226,6 +240,7 @@ import inspect
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -3763,7 +3778,8 @@ def phase_data_path(api, counters, failures, card: str, weights: dict, clstm_wei
 
 # the artifacts phase: i3d_smth clips in two flushes, so that the second
 # flush's search overlaps the first one's rendering; the ConvLSTM's KTH run
-ART_CLIPS, ART_BATCH, ART_CLSTM_CLIPS = 8, 4, 4
+# (4 and 2 clips, down from 8 and 4, for the smoke's time limit)
+ART_CLIPS, ART_BATCH, ART_CLSTM_CLIPS = 4, 2, 2
 
 
 @contextmanager
@@ -4019,6 +4035,10 @@ def phase_pool_impls(api, counters, failures, card: str, weights: dict) -> None:
 # bench.py's setting (bench.py:44-64, 150-157): 128 clips, 120 steps, bf16,
 # s2d stem, folded BN, fused 1x1 trio, targets arange(128) % 174
 WHOLE_CLIPS, WHOLE_STEPS, WHOLE_WARMUP_STEPS = 128, 120, 2
+# the plain-stem and kernel routes at fewer steps (their rates are per
+# step; the serve phase's ~250 s would otherwise take the smoke past ~1000
+# s of its 1200)
+WHOLE_ROUTE_STEPS = {"bf16_default_plain_stem": 30, "bf16_kernels": 30}
 WHOLE_ROUTES = {"bf16_default": BF16_ROUTES["bf16_default"], "bf16_kernels": BF16_ROUTES["bf16_kernels"],
                 "bf16_default_plain_stem": BF16_ROUTES["bf16_default"]}
 
@@ -4050,7 +4070,8 @@ def phase_whole_search(api, counters, failures, card: str, weights: dict, routes
     writer = getattr(api, "_AsyncWriter", None)
     with tempfile.TemporaryDirectory() as out_dir, _writer_waits(api) as waits:
         for route in routes:
-            flags = WHOLE_ROUTES[route]
+            flags, steps = WHOLE_ROUTES[route], WHOLE_ROUTE_STEPS.get(route, WHOLE_STEPS)
+
             def config(steps, name):
                 cfg = Config()
                 cfg.output_dir, cfg.model_name = out_dir, name
@@ -4067,7 +4088,7 @@ def phase_whole_search(api, counters, failures, card: str, weights: dict, routes
                 waits.clear()
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     r = _find_masks_run(api, counters, out_dir, "", {}, weights, dataset, WHOLE_CLIPS,
-                                        WHOLE_STEPS, cfg=config(WHOLE_STEPS, f"whole_{route}"))
+                                        steps, cfg=config(steps, f"whole_{route}"))
             journal = Path(out_dir) / f"whole_{route}" / "results" / "emission_journal.p"
             journal_bytes = journal.stat().st_size if writer is not None else None
             for name in (f"warm_{route}", f"whole_{route}"):
@@ -4077,7 +4098,7 @@ def phase_whole_search(api, counters, failures, card: str, weights: dict, routes
                                 for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
             st = r["stats"]
             emit({"phase": "whole_search", "route": route, "stem_s2d": s2d, "flags": flags, "card": card,
-                  "clips": WHOLE_CLIPS, "steps": WHOLE_STEPS, "mask_steps_per_s": r["rate"],
+                  "clips": WHOLE_CLIPS, "steps": steps, "mask_steps_per_s": r["rate"],
                   "search_seconds": st["search_seconds"], "init_seconds": st["init_seconds"],
                   "wall_seconds": r["wall"], "device_ms_run": device_ms_run,
                   "device_busy_share": device_ms_run / 1e3 / r["wall"], "peak_mem_gib": r["peak_gib"],
@@ -4085,7 +4106,7 @@ def phase_whole_search(api, counters, failures, card: str, weights: dict, routes
                   "journal_bytes": journal_bytes, "writer_close_wait_seconds": sum(waits) if writer else None,
                   "profiled": "CUDA activity only"})
             _check_outputs(f"whole_search {route}", r, failures, batch=WHOLE_CLIPS)
-            if st["n_steps_run"] != [WHOLE_STEPS] * WHOLE_CLIPS:
+            if st["n_steps_run"] != [steps] * WHOLE_CLIPS:
                 failures.append(f"whole_search {route}: steps run {sorted(set(st['n_steps_run']))}")
             mine = BF16_ROUTE_KERNELS[route.replace("_plain_stem", "")]
             launches = r["launches"]
@@ -5103,6 +5124,243 @@ def phase_checkpoint_cli(api, counters, failures, card: str, weights: dict) -> d
     return {k: train_launches.get(k, 0) for k in gate_entries}
 
 
+# serving (``ivf_tpu_torch/serve.py``): the float32 models the batcher
+# serves, their routes, the kernel launches one forward makes on each (the
+# counters of launch_counters()), and the buckets of the default batcher
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
+SERVE_I3D_ROUTES = {"kernels": dict(use_pallas=True, pallas_pool=True),
+                    "tblock": dict(use_pallas=True, fuse_pool_conv="tblock"), "stock": {}}
+SERVE_CLSTM_ROUTES = {"gates": True, "stock": False}
+SERVE_LAUNCHES = {  # (model, route) -> launches of one forward; every other counter stays 0
+    ("i3d_smth", "kernels"): {"pointwise_conv": 20, "maxpool3d_s1_fwd": 9},
+    ("i3d_smth", "tblock"): {"pointwise_conv": 11, "fused_pool_conv_tblock_fwd": 9},
+    ("i3d_smth", "stock"): {},
+    ("clstm_kth", "gates"): {"lstm_gates_fwd": 2 * CLSTM_T},
+    ("clstm_kth", "stock"): {},
+}
+SERVE_RTOL, SERVE_ATOL = 1e-6, 1e-7  # tests/test_serve.py's, where an op of the graph changes bits
+SERVE_BURST = 512  # requests of the batcher burst, from 8 threads
+SERVE_PAIRS, SERVE_PAIR_CLIPS = 10, 8  # artifact / live timing pairs a bucket; clips a sample holds at least
+# its rows against one call at bucket 16: other buckets may take other cuDNN
+# algorithms (a sum in another order); tests/test_serve.py's batcher tolerance
+SERVE_BURST_RTOL, SERVE_BURST_ATOL = 1e-5, 1e-6
+
+
+def _serve_model(api, model_name: str, route: str, weights: dict):
+    """The float32 model the ``export-model`` command exports
+    (``init_eval_state``, softmax on) on the card, with ``weights``."""
+    from ivf_tpu_torch.config import Config
+
+    if model_name == "i3d_smth":
+        cfg = Config()
+        for key, value in SERVE_I3D_ROUTES[route].items():
+            setattr(cfg.model, key, value)
+        shape = (CLIP_T, CLIP_HW, CLIP_HW, 3)
+    else:
+        cfg = _clstm_cfg(SERVE_CLSTM_ROUTES[route])
+        shape = (CLSTM_T, *CLSTM_HW, 3)
+    model, _ = api.init_eval_state(cfg, softmax_override=True)
+    model.load_state_dict(weights)
+    return cfg, model.requires_grad_(False), shape
+
+
+def _paired_clips_per_s(call, live, x) -> dict:
+    """clips/s of the artifact (``call``) and of the live model at ``x``'s
+    bucket, timed in ``SERVE_PAIRS`` pairs with the side timed first
+    alternating, a sample ``max(1, SERVE_PAIR_CLIPS // bucket)`` calls: per
+    side the median and range, and the median of the pairs' ratios
+    artifact / live with the number of pairs the artifact lost."""
+    b = x.shape[0]
+    n = max(1, SERVE_PAIR_CLIPS // b)
+    sides = {"artifact": call, "live": live}
+    rates = {side: [] for side in sides}
+    for k in range(SERVE_PAIRS):
+        for side in (("artifact", "live") if k % 2 == 0 else ("live", "artifact")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                sides[side](x)
+            torch.cuda.synchronize()
+            rates[side].append(n * b / (time.perf_counter() - t0))
+    ratios = [a / w for a, w in zip(rates["artifact"], rates["live"])]
+    out = {f"{side}_clips_per_s": statistics.median(r) for side, r in rates.items()}
+    out.update({f"{side}_clips_per_s_range": [min(r), max(r)] for side, r in rates.items()})
+    return {**out, "pair_ratio_median": statistics.median(ratios), "pairs_artifact_slower": sum(r < 1 for r in ratios),
+            "pairs": SERVE_PAIRS, "calls_per_sample": n}
+
+
+def _serve_route(api, serve, counters, failures, card, tmp, model_name, route, weights) -> dict:
+    """Export one route's model on the card, save and load the artifact,
+    then at every bucket: the artifact's output against the live model's
+    (equal bits, else rtol 1e-6 / atol 1e-7 with the differing output
+    named), the launch counters around one artifact call, and clips/s of
+    each in alternating pairs (``_paired_clips_per_s``); at bucket 128 the
+    device ms by group of one call of each."""
+    cfg, model, shape = _serve_model(api, model_name, route, weights)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x_all = torch.rand((SERVE_BUCKETS[-1], *shape), generator=gen, device="cuda") * 255
+    t0 = time.perf_counter()
+    program = serve.export_forward(model, shape)
+    export_s = time.perf_counter() - t0
+    path = str(Path(tmp) / f"{model_name}_{route}.ivfptx")
+    serve.save_artifact(program, path, meta={"family": cfg.model.conv_model, "num_classes": cfg.model.num_classes,
+                                             "clip_shape": list(shape)})
+    call, meta = serve.load_artifact(path)
+    live = serve.live_forward(model)
+    ops = {}
+    for node in call.program.graph.nodes:
+        if node.op == "call_function" and str(node.target).startswith("ivf_tpu_torch."):
+            ops[str(node.target)] = ops.get(str(node.target), 0) + 1
+    want = SERVE_LAUNCHES[(model_name, route)]
+    rows, ok = [], True
+    for b in SERVE_BUCKETS:
+        x = x_all[:b]
+        for fn in counters.values():
+            fn.launches = 0
+        got = call(x)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        ref = live(x)
+        equal = torch.equal(got, ref)
+        close = equal or torch.allclose(got, ref, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+        row = {"bucket": b, "equal_bits": equal, "max_abs_err": (got - ref).abs().max().item(),
+               "finite": bool(torch.isfinite(got).all()), "shape_ok": tuple(got.shape) == (b, cfg.model.num_classes),
+               "launches": launches, **_paired_clips_per_s(call, live, x)}
+        if launches != want:
+            failures.append(f"serve {model_name} {route} bucket {b}: launches {launches}, want {want}")
+            ok = False
+        if not (close and row["finite"] and row["shape_ok"]):
+            failures.append(f"serve {model_name} {route} bucket {b}: artifact against live {row}")
+            ok = False
+        rows.append(row)
+    x = x_all[:SERVE_BUCKETS[-1]]
+    prof = {"artifact": _train_profile(lambda: call(x)), "live": _train_profile(lambda: live(x))}
+    out = {"phase": "serve", "card": card, "model": model_name, "route": route, "flags": (
+               SERVE_I3D_ROUTES[route] if model_name == "i3d_smth" else {"use_pallas": SERVE_CLSTM_ROUTES[route]}),
+           "clip_shape": list(shape), "export_seconds": export_s, "artifact_bytes": os.path.getsize(path),
+           "meta": meta, "graph_ops": ops, "launches_per_forward_want": want, "buckets": rows,
+           "bucket128": {side: {k: p[k] for k in ("device_ms", "groups_ms", "kernels_per_step", "peak_mem_gib")}
+                         for side, p in prof.items()},
+           "ok": ok}
+    emit(out)
+    return {"path": path, "call": call, "shape": shape, "ok": ok}
+
+
+def _serve_smoke_and_burst(serve, failures, card, art) -> dict:
+    """``cli serve --artifact <kernel-route artifact> --smoke`` (one POST
+    /predict of a zero clip through the CLI's server), then the batcher
+    behind ``serve_http`` on the loaded artifact: a burst of
+    ``SERVE_BURST`` clips from 8 threads (occupancy, p50 / p95 latency,
+    clips/s) and ``GET /stats`` / ``/healthz``."""
+    import io as _io
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from ivf_tpu_torch import cli
+
+    out = _io.StringIO()
+    with contextlib.redirect_stdout(out):
+        resp = cli.main(["serve", "--artifact", art["path"], "--port", "0", "--max-batch", "128", "--smoke"])
+    text = out.getvalue()
+    smoke_ok = (resp is not None and resp["top1"] == int(np.argmax(resp["scores"]))
+                and "serving on http://" in text and len(resp["scores"]) == CLASSES)
+    if not smoke_ok:
+        failures.append(f"serve cli smoke: {text[-500:]}")
+    rng = np.random.RandomState(12)
+    clips = (rng.rand(16, *art["shape"]) * 255).astype(np.float32)
+    with serve.DynamicBatcher(art["call"], max_batch=128, max_wait_ms=5.0) as batcher:
+        batcher.warmup(art["shape"])
+        server = serve.serve_http(batcher, port=0)
+        try:
+            host, port = server.server_address
+            futs = [None] * SERVE_BURST
+
+            def submit(k0):
+                for k in range(k0, SERVE_BURST, 8):
+                    futs[k] = batcher.submit(clips[k % len(clips)])
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=submit, args=(k,)) for k in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            results = [f.result(timeout=600) for f in futs]
+            burst_s = time.perf_counter() - t0
+            direct = art["call"](torch.from_numpy(clips).cuda()).cpu().numpy()
+            burst_err = max(float(np.abs(r - direct[k % len(clips)]).max()) for k, r in enumerate(results))
+            rows_close = all(np.allclose(r, direct[k % len(clips)], rtol=SERVE_BURST_RTOL, atol=SERVE_BURST_ATOL)
+                             for k, r in enumerate(results))
+            stats = json.loads(urllib.request.urlopen(f"http://{host}:{port}/stats", timeout=60).read())
+            health = json.loads(urllib.request.urlopen(f"http://{host}:{port}/healthz", timeout=60).read())
+        finally:
+            server.shutdown()
+    burst_ok = rows_close and stats["requests"] == SERVE_BURST and health == {"ok": True}
+    if not burst_ok:
+        failures.append(f"serve burst: rows_close {rows_close} ({burst_err}), stats {stats}, health {health}")
+    row = {"phase": "serve_http", "card": card, "cli_smoke_response_top1": resp and resp["top1"],
+           "cli_smoke_ok": smoke_ok, "burst_requests": SERVE_BURST, "burst_seconds": burst_s,
+           "burst_clips_per_s": SERVE_BURST / burst_s, "stats": stats, "rows_close_to_bucket16": rows_close,
+           "max_abs_err_to_bucket16": burst_err, "tol": [SERVE_BURST_RTOL, SERVE_BURST_ATOL],
+           "healthz": health, "ok": smoke_ok and burst_ok}
+    emit(row)
+    return row
+
+
+def serve_child() -> int:
+    """``python3 chip_smoke.py --serve-child``, the ``serve`` phase's own
+    process (``phase_serve``). Serving at full width: i3d_smth (174
+    classes, 16x224x224, f32, the main path's seeded weights) on the
+    kernel route, the fused ``tblock`` route and the stock route, and
+    clstm_kth (32x120x160, 2 layers x 4 hidden) with the gate kernel and
+    without, each exported on the card (``serve.export_forward``), saved,
+    loaded and called at every bucket 1-128 against the live model
+    (``_serve_route``); then the CLI's ``serve --artifact --smoke`` and a
+    batcher burst on the I3D kernel route's artifact
+    (``_serve_smoke_and_burst``). One JSON line per route; the failures on
+    stderr and exit code 1."""
+    from ivf_tpu_torch import api, serve
+    from ivf_tpu_torch.config import Config
+
+    t_phase = time.perf_counter()
+    card, counters, failures = nvidia_smi(), launch_counters(), []
+    cfg = Config()
+    for name, value in FUSED_ROUTES["kernels"].items():
+        setattr(cfg.model, name, value)
+    weights = {"i3d_smth": _scaled_weights(cfg, api),
+               "clstm_kth": _clstm_scaled_weights(api, _clstm_clips()[0][0])}
+    arts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for model_name, routes in (("i3d_smth", SERVE_I3D_ROUTES), ("clstm_kth", SERVE_CLSTM_ROUTES)):
+            for route in routes:
+                arts[(model_name, route)] = _serve_route(api, serve, counters, failures, card, tmp, model_name,
+                                                         route, weights[model_name])
+                torch.cuda.empty_cache()
+        http = _serve_smoke_and_burst(serve, failures, card, arts[("i3d_smth", "kernels")])
+    emit({"phase": "serve_compare", "card": card, "routes_ok": {f"{m} {r}": a["ok"] for (m, r), a in arts.items()},
+          "http_ok": http["ok"], "phase_seconds": time.perf_counter() - t_phase, "required": "every check true"})
+    for f in failures:
+        print(f, file=sys.stderr)
+    return 1 if failures else 0
+
+
+def phase_serve(failures) -> None:
+    """The ``serve`` phase in a child process (``serve_child``), as a
+    server runs: in this process, after the earlier phases, the host-bound
+    forwards ran several times slower, the exported ConvLSTM's most
+    (PERF.md)."""
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-child"],
+                          capture_output=True, text=True, timeout=900)
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            emit(json.loads(line))
+    if proc.returncode != 0:
+        failures.append(f"serve child exited {proc.returncode}: {proc.stderr[-3000:]}")
+
+
 def kernels_line(cases: dict, launches: dict) -> dict:
     """One entry per kernel, timed at its headline main-path shape;
     ``launches`` from the main path that runs it."""
@@ -5254,6 +5512,7 @@ def main() -> int:
     phase_cnn_3d(api, counters, failures, info["smi"])
     phase_records_search(api, counters, failures, info["smi"])
     launches.update(phase_checkpoint_cli(api, counters, failures, info["smi"], f32_run["weights"]))
+    phase_serve(failures)
     phase_whole_search(api, counters, failures, info["smi"], f32_run["weights"])
     if failures:
         for f in failures:
@@ -5269,6 +5528,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--determinism-child"]:
         sys.exit(determinism_child())
+    if sys.argv[1:] == ["--serve-child"]:
+        sys.exit(serve_child())
     if sys.argv[1:] == ["--bf16-width-sweep"]:
         sys.exit(bf16_width_sweep())
     if sys.argv[1:] == ["--fused-sweep"]:

@@ -11,6 +11,9 @@ Entry points mirroring the reference's script surface:
   make-kth-records  <- the KTH per-subject shards
   extract-frames    <- create_folders_and_extract_frames.py
   export-checkpoint <- the weights as a reference-layout .pth.tar
+  export-model      <- the float32 forward as a torch.export artifact (``serve.py``)
+  serve             <- the dynamic batcher behind an HTTP endpoint, on an
+                       artifact or on the configured model
 
 Every command that runs a model takes ``--device`` (default ``cuda``),
 passed to the API's ``device=``: with no card and no ``--device cpu`` it
@@ -19,23 +22,27 @@ a reference ``.pth.tar``, a reference TF bundle prefix or a directory of
 the port's checkpoints. ``--detect-anomaly`` runs under
 ``torch.autograd.set_detect_anomaly``.
 
+``export-model`` takes ``--device`` where the JAX package takes
+``--platforms``: the artifact runs on the device it was exported on, and
+``serve --artifact`` runs it there unless ``--device`` names another,
+which raises.
+
 Not ported (ROADMAP.md, Queue 1), each raising ``NotImplementedError``:
-``export-model`` and ``serve`` (item 12), ``-dp`` / ``--data-parallel``
-and ``--multihost`` (item 13), ``--profile`` (item 14).
+``-dp`` / ``--data-parallel`` and ``--multihost`` (item 13), ``--profile``
+(item 14).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import os
 import re
 
 from ivf_tpu_torch.config import Config, add_cli_overrides, apply_cli_overrides
 
 _NOT_PORTED = {
-    "export-model": "the torch.export artifact is not ported yet (ROADMAP.md, Queue 1 item 12)",
-    "serve": "serving is not ported yet (ROADMAP.md, Queue 1 item 12)",
     "data_parallel": "-dp / --data-parallel: data-parallel placement is not ported yet (ROADMAP.md, Queue 1 item 13)",
     "multihost": "--multihost: multi-process runs are not ported yet (ROADMAP.md, Queue 1 item 13)",
     "profile": "--profile: the profiler trace is not ported yet (ROADMAP.md, Queue 1 item 14)",
@@ -56,11 +63,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="ivf_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
-    def common(p):
+    def common(p, device_default="cuda"):
         p.add_argument("--config", "-c", help="config .py (exposing `config`) or .json")
         p.add_argument("--test_run", action="store_true", help="5-step smoke mode")
         p.add_argument("--checkpoint", "-chp", help="checkpoint path")
-        p.add_argument("--device", default="cuda", help="torch device the run uses (default: cuda)")
+        p.add_argument("--device", default=device_default, help="torch device the run uses (default: cuda; "
+                       "serve --artifact: the artifact's)")
         p.add_argument("--data-parallel", "-dp", type=int, default=None, metavar="N",
                        help="not ported (ROADMAP.md, Queue 1 item 13)")
         p.add_argument("--profile", metavar="DIR", default=None, help="not ported (ROADMAP.md, Queue 1 item 14)")
@@ -103,22 +111,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nb-frames", type=int, default=32)
 
     p = common(sub.add_parser("export-model"))
-    p.add_argument("--out", required=True, help="not ported (ROADMAP.md, Queue 1 item 12)")
-    p.add_argument("--platforms", nargs="*", default=None, metavar="PLAT")
-    p.add_argument("--static-batch", type=int, default=None, metavar="B")
+    p.add_argument("--out", required=True, help="output artifact path")
+    p.add_argument("--static-batch", type=int, default=None, metavar="B",
+                   help="export a fixed batch size instead of the default batch-polymorphic artifact")
 
     p = common(sub.add_parser("export-checkpoint"))
     p.add_argument("--out", required=True,
                    help="output reference-layout .pth.tar (loads into the reference torch modules with strict=True)")
 
-    p = common(sub.add_parser("serve"))
-    p.add_argument("--artifact", help="not ported (ROADMAP.md, Queue 1 item 12)")
+    p = common(sub.add_parser("serve"), device_default=None)
+    p.add_argument("--artifact", help="export-model artifact (skips the model build)")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--max-batch", type=int, default=128)
     p.add_argument("--max-wait-ms", type=float, default=5.0)
-    p.add_argument("--warmup", action="store_true")
-    p.add_argument("--smoke", action="store_true")
+    p.add_argument("--warmup", action="store_true", help="run every batch bucket once before accepting requests")
+    p.add_argument("--smoke", action="store_true",
+                   help="POST one zero clip to the running server, print the response and the stats, and exit")
 
     p = sub.add_parser("extract-frames")
     p.add_argument("--json-input", required=True)
@@ -132,8 +141,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if getattr(args, "device", None) == "cuda":
-        args.device = None  # the API's own default: cuda, or a clear error with no card
+    if getattr(args, "device", None) == "cuda" and not getattr(args, "artifact", None):
+        args.device = None  # the API's own default: cuda, or a clear error with no card (an artifact has its own)
     if args.command in _NOT_PORTED:
         raise NotImplementedError(f"{args.command}: {_NOT_PORTED[args.command]}")
     for flag in ("data_parallel", "profile", "multihost"):
@@ -182,6 +191,10 @@ def _run(args):
         return out
     if args.command == "export-checkpoint":
         return _export_checkpoint(args)
+    if args.command == "export-model":
+        return _export_model(args)
+    if args.command == "serve":
+        return _serve(args)
     if args.command == "make-records":
         return _make_records(args)
     if args.command == "inspect-records":
@@ -240,6 +253,87 @@ def _export_checkpoint(args):
     save_checkpoint_file(args.out, sd, arch=m.conv_model)
     print(f"exported {len(sd)} tensors -> {args.out} (reference layout)")
     return sd
+
+
+def _clip_shape(cfg) -> tuple:
+    from ivf_tpu_torch.api import _clip_hw
+
+    return (cfg.data.clip_size, *_clip_hw(cfg), 3)
+
+
+def _export_model(args):
+    """The float32 forward (softmax on, as ``find-masks`` serves it) of the
+    configured model as a batch-polymorphic artifact on ``--device``."""
+    from ivf_tpu_torch.api import init_eval_state
+    from ivf_tpu_torch.serve import export_forward, save_artifact
+
+    cfg = _load_cfg(args)
+    model, _ = init_eval_state(cfg, softmax_override=True, device=args.device)
+    shape = _clip_shape(cfg)
+    program = export_forward(
+        model, shape, batch_polymorphic=args.static_batch is None, static_batch=args.static_batch or 1
+    )
+    device = str(next(model.parameters()).device)
+    save_artifact(
+        program, args.out,
+        meta={"family": cfg.model.conv_model, "num_classes": cfg.model.num_classes, "clip_shape": list(shape),
+              "device": device},
+    )
+    print(
+        f"exported {cfg.model.conv_model} forward -> {args.out} "
+        f"({os.path.getsize(args.out) / 1e6:.1f} MB, device {device}, clip {shape})"
+    )
+    return program
+
+
+def _serve(args):
+    """Serve an artifact (``--artifact``, on the device it was exported
+    on; a ``--device`` given must name that device) or the configured
+    model on ``--device`` (default ``cuda``) behind the batcher and the
+    HTTP endpoint; ``--smoke`` posts one zero clip and returns."""
+    import io
+    import time
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from ivf_tpu_torch.serve import DynamicBatcher, live_forward, load_artifact, serve_http
+
+    if args.artifact:
+        infer_fn, meta = load_artifact(args.artifact)
+        if args.device is not None and torch.device(args.device).type != infer_fn.device.type:
+            raise ValueError(f"{args.artifact} runs on {infer_fn.device}, not on --device {args.device}")
+        shape = tuple(meta["clip_shape"])
+    else:
+        from ivf_tpu_torch.api import init_eval_state
+
+        cfg = _load_cfg(args)
+        model, _ = init_eval_state(cfg, softmax_override=True, device=args.device)
+        infer_fn, shape = live_forward(model), _clip_shape(cfg)
+
+    with DynamicBatcher(infer_fn, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms) as batcher:
+        if args.warmup:
+            print(f"warming {len(batcher.buckets)} bucket programs ...")
+            batcher.warmup(shape)
+        server = serve_http(batcher, port=args.port, host=args.host)
+        host, port = server.server_address
+        print(f"serving on http://{host}:{port} (clip shape {shape})", flush=True)
+        try:
+            if args.smoke:
+                buf = io.BytesIO()
+                np.save(buf, np.zeros(shape, np.float32))
+                req = urllib.request.Request(f"http://{host}:{port}/predict", data=buf.getvalue())
+                body = urllib.request.urlopen(req, timeout=300).read().decode()
+                print(f"smoke response: {body}")
+                print(f"stats: {batcher.stats.summary()}")
+                return json.loads(body)
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.shutdown()
 
 
 def _make_records(args):

@@ -8,6 +8,8 @@ version.
   fused_branch3.py   <- ivf_tpu/ops/pallas/fused_branch3.py (both variants; float32, bfloat16)
   argmax_pool.py     <- ivf_tpu/ops/conv.py::_max_pool3d_same_argmax (not Pallas)
   build.py           nvcc build + ctypes binding of ``csrc/*.cu``
+  custom_ops.py      the float32 forward kernels as ``torch.library`` custom ops, which
+                     ``torch.export`` records (``ivf_tpu_torch/serve.py``)
 
 A wrapper given a CUDA tensor launches its kernel or raises; a CPU tensor
 takes the plain version. Each CUDA wrapper counts its launches in a

@@ -41,7 +41,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ivf_tpu_torch.ops.kernels import build
+from ivf_tpu_torch.ops.kernels import build, custom_ops
 
 _PAD = (0, 0, 1, 1, 1, 1, 1, 1)  # zero halo of one voxel on T, H, W
 _NBITS = 5  # bits of a window key: 27 positions
@@ -191,10 +191,6 @@ def _check_cuda_operands(x: torch.Tensor, *others) -> None:
             raise ValueError("argmax_pool: operands must be contiguous (B, T, H, W, C)")
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _plan_for(shape, ptrs, given):
     """``given``, or the plan for ``shape`` with 16-byte vectors where every
     (pointer, alignment) of ``ptrs`` allows them."""
@@ -213,7 +209,7 @@ def argmax_pool_fwd_cuda(x: torch.Tensor, tile: Plan = None):
     if x.numel() == 0:
         return y, idx
     p = _plan_for(x.shape, ((x.data_ptr(), 16), (y.data_ptr(), 16), (idx.data_ptr(), 8)), tile)
-    rc = _lib().argmax_pool_fwd_bf16(x.data_ptr(), y.data_ptr(), idx.data_ptr(), *x.shape, *p, _stream(x))
+    rc = _lib().argmax_pool_fwd_bf16(x.data_ptr(), y.data_ptr(), idx.data_ptr(), *x.shape, *p, build.stream(x))
     if rc != 0:
         raise RuntimeError(f"argmax_pool_fwd_bf16 launch failed with CUDA error {rc} ({p})")
     argmax_pool_fwd_cuda.launches += 1
@@ -228,7 +224,7 @@ def argmax_pool_bwd_cuda(idx: torch.Tensor, g: torch.Tensor, tile: Plan = None) 
     if g.numel() == 0:
         return dx
     p = _plan_for(g.shape, ((g.data_ptr(), 16), (dx.data_ptr(), 16), (idx.data_ptr(), 8)), tile)
-    rc = _lib().argmax_pool_bwd_bf16(idx.data_ptr(), g.data_ptr(), dx.data_ptr(), *g.shape, *p, _stream(g))
+    rc = _lib().argmax_pool_bwd_bf16(idx.data_ptr(), g.data_ptr(), dx.data_ptr(), *g.shape, *p, build.stream(g))
     if rc != 0:
         raise RuntimeError(f"argmax_pool_bwd_bf16 launch failed with CUDA error {rc} ({p})")
     argmax_pool_bwd_cuda.launches += 1
@@ -240,6 +236,7 @@ argmax_pool_bwd_cuda.launches = 0
 
 
 def _on_device(t: torch.Tensor, cuda_fn, plain_fn, *args):
+    custom_ops.refuse_export("argmax_pool", t.dtype)
     if t.is_cuda:
         return cuda_fn(*args)
     if t.device.type == "cpu":

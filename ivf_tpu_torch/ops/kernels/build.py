@@ -18,6 +18,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -101,3 +103,11 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib
+
+
+def stream(t: torch.Tensor) -> int:
+    """The raw handle of the current CUDA stream on ``t``'s device, for a
+    launch: one C call, where ``torch.cuda.current_stream`` runs several
+    Python functions a launch (on the card, far slower inside an exported
+    program's op than in eager code)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

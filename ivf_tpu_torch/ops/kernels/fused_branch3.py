@@ -29,7 +29,9 @@ bf16 ``g``, ``w`` and ``x`` (the ReLU mask taken on the bf16 ``y``) and
 rounds ``dx`` once; ``dw`` and ``db`` are summed in float32 and cast to
 the parameters' dtypes (``ivf_tpu/ops/pallas/fused_branch3.py:57-118,
 240-245``). Each kernel has a ``_bf16`` entry with its own launch
-counter.
+counter. While ``torch.export`` traces, the float32 forwards are the
+custom ops ``ivf_tpu_torch::fused_pool_conv{,_tblock}_fwd_f32``
+(``custom_ops.py``).
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import functools
 
 import torch
 
-from ivf_tpu_torch.ops.kernels import build
+from ivf_tpu_torch.ops.kernels import build, custom_ops
 from ivf_tpu_torch.ops.kernels.maxpool3d import maxpool3d_s1_bwd_plain, maxpool3d_s1_fwd_plain
 from ivf_tpu_torch.ops.kernels.pointwise_conv import pointwise_conv_plain
 
@@ -163,7 +165,7 @@ def _launch_fwd(symbol, dtype, counter, x, w, b, relu):
         return y
     rc = getattr(_lib(), symbol)(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), *x.shape, w.shape[1],
-        int(relu), torch.cuda.current_stream(x.device).cuda_stream,
+        int(relu), build.stream(x),
     )
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed with CUDA error {rc}")
@@ -180,7 +182,7 @@ def _launch_bwd(symbol, dtype, counter, x, y, g, w, relu):
         return dx.zero_()
     rc = getattr(_lib(), symbol)(
         x.data_ptr(), y.data_ptr(), g.data_ptr(), w.data_ptr(), dx.data_ptr(), *x.shape,
-        w.shape[1], int(relu), torch.cuda.current_stream(x.device).cuda_stream,
+        w.shape[1], int(relu), build.stream(x),
     )
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed with CUDA error {rc}")
@@ -215,12 +217,29 @@ fused_pool_conv_tblock_fwd_bf16_cuda = _entry("fwd", "tblock_", torch.bfloat16)
 fused_pool_conv_tblock_bwd_bf16_cuda = _entry("bwd", "tblock_", torch.bfloat16)
 
 
-def _function(name: str, kernels):
+def _fwd_fake(x, w, b, relu):
+    return x.new_empty((*x.shape[:-1], w.shape[1]))
+
+
+# the float32 forwards as the custom ops ivf_tpu_torch::fused_pool_conv{,_tblock}_fwd_f32
+# (custom_ops.py)
+fused_pool_conv_fwd_f32_op = custom_ops.define(
+    "fused_pool_conv_fwd_f32", fused_pool_conv_plain, fused_pool_conv_fwd_cuda, _fwd_fake
+)
+fused_pool_conv_tblock_fwd_f32_op = custom_ops.define(
+    "fused_pool_conv_tblock_fwd_f32", fused_pool_conv_plain, fused_pool_conv_tblock_fwd_cuda, _fwd_fake
+)
+
+
+def _function(name: str, kernels, op):
     """The autograd Function of one variant: ``kernels[dtype]`` = (fwd,
     bwd) launch wrappers on CUDA tensors, the plain versions on CPU
-    tensors, no other device."""
+    tensors, no other device; the float32 forward through ``op`` while
+    ``torch.export`` traces."""
 
     def route(x, direction, plain_fn, *args):
+        if direction == 0 and custom_ops.through_op(name, x):
+            return op(x, *args)
         if x.is_cuda:
             if x.dtype not in kernels:
                 raise TypeError(f"{name}: no kernel for {x.dtype}")
@@ -261,6 +280,7 @@ _FusedPoolConv = _function(
         torch.float32: (fused_pool_conv_fwd_cuda, fused_pool_conv_bwd_cuda),
         torch.bfloat16: (fused_pool_conv_fwd_bf16_cuda, fused_pool_conv_bwd_bf16_cuda),
     },
+    fused_pool_conv_fwd_f32_op,
 )
 _FusedPoolConvTBlock = _function(
     "fused_pool_conv_tblock",
@@ -268,6 +288,7 @@ _FusedPoolConvTBlock = _function(
         torch.float32: (fused_pool_conv_tblock_fwd_cuda, fused_pool_conv_tblock_bwd_cuda),
         torch.bfloat16: (fused_pool_conv_tblock_fwd_bf16_cuda, fused_pool_conv_tblock_bwd_bf16_cuda),
     },
+    fused_pool_conv_tblock_fwd_f32_op,
 )
 
 

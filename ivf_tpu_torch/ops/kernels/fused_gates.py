@@ -53,7 +53,9 @@ registers and round at the same points; each pair counts its launches
 apart from the others. The all-bf16 pair reads its activations from
 tables of the exact device functions over all 65,536 bf16 inputs, built
 once per device at first use (``lstm_gate_tables_cuda``, counted apart);
-``gate_table_twin`` is their plain twin, for the tests.
+``gate_table_twin`` is their plain twin, for the tests. While
+``torch.export`` traces, the float32 forward is the custom op
+``ivf_tpu_torch::lstm_gates_fwd_f32`` (``custom_ops.py``).
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ivf_tpu_torch.ops.kernels import build
+from ivf_tpu_torch.ops.kernels import build, custom_ops
 
 
 def _gates(gates_x, gates_h, c):
@@ -523,7 +525,7 @@ def _launch_fwd(suffix, counter, gates_x, gates_h, c):
     ch = c.shape[-1]
     rc = getattr(_lib(), f"lstm_gates_fwd_{suffix}")(
         gates_x.data_ptr(), _ptr(gates_h), c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-        c.numel() // ch, ch, torch.cuda.current_stream(c.device).cuda_stream,
+        c.numel() // ch, ch, build.stream(c),
     )
     if rc != 0:
         raise RuntimeError(f"lstm_gates_fwd_{suffix} launch failed with CUDA error {rc}")
@@ -542,7 +544,7 @@ def _launch_bwd(suffix, counter, gates_x, gates_h, c, dh, dc_out):
     rc = getattr(_lib(), f"lstm_gates_bwd_{suffix}")(
         gates_x.data_ptr(), _ptr(gates_h), c.data_ptr(), dh.data_ptr(), dc_out.data_ptr(),
         dz.data_ptr(), dc.data_ptr(), c.numel() // ch, ch,
-        torch.cuda.current_stream(c.device).cuda_stream,
+        build.stream(c),
     )
     if rc != 0:
         raise RuntimeError(f"lstm_gates_bwd_{suffix} launch failed with CUDA error {rc}")
@@ -627,7 +629,16 @@ def _entries(gates_x, c):
     return _ENTRIES[next(k for k, dts in _DTYPES.items() if dts == (gates_x.dtype, c.dtype))]
 
 
+# the float32 forward as the custom op ivf_tpu_torch::lstm_gates_fwd_f32 (custom_ops.py)
+lstm_gates_fwd_f32_op = custom_ops.define(
+    "lstm_gates_fwd_f32", gate_math_plain, lstm_gates_fwd_cuda,
+    lambda gates_x, gates_h, c: (torch.empty_like(c), torch.empty_like(c)),
+)
+
+
 def _forward(gates_x, gates_h, c):
+    if custom_ops.through_op("fused_gates", gates_x):
+        return lstm_gates_fwd_f32_op(gates_x, gates_h, c)
     if c.is_cuda:
         return _entries(gates_x, c)[0](gates_x, gates_h, c)
     if c.device.type == "cpu":

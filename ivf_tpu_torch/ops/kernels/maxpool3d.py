@@ -32,6 +32,9 @@ keeps three frames of x and its running sums, so each input adds its
 terms in order). ``plan`` picks the tile: a 16-byte vector a thread (4
 float32 or 8 bfloat16 channels) where C allows it and the pointers are
 aligned, else the ragged instance, 1 channel a thread, with the same bits.
+
+While ``torch.export`` traces, the float32 forward is the custom op
+``ivf_tpu_torch::maxpool3d_s1_fwd_f32`` (``custom_ops.py``).
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ivf_tpu_torch.ops.conv import max_pool3d_same
-from ivf_tpu_torch.ops.kernels import argmax_pool, build
+from ivf_tpu_torch.ops.kernels import argmax_pool, build, custom_ops
 from ivf_tpu_torch.ops.kernels.argmax_pool import Plan
 
 _PAD = (0, 0, 1, 1, 1, 1, 1, 1)  # zero halo of one voxel on T, H, W
@@ -156,7 +159,7 @@ def _launch(symbol: str, dtype, operands, tile: Plan = None) -> torch.Tensor:
     if tile is None:
         vec = all(p % 16 == 0 for p in ptrs)
         tile = plan(*out.shape[2:], bf16=dtype == torch.bfloat16, vec=vec)
-    rc = getattr(_lib(), symbol)(*ptrs, *out.shape, *tile, torch.cuda.current_stream(out.device).cuda_stream)
+    rc = getattr(_lib(), symbol)(*ptrs, *out.shape, *tile, build.stream(out))
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed with CUDA error {rc} ({Plan(*tile)})")
     return out
@@ -204,7 +207,15 @@ maxpool3d_s1_fwd_bf16_cuda.launches = 0
 maxpool3d_s1_bwd_bf16_cuda.launches = 0
 
 
+# the float32 forward as the custom op ivf_tpu_torch::maxpool3d_s1_fwd_f32 (custom_ops.py)
+maxpool3d_s1_fwd_f32_op = custom_ops.define(
+    "maxpool3d_s1_fwd_f32", maxpool3d_s1_fwd_plain, maxpool3d_s1_fwd_cuda, torch.empty_like
+)
+
+
 def _forward(x):
+    if custom_ops.through_op("maxpool3d_s1", x):
+        return maxpool3d_s1_fwd_f32_op(x)
     if x.is_cuda:
         bf16 = x.dtype == torch.bfloat16
         return (maxpool3d_s1_fwd_bf16_cuda if bf16 else maxpool3d_s1_fwd_cuda)(x)

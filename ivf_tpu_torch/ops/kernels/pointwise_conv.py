@@ -26,6 +26,9 @@ as stored too. ``bf16_plan`` picks the path from the shapes, strides and
 alignment: the TMA + ``wgmma`` streaming kernel for the trunk's GEMMs, the
 split-K pair (a float32 scratch summed in a fixed order, no atomics) for
 the logits head and any other shape.
+
+While ``torch.export`` traces, the float32 GEMM is the custom op
+``ivf_tpu_torch::pw_gemm_f32`` (``custom_ops.py``).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from typing import Optional
 
 import torch
 
-from ivf_tpu_torch.ops.kernels import build
+from ivf_tpu_torch.ops.kernels import build, custom_ops
 
 
 def pointwise_conv_plain(
@@ -219,10 +222,6 @@ def _sm_count(index: Optional[int]) -> int:
     return torch.cuda.get_device_properties(index if index is not None else 0).multi_processor_count
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _raise_on(symbol: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed with CUDA error {rc}")
@@ -249,7 +248,7 @@ def pointwise_conv_cuda(
         x2.data_ptr(), x2.stride(0), w.data_ptr(), w.stride(0), w.stride(1),
         bias.data_ptr() if bias is not None else None, y.data_ptr(), n, cin, cout,
         -1 if plan["path"] == "rows" else list(F32_TILES).index(plan["tile"]), int(plan["w_k_major"]),
-        sum(_F32_VEC_BITS[v] for v in plan["vec"]), int(relu), _stream(x2),
+        sum(_F32_VEC_BITS[v] for v in plan["vec"]), int(relu), build.stream(x2),
     )
     _raise_on("pw_conv_f32", rc)
     pointwise_conv_cuda.launches += 1
@@ -276,7 +275,7 @@ def pointwise_conv_bf16_cuda(
         mn = plan["w_mn_major"]
         rc = _lib().pw_conv_bf16_tma(
             x2.data_ptr(), x2.stride(0), w.data_ptr(), w.stride(0) if mn else w.stride(1), int(mn),
-            b, y.data_ptr(), n, cin, cout, plan["bn"], int(relu), _stream(x2),
+            b, y.data_ptr(), n, cin, cout, plan["bn"], int(relu), build.stream(x2),
         )
         _raise_on("pw_conv_bf16_tma", rc)
     else:
@@ -284,7 +283,7 @@ def pointwise_conv_bf16_cuda(
         rc = _lib().pw_conv_bf16_splitk(
             x2.data_ptr(), x2.stride(0), x2.stride(1), w.data_ptr(), w.stride(0), w.stride(1),
             b, y.data_ptr(), part.data_ptr(), n, cin, cout, plan["splits"], plan["chunk"],
-            int(plan["vec"]), int(relu), _stream(x2),
+            int(plan["vec"]), int(relu), build.stream(x2),
         )
         _raise_on("pw_conv_bf16_splitk", rc)
     pointwise_conv_bf16_cuda.launches += 1
@@ -295,14 +294,28 @@ pointwise_conv_cuda.launches = 0
 pointwise_conv_bf16_cuda.launches = 0
 
 
+def _gemm_plain(x2: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], relu: bool) -> torch.Tensor:
+    # W may be a transposed view (the layers' weight, dx's W^T): the plain
+    # version multiplies a contiguous copy, whichever layout came in
+    return pointwise_conv_plain(x2, w.contiguous(), bias, relu)
+
+
+def _gemm_f32_fake(x2, w, bias, relu):
+    return x2.new_empty((x2.shape[0], w.shape[1]))
+
+
+# the float32 GEMM as the custom op ivf_tpu_torch::pw_gemm_f32 (custom_ops.py)
+pw_gemm_f32_op = custom_ops.define("pw_gemm_f32", _gemm_plain, pointwise_conv_cuda, _gemm_f32_fake)
+
+
 def _matmul_act(x2, w, bias, relu):
+    if custom_ops.through_op("pointwise_conv", x2):
+        return pw_gemm_f32_op(x2, w, bias, relu)
     if x2.is_cuda:
         fn = pointwise_conv_bf16_cuda if x2.dtype == torch.bfloat16 else pointwise_conv_cuda
         return fn(x2, w, bias, relu)
     if x2.device.type == "cpu":
-        # W may be a transposed view (the layers' weight, dx's W^T): the
-        # plain version multiplies a contiguous copy, whichever layout came in
-        return pointwise_conv_plain(x2, w.contiguous(), bias, relu)
+        return _gemm_plain(x2, w, bias, relu)
     raise RuntimeError(f"pointwise_conv: no kernel for device {x2.device}")
 
 

@@ -252,13 +252,11 @@ def test_make_and_inspect_records_match_the_jax_package(tmp_path, tree, jax_reco
 @pytest.mark.parametrize(
     "argv,item",
     [
-        (["export-model", "--out", "x.ivfaot"], "item 12"),
-        (["serve"], "item 12"),
         (["infer", "-dp", "2"], "item 13"),
         (["find-masks", "--multihost"], "item 13"),
         (["train", "--profile", "trace"], "item 14"),
     ],
-    ids=["export-model", "serve", "data-parallel", "multihost", "profile"],
+    ids=["data-parallel", "multihost", "profile"],
 )
 def test_unported_commands_and_flags_raise(argv, item):
     """What the port lacks raises ``NotImplementedError`` naming its

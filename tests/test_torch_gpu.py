@@ -11,7 +11,8 @@ the bf16 train step (with every bf16 pattern in every operand slot, and
 its activation tables against their plain twin), reference checkpoints loaded back on the card,
 convergence refill against the search without it (``chip_smoke.py``'s refill phase at a
 small size, so run from the repository's root), and a resumed run against
-an uninterrupted one. Skips
+an uninterrupted one; artifacts exported on the card (``serve.py``)
+against the live model, bit for bit, with their kernels' launches. Skips
 without a CUDA device. This file
 imports torch and ivf_tpu_torch only, so it also runs where JAX is not
 installed:
@@ -1332,3 +1333,56 @@ def test_i3d_train_step_on_the_card_repeats_its_bits_and_launches_its_kernels(cu
         assert tpw.pointwise_conv_cuda.launches == 3 * 2 * 38 and tpool.maxpool3d_s1_fwd_cuda.launches == 27
         runs.append({n: t.detach().clone() for n, t in state.model.state_dict().items()})
     assert all(torch.equal(runs[0][n], runs[1][n]) for n in runs[0])
+
+
+# serving: one route's model, its forward kernels' counters and launches per
+# forward (the custom ops of the exported graph), at a small size
+SERVE_ROUTES = {
+    "i3d_kernels": ({"use_pallas": True, "pallas_pool": True},
+                    {tpw.pointwise_conv_cuda: 20, tpool.maxpool3d_s1_fwd_cuda: 9}),
+    "i3d_frame": ({"use_pallas": True, "fuse_pool_conv": True},
+                  {tpw.pointwise_conv_cuda: 11, tfb.fused_pool_conv_fwd_cuda: 9}),
+    "i3d_tblock": ({"use_pallas": True, "fuse_pool_conv": "tblock"},
+                   {tpw.pointwise_conv_cuda: 11, tfb.fused_pool_conv_tblock_fwd_cuda: 9}),
+    "i3d_stock": ({}, {}),
+    "clstm_gates": ({"use_pallas": True}, {tgates.lstm_gates_fwd_cuda: 2 * 8}),
+    "clstm_stock": ({"use_pallas": False}, {}),
+}
+SERVE_COUNTERS = (tpw.pointwise_conv_cuda, tpool.maxpool3d_s1_fwd_cuda, tfb.fused_pool_conv_fwd_cuda,
+                  tfb.fused_pool_conv_tblock_fwd_cuda, tgates.lstm_gates_fwd_cuda)
+
+
+@pytest.mark.parametrize("route", list(SERVE_ROUTES))
+def test_artifact_exported_on_the_card_gives_the_live_bits_and_launches_its_kernels(cuda_device, route, tmp_path):
+    """A model exported on the card (``serve.export_forward``), saved and
+    loaded: at batches 1, 3 and 8 the artifact gives the live model's
+    bits, and each call launches every forward kernel of its route as
+    often as the live forward (the stock routes none). I3D at 8x64x64 (5
+    classes, logits pool 1x1x1), the clstm_kth geometry at 8x32x48."""
+    from ivf_tpu_torch import serve
+    from ivf_tpu_torch.models import I3D, ConvLSTMClassifier
+
+    flags, want = SERVE_ROUTES[route]
+    gen = torch.Generator().manual_seed(3)
+    if route.startswith("i3d"):
+        model, shape = I3D(num_classes=5, pool_shape=(1, 1, 1), **flags), (8, 64, 64, 3)
+    else:
+        model = ConvLSTMClassifier(num_classes=6, nb_lstm_units=4, lstm_layers=2, conv_kernel_size=5, conv_stride=2,
+                                   effective_steps=(3, 7), add_softmax=True, input_size=(32, 48), clip_len=8,
+                                   **flags)
+        shape = (8, 32, 48, 3)
+    model.reset_parameters(gen)
+    model = model.to(cuda_device).eval().requires_grad_(False)
+    path = str(tmp_path / f"{route}.ivfptx")
+    serve.save_artifact(serve.export_forward(model, shape), path)
+    call, meta = serve.load_artifact(path)
+    assert meta["device"] == "cuda:0" and call.device == torch.device("cuda:0")
+    live = serve.live_forward(model)
+    for b in (1, 3, 8):
+        x = torch.rand((b, *shape), generator=gen).to(cuda_device)
+        for fn in SERVE_COUNTERS:
+            fn.launches = 0
+        got = call(x)
+        torch.cuda.synchronize()
+        assert {fn: fn.launches for fn in SERVE_COUNTERS if fn.launches} == want
+        assert torch.equal(got, live(x))

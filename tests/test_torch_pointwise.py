@@ -115,7 +115,7 @@ def test_f32_wrapper_passes_the_weight_as_stored(monkeypatch, direction):
 
     monkeypatch.setattr(tpw, "_lib", lambda: FakeLib)
     monkeypatch.setattr(tpw, "_check_cuda_operands", lambda *a, **k: None)
-    monkeypatch.setattr(tpw, "_stream", lambda t: 0)
+    monkeypatch.setattr(tpw.build, "stream", lambda t: 0)
     monkeypatch.setattr(tpw, "_sm_count", lambda i: tpw.H100_SMS)
     wk = torch.randn(176, 192)  # (Cout, Cin), as a conv weight
     n = 25088
