@@ -131,8 +131,8 @@ non-zero without the final line:
    and bfloat16, each twice: equal bits run to run, masks within the
    tie-rule tolerance of ``reduce_window``'s, float32 ``argmax_full`` /
    ``argmax_shift`` bit-equal to ``reduce_window`` / ``shift``, launches;
-   device ms per search step of each bf16 impl at batch 4 and 128 with
-   peak memory.
+   device ms per search step of each bf16 impl at batch 4 with peak
+   memory.
 20. train_kernel_check, then train_i3d. The first holds the training
    path's kernel calls against their plain versions at its shapes, f32
    and bf16: the pointwise conv as ``Unit3D`` calls it in training (y,
@@ -176,16 +176,24 @@ non-zero without the final line:
    every bucket 1-128 against the live model (equal bits, else rtol 1e-6
    / atol 1e-7), the launch counters around each artifact call (the
    forward's kernels exactly, 0 on the stock routes), clips/s of the
-   artifact and of the live model per bucket in 10 alternating pairs
-   (medians, the pairs' median ratio), device ms by group at 128;
-   then ``cli serve --artifact --smoke`` and a burst of 512 requests
-   through the batcher (occupancy, p50 / p95 latency) with ``/stats``.
-26. whole_search: ``find_masks`` at bench.py's setting (128 clips, 120
-   steps, bf16, targets arange(128) % 174) on the default route, the
-   kernel route (30 steps) and the default route with the plain stem (30
-   steps), each after a
+   artifact and of the live model per bucket in ``SERVE_PAIRS``
+   alternating pairs (medians, the pairs' median ratio), device ms by
+   group at 128; then ``cli serve --artifact --smoke`` and a burst of 512
+   requests through the batcher (occupancy, p50 / p95 latency) with
+   ``/stats``.
+26. parallel, in a process of its own (``--parallel-child``): a world of
+   one rank over NCCL and its data mesh, i3d_smth at full width; train
+   steps (f32 kernel route, bf16 default), ``find_masks`` and ``infer``
+   with the mesh and without: equal bits, equal launches, device ms and
+   the NCCL kernels' share (``parallel_child``).
+27. whole_search: ``find_masks`` at bench.py's setting (128 clips,
+   bf16, targets arange(128) % 174) at fewer steps than its 120
+   (``WHOLE_ROUTE_STEPS``) on the default route (60), the kernel route
+   (30) and the default route with the plain stem (30), each after a
    2-step warm-up: mask-steps/s, the device busy share of the run, peak
    memory, the emission journal's bytes and the wait for its writer.
+
+Every line ``main`` prints carries ``t_s``, the seconds since it started.
 
 The float32 phases set no global TF32 flag: the port's entry points pin
 exact float32 themselves (``ivf_tpu_torch/precision.py``); direct autograd
@@ -367,7 +375,12 @@ GATE_OPS_FWD, GATE_OPS_BWD = 20, 40
 GATE_TABLE_OPS = 6
 
 
+_T0 = None  # main()'s start: its lines carry the seconds since then
+
+
 def emit(obj: dict) -> None:
+    if _T0 is not None:
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1632,6 +1645,8 @@ def phase_clstm_bf16_main_path(api, counters, failures, card: str, weights: dict
 
 
 def _group(name: str) -> str:
+    if "nccl" in name.lower():
+        return "NCCL collectives"
     if "fpc_fwd" in name or "fpc_bwd" in name:
         return "fused_branch3 kernels"
     if "lstm_gates" in name:
@@ -3941,7 +3956,7 @@ def phase_artifacts(api, counters, failures, card: str, weights: dict, clstm_wei
 # the pool_impls phase: every pool impl of the JAX package (ivf_tpu/config.py:84-89)
 POOL_IMPL_NAMES = ("reduce_window", "argmax", "shift", "eqbwd", "argmax_full", "argmax_shift")
 POOL_IMPL_FLAGS = {"use_pallas": True, "pallas_pool": False}  # pool_impl reaches the branch-3 pools
-POOL_IMPL_STEP_BATCHES = (BATCH, 128)
+POOL_IMPL_STEP_BATCHES = (BATCH,)  # 128 clips too before the smoke's time ran short
 
 
 def phase_pool_impls(api, counters, failures, card: str, weights: dict) -> None:
@@ -4012,7 +4027,7 @@ def phase_pool_impls(api, counters, failures, card: str, weights: dict) -> None:
           "mask_tol_reason": "another tie rule in the pool backward (" + MASK_TOL_REASON + ")",
           "required": "every check true"})
     del runs
-    # device time per search step of each bf16 impl, batch 4 then 128
+    # device time per search step of each bf16 impl at POOL_IMPL_STEP_BATCHES
     models = {}
     for impl in POOL_IMPL_NAMES:
         cfg = Config()
@@ -4023,11 +4038,7 @@ def phase_pool_impls(api, counters, failures, card: str, weights: dict) -> None:
         models[impl] = model.requires_grad_(False)
     clips = torch.stack([torch.from_numpy(dataset[i][0]) for i in range(BATCH)]).cuda().float()
     _step_timing("pool_impls_step_timing", models, clips, card, turns=POOL_IMPL_NAMES)
-    gen = torch.Generator(device="cuda").manual_seed(13)
-    big = torch.randint(0, 256, (POOL_IMPL_STEP_BATCHES[1], CLIP_T, CLIP_HW, CLIP_HW, 3), generator=gen,
-                        device="cuda", dtype=torch.uint8).float()
-    _step_timing("pool_impls_step_timing", models, big, card, turns=POOL_IMPL_NAMES, steps=2)
-    del big, models
+    del models
     torch.cuda.empty_cache()
     emit({"phase": "pool_impls_seconds", "card": card, "phase_seconds": time.perf_counter() - t_phase})
 
@@ -4035,10 +4046,10 @@ def phase_pool_impls(api, counters, failures, card: str, weights: dict) -> None:
 # bench.py's setting (bench.py:44-64, 150-157): 128 clips, 120 steps, bf16,
 # s2d stem, folded BN, fused 1x1 trio, targets arange(128) % 174
 WHOLE_CLIPS, WHOLE_STEPS, WHOLE_WARMUP_STEPS = 128, 120, 2
-# the plain-stem and kernel routes at fewer steps (their rates are per
-# step; the serve phase's ~250 s would otherwise take the smoke past ~1000
-# s of its 1200)
-WHOLE_ROUTE_STEPS = {"bf16_default_plain_stem": 30, "bf16_kernels": 30}
+# every route at fewer steps (the rates are per step; the default route at
+# 60 since the parallel phase: the smoke took 1160 s of its 1200 on a slow
+# host with all 120)
+WHOLE_ROUTE_STEPS = {"bf16_default": 60, "bf16_default_plain_stem": 30, "bf16_kernels": 30}
 WHOLE_ROUTES = {"bf16_default": BF16_ROUTES["bf16_default"], "bf16_kernels": BF16_ROUTES["bf16_kernels"],
                 "bf16_default_plain_stem": BF16_ROUTES["bf16_default"]}
 
@@ -5140,7 +5151,7 @@ SERVE_LAUNCHES = {  # (model, route) -> launches of one forward; every other cou
 }
 SERVE_RTOL, SERVE_ATOL = 1e-6, 1e-7  # tests/test_serve.py's, where an op of the graph changes bits
 SERVE_BURST = 512  # requests of the batcher burst, from 8 threads
-SERVE_PAIRS, SERVE_PAIR_CLIPS = 10, 8  # artifact / live timing pairs a bucket; clips a sample holds at least
+SERVE_PAIRS, SERVE_PAIR_CLIPS = 6, 8  # artifact / live timing pairs a bucket; clips a sample holds at least
 # its rows against one call at bucket 16: other buckets may take other cuDNN
 # algorithms (a sum in another order); tests/test_serve.py's batcher tolerance
 SERVE_BURST_RTOL, SERVE_BURST_ATOL = 1e-5, 1e-6
@@ -5361,9 +5372,232 @@ def phase_serve(failures) -> None:
         failures.append(f"serve child exited {proc.returncode}: {proc.stderr[-3000:]}")
 
 
-def kernels_line(cases: dict, launches: dict) -> dict:
+# the parallel phase: a world of one rank over NCCL, full i3d_smth width
+PAR_TRAIN_STEPS, PAR_BF16_STEPS, PAR_FM_CLIPS, PAR_FM_STEPS = 3, 2, 4, 10
+PAR_TIMED_PAIRS = 8  # single train steps with the mesh and without, in pairs
+PAR_DEVICE = None  # the ranks' device: None is the card over NCCL
+PAR_TRAIN_ROUTES = {"f32_kernels": TRAIN_I3D_ROUTES["f32_kernels"], "bf16_default": TRAIN_I3D_ROUTES["bf16_default"]}
+# stated before the first run: on one rank every collective of the mesh
+# path is a copy (a sum over one rank) or a division by 1, so the steps are
+# predicted bit for bit equal; the limit is what a BN mean summed in
+# another order would move (float32 rounding through training BN and
+# Adam's normalization: 7.3e-5 on parameters after two Adam steps,
+# tests/test_torch_parallel.py)
+PAR_TRAIN_TOL = {"loss_rel": 1e-5, "param_max_abs": 1e-4}
+PAR_TRAIN_TOL_REASON = (
+    "one rank: the all-reduces are copies and the divisions by the rank count exact, so equal bits are "
+    "predicted; the limit is a BN sum taken in another order through training BN and Adam (CPU, the "
+    "two-node ConvLSTM train: 7.3e-5 on the parameters after two Adam steps)"
+)
+
+
+def _par_train_runs(api, counters, cfg, clips, labels, mesh, steps: int) -> dict:
+    """Without the mesh, then with it: ``steps`` steps of the preset's
+    optimizer from its seeded state on one fixed batch, the launch counters
+    set to 0 just before and read just after; then ``PAR_TIMED_PAIRS``
+    single steps of each, in pairs with the first alternating (wall ms,
+    synchronized), and one profiled step of each."""
+    from ivf_tpu_torch.parallel import shard_batch
+    from ivf_tpu_torch.train import make_train_step
+
+    runs = {}
+    for name, m in (("no_mesh", None), ("mesh", mesh)):
+        inputs = (clips, labels) if m is None else shard_batch((clips, labels), m)
+        state = _train_state(api, cfg)
+        step = make_train_step(kernel_l2=cfg.model.kernel_l2, compute_dtype=cfg.model.compute_dtype, mesh=m)
+        for fn in counters.values():
+            fn.launches = 0
+        losses = []
+        for _ in range(steps):
+            state, metrics = step(state, *inputs)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        runs[name] = {"losses": [float(x) for x in losses], "bits": _state_bits(state), "wall_ms": [],
+                      "launches": {k: fn.launches for k, fn in counters.items() if fn.launches},
+                      "step": lambda state=state, step=step, inputs=inputs: step(state, *inputs)}
+    for k in range(PAR_TIMED_PAIRS):
+        for name in ("no_mesh", "mesh") if k % 2 == 0 else ("mesh", "no_mesh"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name]["step"]()
+            torch.cuda.synchronize()
+            runs[name]["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+    for r in runs.values():
+        r.update(_train_profile(r.pop("step")))
+    return runs
+
+
+def _par_train_gap(a: dict, b: dict) -> dict:
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], b["losses"]))
+    param = max(float((a["bits"][n].float() - b["bits"][n].float()).abs().max()) for n in b["bits"])
+    return {"loss_rel_diff": loss_rel, "param_max_abs_diff": param,
+            "equal_bits": a["losses"] == b["losses"] and _same_state(a["bits"], b["bits"])}
+
+
+def parallel_child() -> int:
+    """``python3 chip_smoke.py --parallel-child``, the ``parallel`` phase's
+    own process (``phase_parallel``): a world of one rank over NCCL
+    (``tcp://127.0.0.1``, a free port) and its data mesh
+    (``parallel.get_mesh``: ``init_device_mesh("cuda", (1,), ("data",))``),
+    i3d_smth at full width (174 classes, 16x224x224). Each run goes once
+    with the mesh and once without, its launch counters set to 0 just
+    before and read just after:
+
+      * ``PAR_TRAIN_STEPS`` train steps of the preset (batch 16, Adam,
+        dropout 0.5) on the float32 kernel route (``use_pallas`` +
+        ``pallas_pool``), and ``PAR_BF16_STEPS`` on the bf16 default route
+        (the argmax pool): the losses and the state equal bits or within
+        ``PAR_TRAIN_TOL``; then ``PAR_TIMED_PAIRS`` single steps of each
+        in pairs, the first alternating (wall ms), and one profiled step
+        of each (device ms, the NCCL kernels' share);
+      * ``find_masks`` on ``PAR_FM_CLIPS`` clips x ``PAR_FM_STEPS`` steps on
+        the float32 kernel route with the main path's seeded weights:
+        equal bits;
+      * ``infer`` on one batch of 16: equal bits.
+
+    Every collective runs, on one rank: the NCCL path of the port. The
+    launch counts must be equal with and without the mesh, and above 0
+    for the route's kernels. One JSON line per run and a
+    ``parallel_compare`` line; failures on stderr and exit code 1."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from ivf_tpu_torch import api
+    from ivf_tpu_torch.config import Config
+    from ivf_tpu_torch.data.synthetic import SyntheticClips
+    from ivf_tpu_torch.parallel import get_mesh, initialize_multihost
+
+    t_phase = time.perf_counter()
+    card, counters, failures, checks = nvidia_smi(), launch_counters(), [], {}
+
+    def require(label, ok, detail):
+        if not ok:
+            failures.append(f"parallel {label}: {detail}")
+        checks[label] = bool(ok)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    initialize_multihost(f"tcp://127.0.0.1:{port}", 1, 0, device=PAR_DEVICE, timeout_s=300)
+    mesh = get_mesh()
+    init_s = time.perf_counter() - t0
+    require("nccl_backend", dist.get_backend() == ("nccl" if PAR_DEVICE is None else "gloo"), dist.get_backend())
+    emit({"phase": "parallel_init", "card": card, "backend": dist.get_backend(), "world": dist.get_world_size(),
+          "mesh": {"device_type": mesh.device_type, "shape": list(mesh.shape), "axes": list(mesh.mesh_dim_names)},
+          "init_seconds": init_s})
+    rng = np.random.RandomState(23)
+    dev = TRAIN_DEVICE
+    clips = torch.from_numpy(rng.randint(0, 256, (TRAIN_BATCH, CLIP_T, CLIP_HW, CLIP_HW, 3)).astype(np.uint8)).to(dev)
+    labels = torch.from_numpy((np.arange(TRAIN_BATCH) * 7 % CLASSES).astype(np.int32)).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        for route, flags in PAR_TRAIN_ROUTES.items():
+            cfg = _train_preset(api, "config_i3d_smth.py", tmp, f"par_{route}", **flags)
+            steps = PAR_TRAIN_STEPS if route == "f32_kernels" else PAR_BF16_STEPS
+            runs = _par_train_runs(api, counters, cfg, clips, labels, mesh, steps)
+            gap = _par_train_gap(runs["mesh"], runs["no_mesh"])
+            for name, r in runs.items():
+                nccl_ms = r["groups_ms"].get("NCCL collectives", 0.0)
+                emit({"phase": "parallel_train", "card": card, "route": route, "run": name, "batch": TRAIN_BATCH,
+                      "steps": steps, "losses": r["losses"], "wall_ms_pairs": r["wall_ms"],
+                      "wall_ms_median": statistics.median(r["wall_ms"]),
+                      "device_ms_per_step": r["device_ms"], "nccl_device_ms": nccl_ms,
+                      "nccl_share": nccl_ms / r["device_ms"] if r["device_ms"] else None,
+                      "launches": r["launches"], "kernels_per_step": r["kernels_per_step"],
+                      "groups_ms": r["groups_ms"], "peak_mem_gib": r["peak_mem_gib"]})
+            mesh_ms, none_ms = runs["mesh"]["wall_ms"], runs["no_mesh"]["wall_ms"]
+            emit({"phase": "parallel_train_compare", "card": card, "route": route, **gap, "tol": PAR_TRAIN_TOL,
+                  "tol_reason": PAR_TRAIN_TOL_REASON,
+                  "device_ms_mesh_over_no_mesh": runs["mesh"]["device_ms"] / runs["no_mesh"]["device_ms"],
+                  "wall_ms_median_mesh_over_no_mesh": statistics.median(mesh_ms) / statistics.median(none_ms),
+                  "pairs_mesh_slower": sum(a > b for a, b in zip(mesh_ms, none_ms)), "pairs": PAR_TIMED_PAIRS})
+            require(f"{route}_train_within_tol", gap["equal_bits"] or (
+                gap["loss_rel_diff"] <= PAR_TRAIN_TOL["loss_rel"]
+                and gap["param_max_abs_diff"] <= PAR_TRAIN_TOL["param_max_abs"]), gap)
+            require(f"{route}_train_launches_equal", runs["mesh"]["launches"] == runs["no_mesh"]["launches"],
+                    (runs["mesh"]["launches"], runs["no_mesh"]["launches"]))
+            require(f"{route}_train_kernels", all(runs["mesh"]["launches"].get(n, 0) > 0
+                                                  for n in TRAIN_I3D_KERNELS[route]), runs["mesh"]["launches"])
+            require(f"{route}_train_finite", np.isfinite(runs["mesh"]["losses"]).all(), runs["mesh"]["losses"])
+            del runs
+            torch.cuda.empty_cache()
+        # find_masks: the float32 kernel route, the main path's weights
+        fm_cfg = Config()
+        for name, value in FUSED_ROUTES["kernels"].items():
+            setattr(fm_cfg.model, name, value)
+        weights = _scaled_weights(fm_cfg, api)
+        dataset = SyntheticClips(PAR_FM_CLIPS, CLIP_T, CLIP_HW, CLASSES, seed=1, lazy=False)
+        fm = {name: _find_masks_run(api, counters, tmp, f"par_fm_{name}", FUSED_ROUTES["kernels"], weights, dataset,
+                                    batch=PAR_FM_CLIPS, steps=PAR_FM_STEPS, **kw)
+              for name, kw in (("no_mesh", {}), ("mesh", {"mesh": mesh}))}
+        for name, r in fm.items():
+            emit({"phase": "parallel_find_masks", "card": card, "run": name, "clips": PAR_FM_CLIPS,
+                  "steps": PAR_FM_STEPS, "wall_seconds": r["wall"], "mask_steps_per_s": r["rate"],
+                  "search_seconds": r["stats"]["search_seconds"],
+                  "launches": {k: v for k, v in r["launches"].items() if v}, "pickles": r["pickles"]})
+            _check_outputs(f"parallel find_masks {name}", r, failures, batch=PAR_FM_CLIPS)
+        same = _equal_bits(fm["mesh"], fm["no_mesh"])
+        require("find_masks_equal_bits", same, _diffs(fm["mesh"], fm["no_mesh"]))
+        require("find_masks_launches_equal", fm["mesh"]["launches"] == fm["no_mesh"]["launches"],
+                (fm["mesh"]["launches"], fm["no_mesh"]["launches"]))
+        require("find_masks_kernels", all(fm["mesh"]["launches"][n] > 0 for n in TRAIN_I3D_KERNELS["f32_kernels"]),
+                fm["mesh"]["launches"])
+        fm_launches = {k: v for k, v in fm["mesh"]["launches"].items() if v}
+        del fm
+        # infer: one batch, the same seeded state
+        cfg = _train_preset(api, "config_i3d_smth.py", tmp, "par_infer", **TRAIN_I3D_ROUTES["f32_kernels"])
+        _, state = api.init_eval_state(cfg, device=dev)
+        val = [(c, int(y)) for c, y in zip(clips.cpu().numpy(), labels.cpu().numpy())]
+        res, inf_launches = {}, {}
+        for name, kw in (("no_mesh", {}), ("mesh", {"mesh": mesh})):
+            for fn in counters.values():
+                fn.launches = 0
+            res[name] = api.infer(cfg, state, dataset=val, save_npy=False, **kw)
+            inf_launches[name] = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        same_inf = all(np.array_equal(res["mesh"][k], res["no_mesh"][k]) for k in ("y_true", "y_hat", "y_hat_top5")) \
+            and all(res["mesh"][k] == res["no_mesh"][k] for k in ("loss", "top1", "top5"))
+        emit({"phase": "parallel_infer", "card": card, "clips": TRAIN_BATCH, "equal_bits": same_inf,
+              "loss": res["mesh"]["loss"], "launches": inf_launches})
+        require("infer_equal_bits", same_inf, {k: (res["mesh"][k], res["no_mesh"][k]) for k in ("loss", "top1")})
+        require("infer_launches_equal", inf_launches["mesh"] == inf_launches["no_mesh"], inf_launches)
+    dist.destroy_process_group()
+    emit({"phase": "parallel_compare", "card": card, **checks, "find_masks_launches": fm_launches,
+          "phase_seconds": time.perf_counter() - t_phase, "required": "every check true",
+          "note": "a world of one rank: the multi-rank paths run on the CPU over gloo (tests/test_torch_parallel.py)"})
+    for f in failures:
+        print(f, file=sys.stderr)
+    return 1 if failures else 0
+
+
+def phase_parallel(failures) -> dict:
+    """The ``parallel`` phase in a child process (``parallel_child``): the
+    process group and its NCCL communicator stay out of this process. Its
+    JSON lines pass through; returns the launch counts of its mesh runs by
+    run (the kernels line's ``dp_launches``)."""
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--parallel-child"],
+                          capture_output=True, text=True, timeout=600)
+    dp = {}
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            row = json.loads(line)
+            emit(row)
+            if row.get("phase") == "parallel_train" and row["run"] == "mesh":
+                dp[f"train_{row['route']}"] = row["launches"]
+            elif row.get("phase") == "parallel_compare":
+                dp["find_masks"] = row["find_masks_launches"]
+    if proc.returncode != 0:
+        failures.append(f"parallel child exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return dp
+
+
+def kernels_line(cases: dict, launches: dict, dp: dict) -> dict:
     """One entry per kernel, timed at its headline main-path shape;
-    ``launches`` from the main path that runs it."""
+    ``launches`` from the main path that runs it; ``dp_launches`` the
+    ``parallel`` phase's mesh runs that launched it (each equal to the run
+    without the mesh)."""
     headline = {
         "pointwise_conv": ("Mixed_3b_trio", "ivf_tpu/ops/pallas/pointwise_conv.py:29",
                            "ivf_tpu_torch/csrc/pointwise_conv.cu"),
@@ -5408,6 +5642,9 @@ def kernels_line(cases: dict, launches: dict) -> dict:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "at": {"site": site, "shape": row["shape"]},
         }
+        dp_launches = {run: counts[name] for run, counts in dp.items() if counts.get(name)}
+        if dp_launches:
+            entry["dp_launches"] = dp_launches
         if "events_ms" in row:  # the pool pair's second timer (pool_rows)
             entry.update({"events_ms": row["events_ms"], "library_events_ms": row["library_events_ms"]})
         if name.startswith("fused_pool_conv"):
@@ -5466,6 +5703,8 @@ def launch_counters() -> dict:
 
 
 def main() -> int:
+    global _T0
+    _T0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -5513,15 +5752,16 @@ def main() -> int:
     phase_records_search(api, counters, failures, info["smi"])
     launches.update(phase_checkpoint_cli(api, counters, failures, info["smi"], f32_run["weights"]))
     phase_serve(failures)
+    dp = phase_parallel(failures)
     phase_whole_search(api, counters, failures, info["smi"], f32_run["weights"])
     if failures:
         for f in failures:
             print(f"chip_smoke FAILED: {f}", file=sys.stderr)
         return 1
-    emit(kernels_line(cases, launches))
+    emit(kernels_line(cases, launches, dp))
     print(info["smi"], flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
@@ -5530,6 +5770,8 @@ if __name__ == "__main__":
         sys.exit(determinism_child())
     if sys.argv[1:] == ["--serve-child"]:
         sys.exit(serve_child())
+    if sys.argv[1:] == ["--parallel-child"]:
+        sys.exit(parallel_child())
     if sys.argv[1:] == ["--bf16-width-sweep"]:
         sys.exit(bf16_width_sweep())
     if sys.argv[1:] == ["--fused-sweep"]:

@@ -3,7 +3,8 @@
 The JAX package ``ivf_tpu`` stays the reference; this package reproduces
 its temporal-mask search + Grad-CAM path (``api.find_masks``) on I3D and
 the ConvLSTM family, and its training and inference (``api.train``,
-``api.infer``) on those and ``cnn_3d``, with PyTorch on one H100. Module
+``api.infer``) on those and ``cnn_3d``, with PyTorch on one H100 or on
+several over ``torch.distributed``. Module
 names mirror ``ivf_tpu``:
 
   ops/          conv/pool semantics (TF-SAME 3D, torch-padded 2D), the
@@ -22,6 +23,9 @@ names mirror ``ivf_tpu``:
                 the KTH clip whitelist
   native/       the loader's batched libjpeg decoder (host C++, built with
                 g++ at first use; PIL where it cannot build)
+  parallel/     ranks over ``torch.distributed``: device meshes with the
+                JAX axis names, node shards, the data mesh's collectives,
+                the GPipe schedule and tensor parallelism
   utils/        weight conversion from the JAX package's variable tree,
                 checkpoints, result files, TF bundles, the reference
                 TF and torch checkpoint imports and the torch export

@@ -46,8 +46,14 @@ pools, in bfloat16 the argmax pool (``_bf16_argmax_upgrade``).
 file or a directory of the port's checkpoints. ``cli.py`` runs the entry
 points from the command line.
 
-Not ported yet (ROADMAP.md): ``mesh`` (Queue 1 item 13), reading a JAX
-orbax checkpoint directory (item 14) and serving (item 12); each raises.
+``train``, ``infer``, ``find_masks`` and ``build_loader`` take a ``mesh``
+(``parallel/``: one rank a device, the collectives written out). Under a
+mesh only rank 0 writes files (checkpoints, plots, ``history.json``, the
+prediction dumps, the pickles, the journal, the viz artifacts); in a world
+of more than one rank ``train`` and ``infer`` raise without one.
+
+Not ported yet (ROADMAP.md): reading a JAX orbax checkpoint directory
+(Queue 1 item 14) raises.
 """
 
 from __future__ import annotations
@@ -94,6 +100,8 @@ from ivf_tpu_torch.interpret.mask_opt import (
 from ivf_tpu_torch.models.convlstm import ConvLSTMClassifier
 from ivf_tpu_torch.models.i3d import I3D
 from ivf_tpu_torch.models.registry import get_model
+from ivf_tpu_torch.parallel import multihost
+from ivf_tpu_torch.parallel.collectives import all_gather_along
 from ivf_tpu_torch.precision import inference_model, reference_numerics_fn
 from ivf_tpu_torch.viz.render import (
     PlotLearning,
@@ -273,7 +281,8 @@ def build_loader(
 ) -> ClipLoader:
     """A ``ClipLoader`` of ``cfg.data.batch_size`` over ``dataset`` with the
     config's decode threads and seed; with ``to_device`` its batches go to
-    ``device`` (``cuda`` unless given). ``mesh`` raises (not ported)."""
+    ``device`` (``cuda`` unless given). Under ``mesh`` the batch is the
+    node's and each rank decodes its rows of it, onto its device."""
     return ClipLoader(
         dataset,
         batch_size=cfg.data.batch_size,
@@ -386,6 +395,61 @@ class _EmissionJournal:
         return out
 
 
+def _mesh_device(mesh, device) -> torch.device:
+    """The run's device: the rank's device on ``mesh`` (a ``device`` of
+    another type raises), else ``resolve_device(device)``."""
+    if mesh is None:
+        return resolve_device(device)
+    from ivf_tpu_torch.parallel.mesh import mesh_device
+
+    dev = mesh_device(mesh)
+    if device is not None and torch.device(device).type != dev.type:
+        raise ValueError(f"device {device!r} is not the mesh's device ({dev})")
+    return dev
+
+
+def _require_mesh(mesh, what: str) -> None:
+    """In a world of more than one rank, ``train`` and ``infer`` need a
+    mesh (``ivf_tpu/api.py:354-359``, ``:571-577``)."""
+    if mesh is None and multihost.world_size() > 1:
+        raise ValueError(
+            f"multi-host {what} requires a global device mesh (pass mesh=get_mesh() / CLI --data-parallel): "
+            f"without one, each of the {multihost.world_size()} ranks would run on its own with no gradient sync "
+            "or gather, all writing the same files"
+        )
+
+
+def _node_shard(dataset):
+    """The node's ``ShardedDataset(even=True)`` shard when the world has
+    more than one node (``ivf_tpu/api.py:351-364``), else ``dataset``."""
+    if multihost.node_count() > 1:
+        return multihost.ShardedDataset(dataset)
+    return dataset
+
+
+class _BatchSplit:
+    """Under a mesh, the rows of a ``bsz``-row batch that this rank's
+    device programs run (``local``) and the gather that rebuilds a whole
+    batch's output on every rank (``full``); identities without one."""
+
+    def __init__(self, mesh, bsz: int):
+        self.on = mesh is not None
+        if self.on:
+            from ivf_tpu_torch.parallel.mesh import batch_group, batch_rows
+
+            self.rows, self.group = batch_rows(mesh, bsz), batch_group(mesh)
+
+    def local(self, x):
+        return x[self.rows] if self.on else x
+
+    def full(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.on:
+            return x
+        if x.dtype == torch.bool:
+            return all_gather_along(x.to(torch.uint8), 0, self.group).bool()
+        return all_gather_along(x, 0, self.group)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -420,6 +484,7 @@ def find_masks(
     max_batches: Optional[int] = None,
     resume: bool = False,
     save_viz: bool = True,
+    mesh=None,
 ):
     """Temporal-mask search + Grad-CAM over ``dataset`` (items
     ``(clip_uint8 (T, H, W, 3), label, clip_id)``, or ``(clip, label)``:
@@ -504,12 +569,23 @@ def find_masks(
     ``n_steps_run`` also go to ``results/search_stats.json`` when a search
     or Grad-CAM ran.
 
-    Not ported yet (ROADMAP.md, Queue 1): ``mesh`` (one device).
+    Under ``mesh`` (``ivf_tpu/api.py:996-1002``) every rank runs this same
+    host driver (loader, filters, compaction, refill, journal reads) and
+    the device programs (score, init, search, finalize, Grad-CAM) on its
+    rows of each ``batch_size``-row batch, which the data axis must
+    divide; the outputs the driver reads are gathered (``_BatchSplit``),
+    so every rank returns the full result lists, with the bits of a run
+    without the mesh. Rank 0 alone writes the pickles, the stats, the
+    journal and the viz artifacts. Without a mesh, processes may each run
+    a driver of their own over a ``parallel.ShardedDataset(even=False)``
+    shard (``ivf_tpu/parallel/multihost.py:26-31``), with no process
+    group.
     """
     _check_supported(cfg)
     cfg = _bf16_argmax_upgrade(cfg)
     mk = cfg.mask
-    dev = resolve_device(device)
+    dev = _mesh_device(mesh, device)
+    primary = mesh is None or multihost.rank() == 0
     if dataset is None:
         dataset = build_dataset(cfg, split, get_item_id=True)
     # clips stay on the host until a full compacted batch is ready
@@ -518,6 +594,10 @@ def find_masks(
     if weights is not None:
         model.load_state_dict(weights)  # copy_ rounds to the model's dtype
     model.requires_grad_(False)
+    if mesh is not None:
+        from ivf_tpu_torch.parallel.mesh import replicate
+
+        replicate(model, mesh)
 
     def score_fn(clips):  # float32 class probabilities, (B, num_classes)
         return model(clips).float()
@@ -546,6 +626,7 @@ def find_masks(
         eta_patience=mk.eta_patience,
     )
     bsz = cfg.data.batch_size
+    split = _BatchSplit(mesh, bsz)
     chunk = mk.chunk_steps or mk.opt_iter
     chunked = chunk < mk.opt_iter
     n_full, rem = divmod(mk.opt_iter, chunk) if chunked else (0, 0)
@@ -561,7 +642,8 @@ def find_masks(
     save_dir = os.path.join(cfg.output_dir, cfg.model_name)
     is_kth = _is_kth_run(cfg)
     results_path = os.path.join(save_dir, "results")
-    os.makedirs(results_path, exist_ok=True)
+    if primary:
+        os.makedirs(results_path, exist_ok=True)
 
     # the emission journal: restore what an interrupted run finished
     journal_path = os.path.join(results_path, "emission_journal.p")
@@ -589,8 +671,8 @@ def find_masks(
                 f"min_score skips) — re-running the rest",
                 flush=True,
             )
-    journal = _EmissionJournal(journal_path, fresh=not resume)
-    writer = _AsyncWriter(enabled=mk.async_viz)
+    journal = _EmissionJournal(journal_path, fresh=primary and not resume)
+    writer = _AsyncWriter(enabled=mk.async_viz and primary)
 
     run_stats = {
         "score_launches": 0,
@@ -610,25 +692,28 @@ def find_masks(
 
     def upload(clips_u8: list) -> torch.Tensor:
         # uint8 crosses to the device (4x fewer bytes), one cast there; no
-        # normalization, as in ivf_tpu's find_masks
+        # normalization, as in ivf_tpu's find_masks; under a mesh the rank's rows
         host = torch.from_numpy(np.ascontiguousarray(np.stack(_pad_rows(clips_u8, bsz))))
-        return host.to(dev).float()
+        return split.local(host).to(dev).float()
 
     def stage(take: list):
         """A fresh flush (rows ``(clip, label, id, probe scores or None)``):
         clips on the device, class scores (the probe's where it ran, else a
-        forward), targets, and the mask init's carry when the search runs."""
+        forward), targets, and the mask init's carry when the search runs
+        (the rank's rows of each under a mesh)."""
         clips = upload([r[0] for r in take])
         if take[0][3] is not None:
             outputs = torch.from_numpy(np.stack(_pad_rows([r[3] for r in take], bsz))).to(dev)
+            local_outputs = split.local(outputs)
         else:
             with torch.no_grad():
-                outputs = score_fn(clips)
+                local_outputs = score_fn(clips)
+            outputs = split.full(local_outputs)
             run_stats["score_launches"] += 1
         if mk.grad_cam_type == "guessed":
-            targets = outputs.argmax(dim=-1)
+            targets = local_outputs.argmax(dim=-1)
         else:
-            targets = torch.as_tensor(_pad_rows([r[1] for r in take], bsz), device=dev)
+            targets = split.local(torch.as_tensor(_pad_rows([r[1] for r in take], bsz), device=dev))
         outputs_np = outputs[: len(take)].cpu().numpy()
         carry = None
         if run_temp_mask:
@@ -640,7 +725,7 @@ def find_masks(
                 # per clip id, not per flush position: a clip's init does not
                 # depend on which clips share its flush
                 draws = [draw_mask_random(cfg.seed, r[2], clips.shape[1]) for r in take]
-                inits = torch.stack(_pad_rows(draws, bsz)).to(dev)
+                inits = split.local(torch.stack(_pad_rows(draws, bsz))).to(dev)
             _sync(dev)
             run_stats["init_seconds"] += time.perf_counter() - t0
             carry = make_search_carry(inits)
@@ -666,8 +751,11 @@ def find_masks(
         """Records for rows ``sel`` of the flush ``take`` (``res`` None when
         no search ran); their CAMs come from the whole (padded) batch and
         are gathered on the device. The flush's journal records go to the
-        writer thread."""
+        writer thread (rank 0's)."""
         rows = torch.as_tensor(sel, device=dev)
+        if res is not None:
+            res = res._replace(**{f: split.full(getattr(res, f))
+                                  for f in ("mask", "freeze_score", "reverse_score", "n_steps_run")})
         jrecs = {j: {"video_id": str(take[j][2]), "mask": None, "cam": None} for j in sel}
         heads = {
             j: {"true_class": int(take[j][1]), "pred_class": int(outputs_np[j].argmax()),
@@ -693,18 +781,24 @@ def find_masks(
                 time_mask_results.append(rec)
                 jrecs[j]["mask"] = rec
         if do_gradcam:
-            cams = cam_fn(clips, targets)[0][rows].float().cpu().numpy()
+            cams = split.full(cam_fn(clips, targets)[0])[rows].float().cpu().numpy()
             for k, j in enumerate(sel):
                 rec = {**heads[j], "GCHeatMap": cams[k]}
                 grad_cam_results.append(rec)
                 jrecs[j]["cam"] = rec
         recs = list(jrecs.values())
+        if not primary:
+            return
         if not (save_viz and res is not None):
             writer.submit(lambda: journal.append_many(recs))
             return
         # the viz perturbations of the selected rows, batched on the device;
         # the clip pixels only where an image needs them
-        sel_clips, sel_masks = clips[rows], res.mask[rows]
+        if split.on:  # the rank holds its rows only: the selected clips again from the host
+            sel_clips = torch.from_numpy(np.stack([take[j][0] for j in sel])).to(dev).float()
+        else:
+            sel_clips = clips[rows]
+        sel_masks = res.mask[rows]
         perts = None
         if do_gradcam:
             perts = {
@@ -789,16 +883,16 @@ def find_masks(
         else:
             clips = upload([r[0] for r in take])
             outputs_np = np.stack([r[3] for r in take])
-            targets = torch.as_tensor(_pad_rows([r[4] for r in take], bsz), device=dev)
-            carry = _carry_map(lambda *rows: torch.cat(rows), *_pad_rows([r[5] for r in take], bsz))
+            targets = split.local(torch.as_tensor(_pad_rows([r[4] for r in take], bsz), device=dev))
+            carry = _carry_map(lambda *rows: split.local(torch.cat(rows)), *_pad_rows([r[5] for r in take], bsz))
             run_stats["refill_flushes"] += 1
         run_stats["padded_rows"] += bsz - n
-        targets_np = targets.cpu().numpy()
+        targets_np = split.full(targets).cpu().numpy()
         rem_done = rem == 0
         harvested = np.zeros(n, bool)
         while True:
             sched_done = segs_done >= n_full and rem_done
-            active = carry.active[:n].cpu().numpy()  # one read per boundary
+            active = split.full(carry.active)[:n].cpu().numpy()  # one read per boundary
             if sched_done:
                 active[:] = False
             retiring = [j for j in range(n) if not (active[j] or harvested[j])]
@@ -812,8 +906,9 @@ def find_masks(
                 # a mixed boundary: the survivors re-stage to run in full batches
                 survivors = np.nonzero(active)[0]
                 queue = requeues.setdefault(segs_done, [])
+                whole = _carry_map(split.full, carry)
                 for j in survivors:
-                    row = _carry_map(lambda a: a[j : j + 1], carry)
+                    row = _carry_map(lambda a: a[j : j + 1], whole)
                     queue.append((*take[j][:3], outputs_np[j], int(targets_np[j]), row))
                 run_stats["refill_requeued_rows"] += len(survivors)
                 return
@@ -861,7 +956,7 @@ def find_masks(
             take = pending[:bsz]
             del pending[:bsz]
             with torch.no_grad():
-                outs = score_fn(upload([r[0] for r in take]))[: len(take)].cpu().numpy()
+                outs = split.full(score_fn(upload([r[0] for r in take])))[: len(take)].cpu().numpy()
             run_stats["score_launches"] += 1
             skips = []
             for j, (clip, label, cid) in enumerate(take):
@@ -869,7 +964,7 @@ def find_masks(
                     ready.append((clip, label, cid, outs[j]))
                 else:
                     skips.append({"video_id": cid, "skip": True})
-            if skips:
+            if skips and primary:
                 journal.append_many(skips)
             flush_ready()
 
@@ -945,11 +1040,13 @@ def find_masks(
             f"(budget {mk.opt_iter}, frozen {summary['frozen_frac']:.0%}){seg_note}",
             flush=True,
         )
+    if stats is not None:
+        stats.update(run_stats)
+    if not primary:
+        return time_mask_results, grad_cam_results
     if run_temp_mask or do_gradcam:
         with open(os.path.join(results_path, "search_stats.json"), "w") as f:
             json.dump({k: v for k, v in run_stats.items() if k != "n_steps_run"}, f, indent=1)
-    if stats is not None:
-        stats.update(run_stats)
     for kind, results in (("TimeMask", time_mask_results), ("GradCam", grad_cam_results)):
         path = os.path.join(results_path, f"all{kind}Results_{cfg.model_name}_{mk.class_oi}_.p")
         with open(path, "wb") as f:
@@ -1003,11 +1100,6 @@ def _save_dir(cfg: Config) -> str:
 
 def _loss_type(cfg: Config) -> str:
     return "nll_on_probs" if cfg.model.soft_max else "cross_entropy"
-
-
-def _check_no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh: data-parallel placement is not ported yet (ROADMAP.md, Queue 1 item 13)")
 
 
 def _has_pretrained(cfg: Config) -> bool:
@@ -1114,32 +1206,49 @@ def train(
     predictions instead (float32, as in the JAX package). Returns (state,
     history), or (state, evaluate's dict) for ``eval_only``. Without a
     resume, a ``pretrained_model_path`` is loaded into the fresh state
-    (``pretrained_state_dict``). ``mesh`` raises ``NotImplementedError``."""
+    (``pretrained_state_dict``).
+
+    Under ``mesh`` (a data mesh, ``parallel/``) every rank runs the same
+    loop on its rows of each batch (``cfg.data.batch_size`` is a node's
+    batch; across nodes each node reads its ``ShardedDataset`` shard), the
+    state is broadcast from rank 0 once it is built or restored, every
+    rank waits at a barrier before it restores, and only rank 0 writes the
+    checkpoints, the plots and ``history.json``. In a world of more than
+    one rank a run without a mesh raises."""
     from ivf_tpu_torch.train import PatienceHalving, ReduceLROnPlateau, evaluate, fit, make_eval_step
     from ivf_tpu_torch.train.optim import get_learning_rate
     from ivf_tpu_torch.utils.checkpoint import Checkpointer
 
-    _check_no_mesh(mesh)
-    dev = resolve_device(device)
-    save_dir = _save_dir(cfg)
+    _require_mesh(mesh, "training")
+    dev = _mesh_device(mesh, device)
+    primary = multihost.rank() == 0
+    save_dir = _save_dir(cfg) if primary else os.path.join(cfg.output_dir, cfg.model_name)
     cfg = _bf16_argmax_upgrade(cfg)
     loss_type = _loss_type(cfg)
-    train_dataset = train_dataset or build_dataset(cfg, "train")
-    val_dataset = val_dataset or build_dataset(cfg, "validation")
+    train_dataset = _node_shard(train_dataset or build_dataset(cfg, "train"))
+    val_dataset = _node_shard(val_dataset or build_dataset(cfg, "validation"))
     state = _train_state(cfg, dev)
 
-    ckpt = Checkpointer(save_dir, async_save=cfg.async_checkpoint)
+    ckpt = Checkpointer(save_dir, async_save=cfg.async_checkpoint) if primary or os.path.isdir(save_dir) else None
     start_epoch, best_loss, batch_offset = 0, float("inf"), 0
-    if resume and ckpt.exists():
+    if resume and mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()  # no rank reads a checkpoint another may still be writing
+    if resume and ckpt is not None and ckpt.exists():
         state, start_epoch, best_loss, batch_offset = ckpt.restore(state)
         at = f" batch {batch_offset}" if batch_offset else ""
         print(f" > resumed from epoch {start_epoch}{at} (best loss {best_loss:.4f})")
     elif _has_pretrained(cfg):
         state = _load_pretrained(cfg, state)
+    if mesh is not None:
+        from ivf_tpu_torch.parallel.mesh import replicate
+
+        replicate(state.model, mesh)
 
     if eval_only:
         res = evaluate(
-            state, build_loader(cfg, val_dataset, False, device=dev), make_eval_step(loss_type),
+            state, build_loader(cfg, val_dataset, False, mesh, device=dev), make_eval_step(loss_type, mesh=mesh),
             collect_predictions=True,
         )
         return state, res
@@ -1155,10 +1264,10 @@ def train(
         scheduler.lr = get_learning_rate(state.opt_state)
         if o.lr_schedule != "patience_halving":
             scheduler.best = best_loss
-    plotter = PlotLearning(os.path.join(save_dir, "plots"), cfg.model.num_classes)
+    plotter = PlotLearning(os.path.join(save_dir, "plots"), cfg.model.num_classes) if primary else None
     # one loader each, reused across epochs: fit pins each epoch's order
-    train_loader = build_loader(cfg, train_dataset, cfg.data.shuffle, device=dev)
-    val_loader = build_loader(cfg, val_dataset, False, device=dev)
+    train_loader = build_loader(cfg, train_dataset, cfg.data.shuffle, mesh, device=dev)
+    val_loader = build_loader(cfg, val_dataset, False, mesh, device=dev)
     state, history = fit(
         state,
         lambda: train_loader,
@@ -1166,7 +1275,7 @@ def train(
         num_epochs=o.num_epochs,
         loss_type=loss_type,
         scheduler=scheduler,
-        checkpointer=ckpt,
+        checkpointer=ckpt if primary else None,
         print_freq=o.print_freq,
         last_lr=o.last_lr,
         max_steps_per_epoch=5 if cfg.test_run else None,
@@ -1177,8 +1286,9 @@ def train(
         checkpoint_every_steps=o.checkpoint_steps,
         start_batch_offset=batch_offset,
         compute_dtype=cfg.model.compute_dtype,
+        mesh=mesh,
     )
-    if history:
+    if history and primary:
         with open(os.path.join(save_dir, "history.json"), "w") as f:
             json.dump(history, f, indent=1, default=float)
     return state, history
@@ -1209,24 +1319,33 @@ def infer(cfg: Config, state=None, mesh=None, dataset=None, save_npy: bool = Tru
     (``inference_kth.py:10``); the collected matrix is at least 5 wide.
     Writes ``y_true.npy``, ``y_hat.npy`` and ``y_hat_top5.npy`` (k columns,
     the reference's file name whatever k) to ``<output_dir>/<model_name>``.
-    ``mesh`` raises (Queue 1 item 13)."""
+    Under ``mesh`` each rank evaluates its rows of every batch (across
+    nodes, its node's shard), the state broadcast from rank 0, the
+    predictions gathered on every rank, and rank 0 alone writes the files;
+    in a world of more than one rank a run without a mesh raises."""
     from ivf_tpu_torch.train import evaluate, make_eval_step
 
-    _check_no_mesh(mesh)
+    _require_mesh(mesh, "inference")
     if state is None:
-        _, state = init_eval_state(cfg, device=device)
+        _, state = init_eval_state(cfg, device=_mesh_device(mesh, device))
     dev = next(state.model.parameters()).device
-    dataset = dataset or build_dataset(cfg, "validation")
+    if mesh is not None:
+        from ivf_tpu_torch.parallel.mesh import replicate
+
+        if dev != _mesh_device(mesh, None):
+            raise ValueError(f"the state is on {dev}, not on the mesh's device")
+        replicate(state.model, mesh)
+    dataset = _node_shard(dataset or build_dataset(cfg, "validation"))
     k = cfg.model.top_k if cfg.model.top_k else (3 if _is_kth_run(cfg) else 5)
     res = evaluate(
         state,
-        build_loader(cfg, dataset, False, device=dev),
-        make_eval_step(_loss_type(cfg), compute_dtype=cfg.model.compute_dtype),
+        build_loader(cfg, dataset, False, mesh, device=dev),
+        make_eval_step(_loss_type(cfg), compute_dtype=cfg.model.compute_dtype, mesh=mesh),
         max_steps=5 if cfg.test_run else None,
         collect_predictions=True,
         top_k=max(5, k),
     )
-    if save_npy:
+    if save_npy and multihost.rank() == 0:
         save_dir = _save_dir(cfg)
         np.save(os.path.join(save_dir, "y_true.npy"), res["y_true"])
         np.save(os.path.join(save_dir, "y_hat.npy"), res["y_hat"])

@@ -27,9 +27,19 @@ the port's checkpoints. ``--detect-anomaly`` runs under
 ``serve --artifact`` runs it there unless ``--device`` names another,
 which raises.
 
-Not ported (ROADMAP.md, Queue 1), each raising ``NotImplementedError``:
-``-dp`` / ``--data-parallel`` and ``--multihost`` (item 13), ``--profile``
-(item 14).
+``--multihost`` joins the process group (``parallel.initialize_multihost``:
+``torchrun``'s variables, else the JAX package's) before anything touches
+a device; ``-dp N`` runs ``train``, ``infer`` and ``find-masks`` on a data
+mesh of N ranks (``parallel.get_mesh``): 0 is the whole world, 1 (or a
+world of one rank) no mesh, any other N must be the world size. ``-dp``
+joins the process group too. On N cards of one host::
+
+    torchrun --nproc-per-node N -m ivf_tpu_torch.cli train -c cfg.py -dp 0
+
+``batch_size`` is then the node's batch, split over its ranks.
+
+Not ported (ROADMAP.md, Queue 1 item 14): ``--profile`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,8 +53,6 @@ import re
 from ivf_tpu_torch.config import Config, add_cli_overrides, apply_cli_overrides
 
 _NOT_PORTED = {
-    "data_parallel": "-dp / --data-parallel: data-parallel placement is not ported yet (ROADMAP.md, Queue 1 item 13)",
-    "multihost": "--multihost: multi-process runs are not ported yet (ROADMAP.md, Queue 1 item 13)",
     "profile": "--profile: the profiler trace is not ported yet (ROADMAP.md, Queue 1 item 14)",
 }
 
@@ -70,11 +78,15 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--device", default=device_default, help="torch device the run uses (default: cuda; "
                        "serve --artifact: the artifact's)")
         p.add_argument("--data-parallel", "-dp", type=int, default=None, metavar="N",
-                       help="not ported (ROADMAP.md, Queue 1 item 13)")
+                       help="run on a data mesh of N ranks (0: the whole world; omit or 1: no mesh); "
+                       "batch_size is the node's batch and must divide over its ranks")
         p.add_argument("--profile", metavar="DIR", default=None, help="not ported (ROADMAP.md, Queue 1 item 14)")
         p.add_argument("--detect-anomaly", action="store_true",
                        help="run under torch.autograd.set_detect_anomaly (the reference mask drivers do)")
-        p.add_argument("--multihost", action="store_true", help="not ported (ROADMAP.md, Queue 1 item 13)")
+        p.add_argument("--multihost", action="store_true",
+                       help="join the process group before any device use (torchrun's MASTER_ADDR / MASTER_PORT / "
+                       "WORLD_SIZE / RANK, else JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID); "
+                       "with -dp 0 a global data mesh, each node reading its shard")
         add_cli_overrides(p)
         return p
 
@@ -145,9 +157,14 @@ def main(argv=None):
         args.device = None  # the API's own default: cuda, or a clear error with no card (an artifact has its own)
     if args.command in _NOT_PORTED:
         raise NotImplementedError(f"{args.command}: {_NOT_PORTED[args.command]}")
-    for flag in ("data_parallel", "profile", "multihost"):
+    for flag in _NOT_PORTED:
         if getattr(args, flag, None) not in (None, False):
             raise NotImplementedError(_NOT_PORTED[flag])
+    if getattr(args, "multihost", False) or getattr(args, "data_parallel", None) not in (None, 1):
+        # before anything touches a device: NCCL ranks take their card first
+        from ivf_tpu_torch.parallel import initialize_multihost
+
+        initialize_multihost(device=args.device)
     with contextlib.ExitStack() as stack:
         if getattr(args, "detect_anomaly", False):
             import torch
@@ -156,15 +173,30 @@ def main(argv=None):
         return _run(args)
 
 
+def _mesh(args) -> dict:
+    """``{"mesh": ...}``, the data mesh of ``-dp`` (``ivf_tpu/cli.py:179-191``),
+    or ``{}``: none unless asked; 0 the whole world; a mesh of one rank is
+    no mesh."""
+    n = getattr(args, "data_parallel", None)
+    if n is None:
+        return {}
+    from ivf_tpu_torch.parallel import get_mesh
+    from ivf_tpu_torch.parallel.multihost import world_size
+
+    n = n or world_size()
+    return {"mesh": get_mesh(n)} if n > 1 else {}
+
+
 def _run(args):
     if args.command == "train":
         from ivf_tpu_torch.api import train
 
-        return train(_load_cfg(args), eval_only=args.eval_only, resume=args.resume, device=args.device)
+        return train(_load_cfg(args), eval_only=args.eval_only, resume=args.resume, device=args.device,
+                     **_mesh(args))
     if args.command == "infer":
         from ivf_tpu_torch.api import infer
 
-        res = infer(_load_cfg(args), device=args.device)
+        res = infer(_load_cfg(args), device=args.device, **_mesh(args))
         print(f"val loss {res['loss']:.4f} top1 {res['top1']:.2f} top5 {res['top5']:.2f} (predictions saved)")
         return res
     if args.command in ("find-masks", "grad-cam"):
@@ -173,12 +205,19 @@ def _run(args):
         from ivf_tpu_torch.api import find_masks, init_eval_state
 
         cfg = _load_cfg(args)
-        _, state = init_eval_state(cfg, softmax_override=True, device=args.device)
+        mesh = _mesh(args)
+        device = args.device
+        if mesh:
+            from ivf_tpu_torch.parallel import mesh_device
+
+            device = mesh_device(mesh["mesh"])
+        _, state = init_eval_state(cfg, softmax_override=True, device=device)
         cam_only = args.command == "grad-cam"
         out = find_masks(
             cfg,
             state.model.state_dict(),
-            device=args.device,
+            device=device,
+            **mesh,
             do_gradcam=cam_only or not args.no_gradcam,
             run_temp_mask=not cam_only and not args.no_temp_mask,
             save_viz=not cam_only,

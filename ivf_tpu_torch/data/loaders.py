@@ -222,6 +222,14 @@ class ClipLoader:
     ``device`` (``_place``): ``cuda`` unless the caller passes another
     device such as ``"cpu"``; without a card and with no device given the
     loader raises. ``to_device=False`` yields the numpy batches.
+
+    With ``mesh`` (``parallel/mesh.py``) the batches of ``batch_size`` are
+    the node's (``parallel/multihost.py``): this rank decodes only its
+    contiguous rows of each, in the same order as without a mesh, and
+    they go to the rank's device (the port of ``_place``,
+    ``ivf_tpu/data/loaders.py:302-312``, whose ``device_put`` splits a
+    batch over the data axis). A batch the node's ranks do not divide
+    raises; a ``device`` other than the mesh's raises.
     """
 
     def __init__(
@@ -238,11 +246,14 @@ class ClipLoader:
         use_native: bool = True,
         device=None,
     ):
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "ClipLoader(mesh=...): sharded placement is not ported yet "
-                "(ROADMAP.md, Queue 1 item 13)"
-            )
+            from ivf_tpu_torch.parallel.mesh import mesh_device, node_rows
+
+            node_rows(mesh, batch_size)  # raises where the node's ranks do not divide the batch
+            if device is not None and torch.device(device).type != mesh.device_type:
+                raise ValueError(f"device {device!r} is not the mesh's ({mesh.device_type})")
+            device = mesh_device(mesh)
         self.use_native = use_native
         self.dataset = dataset
         self.batch_size = batch_size
@@ -278,6 +289,10 @@ class ClipLoader:
         for b in range(skip, nb):
             sl = idx[b * self.batch_size : (b + 1) * self.batch_size]
             if len(sl):
+                if self.mesh is not None:
+                    from ivf_tpu_torch.parallel.mesh import node_rows
+
+                    sl = sl[node_rows(self.mesh, len(sl))]
                 yield sl
 
     def _assemble(self, pool: ThreadPoolExecutor, indices) -> Tuple:

@@ -16,6 +16,14 @@ draws its masks from the generator the train step hands it
 (``set_dropout_generator``). Each conv casts its input to the weight's
 dtype (``ivf_tpu/ops/conv.py:53``). The JAX package's ``fuse_3x3`` is not
 ported yet (ROADMAP.md).
+
+Under a data mesh the train step hands every BatchNorm the data axis's
+process group (``set_batch_stats_group``): the batch statistics are then
+the global batch's, as a JAX mesh takes them, and every ``Dropout`` the
+rank's place in the global batch, so it draws the global batch's mask and
+keeps its rows. ``parallel/mesh.py::tensor_parallel`` gives a ``Unit3D``
+its slice of the output channels and the model axis's group
+(``tp_group``): the unit gathers its output along the channels.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import math
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -31,6 +40,7 @@ from ivf_tpu_torch.ops.conv import conv3d_same, conv3d_stem_s2d, max_pool3d_same
 from ivf_tpu_torch.ops.kernels.fused_branch3 import fused_pool_conv, fused_pool_conv_tblock
 from ivf_tpu_torch.ops.kernels.maxpool3d import maxpool3d_s1
 from ivf_tpu_torch.ops.kernels.pointwise_conv import pointwise_conv
+from ivf_tpu_torch.parallel.collectives import all_gather_along, all_reduce_sum
 
 
 def variance_scaling_(w: torch.Tensor, scale: float, generator: torch.Generator) -> None:
@@ -63,7 +73,17 @@ class TorchBatchNorm(nn.Module):
     training-mode call adds one to (the statistics' update does not read
     it, the momentum being fixed), so reference ``.pth.tar`` files load
     with ``strict=True`` and exported ones carry it. A state dict without
-    it loads with 0, as torch's BatchNorm loads one of its old layout."""
+    it loads with 0, as torch's BatchNorm loads one of its old layout.
+
+    With ``stats_group`` set (``set_batch_stats_group``; every rank of the
+    group holds as many rows) the training statistics are the group's
+    global batch's: the mean is the sum of the ranks' means over the
+    group's size, and the biased variance likewise from the centred
+    squares, the same two passes over the global batch; the running
+    variance takes the global count's unbiased factor. The ranks' means
+    summed (rather than their sums over the global count) keep the bits
+    of the local statistics on a group of one rank. torch's
+    ``nn.SyncBatchNorm`` runs on CUDA only and has its own numerics."""
 
     def __init__(self, channels: int, eps: float = 1e-3, momentum: float = 0.01):
         super().__init__()
@@ -74,6 +94,7 @@ class TorchBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+        self.stats_group = None
         self.eval()
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
@@ -102,11 +123,20 @@ class TorchBatchNorm(nn.Module):
         else:
             dims = tuple(range(x.dim() - 1))
             xf = x.float()
-            mean_f = xf.mean(dims)
-            centered = xf - mean_f
-            mean = mean_f.to(x.dtype)
-            var = (centered * centered).mean(dims).to(x.dtype)
             n = x.numel() // x.shape[-1]
+            group = self.stats_group
+            if group is None:
+                mean_f = xf.mean(dims)
+                centered = xf - mean_f
+                var_f = (centered * centered).mean(dims)
+            else:
+                ranks = dist.get_world_size(group)
+                mean_f = all_reduce_sum(xf.mean(dims), group) / ranks
+                centered = xf - mean_f
+                var_f = all_reduce_sum((centered * centered).mean(dims), group) / ranks
+                n *= ranks
+            mean = mean_f.to(x.dtype)
+            var = var_f.to(x.dtype)
             with torch.no_grad():
                 m, rm, rv = self.momentum, self.running_mean, self.running_var
                 unbiased = var * (n / max(n - 1, 1))
@@ -124,12 +154,16 @@ class Dropout(nn.Module):
     come from ``generator`` (on the input's device), which the train step
     sets from the run's seed and step (``train/state.py::step_generator``),
     so a resumed run draws the masks of an uninterrupted one. Training with
-    no generator set raises."""
+    no generator set raises. With ``rows = (index, count)`` the input is
+    block ``index`` of ``count`` equal row blocks of a global batch: the
+    mask is drawn for the global batch and the block's rows kept, so the
+    ranks of a data mesh draw the values of one process."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.rows: Optional[Tuple[int, int]] = None
         self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -140,16 +174,31 @@ class Dropout(nn.Module):
         if self.generator is None:
             raise RuntimeError("Dropout in training mode needs a generator (set_dropout_generator)")
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        index, count = self.rows or (0, 1)
+        b = x.shape[0]
+        u = torch.rand((count * b, *x.shape[1:]), generator=self.generator, device=x.device)
+        mask = u[index * b : (index + 1) * b] < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+def set_dropout_generator(
+    model: nn.Module, generator: Optional[torch.Generator], rows: Optional[Tuple[int, int]] = None
+) -> None:
     """Hand ``generator`` to every ``Dropout`` of ``model``: they draw from
-    it in forward order."""
+    it in forward order; ``rows`` is the input's (block, blocks) of the
+    global batch (``Dropout``), None for the whole batch."""
     for mod in model.modules():
         if isinstance(mod, Dropout):
             mod.generator = generator
+            mod.rows = rows
+
+
+def set_batch_stats_group(model: nn.Module, group) -> None:
+    """Hand the process group of the data axis to every ``TorchBatchNorm``
+    of ``model`` (None: the local batch's statistics)."""
+    for mod in model.modules():
+        if isinstance(mod, TorchBatchNorm):
+            mod.stats_group = group
 
 
 class Conv3dParams(nn.Module):
@@ -173,7 +222,9 @@ class Unit3D(nn.Module):
     (``ivf_tpu/models/layers.py:116-133``). With ``s2d`` a 7x7x7 stride-2
     conv on even T, H, W runs as ``conv3d_stem_s2d``, the reference's guard
     (``ivf_tpu/models/layers.py:135-143``); any other shape takes
-    ``conv3d_same``.
+    ``conv3d_same``. With ``tp_group`` set (``parallel/mesh.py::
+    tensor_parallel``) the unit holds a slice of the output channels and
+    gathers its output along them.
     """
 
     def __init__(
@@ -198,7 +249,13 @@ class Unit3D(nn.Module):
         self.s2d = s2d
         self.conv3d = Conv3dParams(in_channels, out_channels, kernel_shape, use_bias)
         self.bn = TorchBatchNorm(out_channels) if use_batch_norm else None
+        self.tp_group = None
         self.eval()
+
+    def gather(self, y: torch.Tensor) -> torch.Tensor:
+        """``y`` (this unit's channels) with every rank's channels of the
+        model axis, the identity without one."""
+        return y if self.tp_group is None else all_gather_along(y, -1, self.tp_group)
 
     @property
     def folding(self) -> bool:
@@ -238,7 +295,7 @@ class Unit3D(nn.Module):
             x = self.bn(x)
         if self.activation is not None and not relu_fused:
             x = self.activation(x)
-        return x
+        return self.gather(x)
 
 
 class InceptionModule(nn.Module):
@@ -259,7 +316,9 @@ class InceptionModule(nn.Module):
     float32, rounding once (the Pallas kernels' bf16 path).
     ``pool_impl`` is the unfused branch-3 pool's (``max_pool3d_same``):
     ``pallas_pool`` and ``fuse_pool_conv`` override it, as in JAX
-    (``ivf_tpu/models/layers.py:272-278``).
+    (``ivf_tpu/models/layers.py:272-278``). Under tensor parallelism the
+    trio concatenates the three units' slices, and each part is gathered
+    after the split.
     """
 
     def __init__(
@@ -307,7 +366,8 @@ class InceptionModule(nn.Module):
                 )
             else:
                 y = F.relu(conv3d_same(x, kcat, (1, 1, 1), bcat))
-            b0, b1, b2 = torch.split(y, [oc[0], oc[1], oc[3]], dim=-1)
+            parts = torch.split(y, [k.shape[0] for k, _ in parts], dim=-1)
+            b0, b1, b2 = (m.gather(p) for m, p in zip(heads, parts))
         else:
             b0, b1, b2 = (m(x) for m in heads)
         b1 = self.b1b(b1)
@@ -316,7 +376,7 @@ class InceptionModule(nn.Module):
             fused = fused_pool_conv_tblock if self.fuse_pool_conv == "tblock" else fused_pool_conv
             w3, c3 = self.b3b.folded()
             cin = x.shape[-1]
-            b3 = fused(x.contiguous(), w3.reshape(oc[5], cin).t().contiguous(), c3, True)
+            b3 = self.b3b.gather(fused(x.contiguous(), w3.reshape(w3.shape[0], cin).t().contiguous(), c3, True))
         else:
             if self.pallas_pool:
                 b3 = maxpool3d_s1(x.contiguous())

@@ -26,6 +26,17 @@
     all-bfloat16 gate block, as the JAX package's does; the bf16 eval step
     casts them too. The search keeps float32 clips and a float32 state.
 
+Under a data mesh (``mesh``, ``parallel/mesh.py``) each rank runs the
+step on its rows of the global batch: BatchNorm takes the global batch's
+statistics (``set_batch_stats_group``), dropout draws the global batch's
+mask and keeps the rank's rows, the loss is the local rows' mean, and the
+gradients are summed over the batch axes in one all-reduce and divided by
+their ranks: the rows are equal per rank, so that is the gradient of the
+global mean. The loss and top-k metrics are the group's means, and
+``evaluate`` gathers the logits and labels, so every rank holds every
+prediction (``ivf_tpu/train/loop.py:227-237``). On one rank the step has
+the bits of the step without a mesh.
+
 Metric reads are deferred: ``train_epoch`` keeps each step's device
 scalars and reads them in bulk every 64 steps, at print points and at the
 epoch's end, so the host does not wait on every step.
@@ -39,8 +50,10 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ivf_tpu_torch.models.layers import set_dropout_generator
+from ivf_tpu_torch.models.layers import set_batch_stats_group, set_dropout_generator
+from ivf_tpu_torch.parallel.collectives import all_gather_along
 from ivf_tpu_torch.precision import inference_model, reference_numerics_fn
 from ivf_tpu_torch.train.metrics import AverageMeter, topk_accuracy
 from ivf_tpu_torch.train.optim import get_learning_rate, set_learning_rate
@@ -73,17 +86,42 @@ def _device_inputs(model, clips: torch.Tensor, labels: torch.Tensor, dtype=torch
     return clips, labels
 
 
-def make_train_step(loss_type: str = "cross_entropy", kernel_l2: float = 0.0, compute_dtype: str = "float32"):
+def _data_axis(mesh):
+    """(process group, rank's place, places) of the mesh's batch axes;
+    (None, 0, 1) without a mesh."""
+    if mesh is None:
+        return None, 0, 1
+    from ivf_tpu_torch.parallel.mesh import batch_group, batch_position
+
+    return (batch_group(mesh), *batch_position(mesh))
+
+
+def _group_mean(values, group, ranks: int) -> list:
+    """The group's mean of each device scalar, in one all-reduce."""
+    if group is None:
+        return list(values)
+    flat = torch.stack([v.float() for v in values])
+    dist.all_reduce(flat, group=group)
+    return list((flat / ranks).unbind())
+
+
+def make_train_step(
+    loss_type: str = "cross_entropy", kernel_l2: float = 0.0, compute_dtype: str = "float32", mesh=None
+):
     """``train_step(state, clips, labels) -> (state, metrics)``: one
     optimizer step in place on ``state`` (the module in training mode),
-    with the device scalars ``loss``, ``top1`` and ``top5``."""
+    with the device scalars ``loss``, ``top1`` and ``top5``. Under
+    ``mesh`` the clips are the rank's rows and the metrics the global
+    batch's."""
     bf16 = compute_dtype == "bfloat16"
+    group, place, places = _data_axis(mesh)
 
     @reference_numerics_fn
     def train_step(state: TrainState, clips: torch.Tensor, labels: torch.Tensor):
         model = state.model.train()
         clips, labels = _device_inputs(model, clips, labels, torch.bfloat16 if bf16 else torch.float32)
-        set_dropout_generator(model, step_generator(state.seed, state.step, clips.device))
+        set_dropout_generator(model, step_generator(state.seed, state.step, clips.device), (place, places))
+        set_batch_stats_group(model, group)
         params = state.params()
         try:
             if bf16:
@@ -93,27 +131,37 @@ def make_train_step(loss_type: str = "cross_entropy", kernel_l2: float = 0.0, co
                 logits = model(clips)
         finally:
             set_dropout_generator(model, None)
+            set_batch_stats_group(model, None)
         loss = _compute_loss(logits.float(), labels, loss_type)
         if kernel_l2:
             loss = loss + _kernel_l2_penalty(params, kernel_l2)
         grads = torch.autograd.grad(loss, list(params.values()))
+        if group is not None:
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=group)
+            flat /= places
+            grads = [part.view_as(g) for part, g in zip(flat.split([g.numel() for g in grads]), grads)]
         state.apply_gradients(dict(zip(params, grads)))
         with torch.no_grad():
             top1, top5 = topk_accuracy(logits.detach(), labels, (1, 5))
-        return state, {"loss": loss.detach(), "top1": top1, "top5": top5}
+            loss, top1, top5 = _group_mean((loss.detach(), top1, top5), group, places)
+        return state, {"loss": loss, "top1": top1, "top5": top5}
 
     return train_step
 
 
-def make_eval_step(loss_type: str = "cross_entropy", compute_dtype: str = "float32"):
+def make_eval_step(loss_type: str = "cross_entropy", compute_dtype: str = "float32", mesh=None):
     """``eval_step(state, clips, labels) -> metrics`` in eval mode (BN on
     its running statistics, folded): ``loss``, ``top1``, ``top5`` and the
     float32 ``logits``. In bfloat16 the model runs as ``find_masks`` runs
     it (``precision.inference_model``): a bfloat16 copy of the float32
     master, made once per state step, so an evaluation between two train
     steps casts once; the clips are cast to bfloat16 as the train step
-    casts them (``ivf_tpu/train/loop.py:148-151``)."""
+    casts them (``ivf_tpu/train/loop.py:148-151``). Under ``mesh`` the
+    metrics are the global batch's and ``logits`` and ``labels`` are
+    gathered over the batch axes."""
     bf16 = compute_dtype == "bfloat16"
+    group, _, places = _data_axis(mesh)
     copy_of = {}
 
     def bf16_copy(state: TrainState) -> torch.nn.Module:
@@ -131,7 +179,11 @@ def make_eval_step(loss_type: str = "cross_entropy", compute_dtype: str = "float
         logits = model(clips).float()
         loss = _compute_loss(logits, labels, loss_type)
         top1, top5 = topk_accuracy(logits, labels, (1, 5))
-        return {"loss": loss, "top1": top1, "top5": top5, "logits": logits}
+        if group is None:
+            return {"loss": loss, "top1": top1, "top5": top5, "logits": logits}
+        loss, top1, top5 = _group_mean((loss, top1, top5), group, places)
+        return {"loss": loss, "top1": top1, "top5": top5, "logits": all_gather_along(logits, 0, group),
+                "labels": all_gather_along(labels, 0, group)}
 
     return eval_step
 
@@ -206,7 +258,8 @@ def evaluate(
 ):
     """Validation pass; with ``collect_predictions`` also ``y_true``,
     ``y_hat`` and the top-``top_k`` matrix ``y_hat_top5`` (numpy), as
-    ``inference_kth.py:154-178`` collects them."""
+    ``inference_kth.py:154-178`` collects them: the global batch's where
+    the eval step gathers them (a mesh)."""
     meters = {k: AverageMeter() for k in ("loss", "top1", "top5")}
     y_true, y_hat, y_hat_top5 = [], [], []
     for i, batch in enumerate(loader):
@@ -219,6 +272,7 @@ def evaluate(
             meters[k].update(float(metrics[k]), n)
         if collect_predictions:
             logits = metrics["logits"].cpu().numpy()
+            labels = metrics.get("labels", labels)
             y_true.append(np.asarray(labels.cpu() if torch.is_tensor(labels) else labels))
             y_hat.append(logits.argmax(-1))
             y_hat_top5.append(np.argsort(-logits, axis=-1)[:, :top_k])
@@ -248,6 +302,7 @@ def fit(
     checkpoint_every_steps: int = 0,
     start_batch_offset: int = 0,
     compute_dtype: str = "float32",
+    mesh=None,
 ) -> Tuple[TrainState, list]:
     """The epoch loop of ``ivf_tpu/train/loop.py::fit``: train, validate,
     step the scheduler (val loss, or val top-1 / 100 for a scheduler that
@@ -258,9 +313,11 @@ def fit(
     mid-epoch; a resumed epoch starts at ``start_batch_offset`` (the
     loader's ``set_epoch`` skips by index: the order is a function of
     (seed, epoch)), and its metrics cover the remainder only. The dropout
-    draws come from the state's seed (the JAX package's ``rng``)."""
-    train_step = make_train_step(loss_type, kernel_l2=kernel_l2, compute_dtype=compute_dtype)
-    eval_step = make_eval_step(loss_type, compute_dtype=compute_dtype)
+    draws come from the state's seed (the JAX package's ``rng``). Under
+    ``mesh`` the loaders yield the rank's rows (``ClipLoader(mesh=...)``)
+    and both steps run over the mesh's batch axes."""
+    train_step = make_train_step(loss_type, kernel_l2=kernel_l2, compute_dtype=compute_dtype, mesh=mesh)
+    eval_step = make_eval_step(loss_type, compute_dtype=compute_dtype, mesh=mesh)
     try:
         return _fit_epochs(
             state, train_loader_fn, val_loader_fn, num_epochs, train_step, eval_step, scheduler,

@@ -22,6 +22,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from PIL import Image
 
 from ivf_tpu import cli as jcli
@@ -250,19 +251,33 @@ def test_make_and_inspect_records_match_the_jax_package(tmp_path, tree, jax_reco
 
 
 @pytest.mark.parametrize(
-    "argv,item",
+    "argv,error,match",
     [
-        (["infer", "-dp", "2"], "item 13"),
-        (["find-masks", "--multihost"], "item 13"),
-        (["train", "--profile", "trace"], "item 14"),
+        (["infer", "-dp", "2"], RuntimeError, "process group"),
+        (["find-masks", "--multihost", "-dp", "2"], ValueError, "2-rank mesh in a world of 1"),
+        (["train", "--profile", "trace"], NotImplementedError, "item 14"),
     ],
     ids=["data-parallel", "multihost", "profile"],
 )
-def test_unported_commands_and_flags_raise(argv, item):
-    """What the port lacks raises ``NotImplementedError`` naming its
-    ROADMAP item, before any work."""
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(argv + ["--device", "cpu"])
+def test_unported_commands_and_flags_raise(argv, error, match, monkeypatch, tmp_path):
+    """What the port lacks (``--profile``) raises ``NotImplementedError``
+    naming its ROADMAP item, before any work. ``-dp 2`` with no process
+    group raises; ``--multihost`` joins the JAX package's coordinator (here
+    a world of one gloo rank over a ``file://`` store), and ``-dp 2`` that
+    is not the world's size raises."""
+    for name in ("MASTER_ADDR", "MASTER_PORT", "JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
+    if "--multihost" in argv:
+        monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", f"file://{tmp_path / 'rendezvous'}")
+        monkeypatch.setenv("JAX_NUM_PROCESSES", "1")
+        monkeypatch.setenv("JAX_PROCESS_ID", "0")
+    try:
+        with pytest.raises(error, match=match):
+            cli.main(argv + ["--device", "cpu"])
+        assert dist.is_initialized() == ("--multihost" in argv)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_device_defaults_to_cuda_and_detect_anomaly_is_on(tmp_path, tree, monkeypatch):

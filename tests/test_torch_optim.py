@@ -421,9 +421,10 @@ def test_train_driver_runs_resumes_and_writes_its_files(tmp_path):
 
 def test_entry_points_raise_on_what_is_not_ported(monkeypatch, tmp_path):
     """No card and no device: ``train``, ``init_eval_state`` and ``infer``
-    raise rather than run on the CPU. ``mesh`` and a JAX orbax checkpoint
-    directory as ``pretrained_model_path`` (its ``checkpoint`` a directory)
-    raise ``NotImplementedError`` naming their Queue 1 item."""
+    raise rather than run on the CPU. A ``mesh`` with no process group
+    raises (``tests/test_torch_parallel.py`` runs the meshes); a JAX orbax
+    checkpoint directory as ``pretrained_model_path`` (its ``checkpoint`` a
+    directory) raises ``NotImplementedError`` naming its Queue 1 item."""
     cfg = _tiny_cfg(tmp_path)
     data = SyntheticClips(4, t=T, hw=HW, num_classes=3)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -431,9 +432,9 @@ def test_entry_points_raise_on_what_is_not_ported(monkeypatch, tmp_path):
                  lambda: tapi.init_eval_state(cfg), lambda: tapi.infer(cfg, dataset=data)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(RuntimeError, match="process group"):
         tapi.train(cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(RuntimeError, match="process group"):
         tapi.infer(cfg, mesh=object(), device="cpu")
     (tmp_path / "orbax" / "checkpoint").mkdir(parents=True)
     cfg.model.pretrained_model_path = str(tmp_path / "orbax")
