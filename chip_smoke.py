@@ -5593,6 +5593,426 @@ def phase_parallel(failures) -> dict:
     return dp
 
 
+# the interpret_extras phase: the I3D options guided_relu, remat and
+# fuse_3x3, find_mask and `cli --profile`, i3d_smth at full width
+GUIDED_ROUTES = {  # route -> (I3D flags, dtype)
+    "f32_plain": ({}, torch.float32),
+    "f32_kernels": (dict(use_pallas=True, pallas_pool=True), torch.float32),
+    "bf16_default": (dict(pool_impl="argmax"), torch.bfloat16),
+}
+# launches of one guided saliency (a forward and its input gradient):
+# every pointwise conv apart under the guided ReLU (Conv3d_2b_1x1, four
+# units in each of the nine blocks, the logits), forward and dx
+GUIDED_LAUNCHES = {"f32_kernels": {"pointwise_conv": 76, "maxpool3d_s1_fwd": 9, "maxpool3d_s1_bwd": 9},
+                   "bf16_default": {"argmax_pool_fwd": 9, "argmax_pool_bwd": 9}, "f32_plain": {}}
+# guided against unguided forward (class probabilities): float32 at the
+# JAX test's rtol (tests/test_aux.py), bf16 at one bf16 rounding
+GUIDED_FWD_RTOL, GUIDED_FWD_REASON = 1e-4, (
+    "the guided model runs the trio as three convs where the unguided one runs one: float32 sums in "
+    "another order (rtol 1e-4, the JAX test's); in bf16 an activation may round to the neighbouring "
+    "value, held at BF16_ROUTES_TOL on the probabilities")
+# the kernel route against the same route with its wrappers patched to
+# their plain versions on the card: relative L2 of the saliency
+GUIDED_PLAIN_TOL, GUIDED_PLAIN_REASON = 1e-3, (
+    "the pool pair gives the plain bits; the f32 GEMM sums in another order than cuBLAS (1e-5 of "
+    "the largest output a call, kernel_check), 38 GEMMs deep each way, and the guided gate (x > 0 "
+    "and g > 0) passes that on")
+# the kernel route against the plain route: other tie rules (the pool
+# kernel credits every tied maximum, and ReLU zeros are plateaus), so the
+# maps differ in scale; held by the forward and the maps' directions
+GUIDED_ROUTE_TOL, GUIDED_ROUTE_REASON = 0.5, (
+    "relative L2 of the unit-normalized maps (sqrt(2 - 2 cos)); the every-tie rule scales the map "
+    "(30-39x at 8x32x32 on the CPU) but keeps its direction: 0.14-0.18 there")
+REMAT_CLIPS, REMAT_STEPS = 128, 5  # the bf16 default-route search with remat and without
+FUSE3_F32_TOL, FUSE3_REASON = {"scores": 1e-5, "masks": 1e-3}, (
+    "the block-diagonal conv adds exact zeros, only cuDNN's summation order changes (rtol 1e-4 at "
+    "8x32x32 on the CPU, tests/test_torch_model_options.py); Adam's step is scale-free, so a "
+    "near-zero mask-gradient component may move by a rounding")
+# bf16, fused against off: cuDNN's bf16 3x3x3 conv sums the fused input
+# channels in another order, so an output may round to the neighbouring
+# bf16 value, and the later blocks carry that on. On an H100 at 700 W at
+# 128 clips (the same bits in two runs) fusing all blocks moves the scores
+# by 0.0059 (3 ulps of 2**-9), and so does fusing Mixed_3c, 4c or 4d alone
+# (the other blocks alone: 0); the masks by 0.0078 (True) and 0.0047
+# ('auto'). Wrong fusions (FUSE3_CONTROLS) read 0.0117-0.051 there. So the
+# scores are held at 4 ulps (2**-7), between the two, and the masks at
+# about twice their reading (BF16_TOL_REASON)
+FUSE3_BF16_TOL, FUSE3_BF16_REASON = {"scores": 2.0**-7, "masks": 0.016}, (
+    "bf16 fused against off: cuDNN sums the fused input channels in another order, so an output "
+    "may round to the neighbouring bf16 value and later blocks carry it; one such rounding moves the "
+    "scores by 0.0059 on an H100 (one block fused alone does it), wrong fusions 0.0117-0.051: scores "
+    "at 2**-7 between the two, which every wrong fusion of FUSE3_CONTROLS must exceed; masks at about "
+    "twice their reading (0.0078)")
+FIND_MASK_TOL, FIND_MASK_REASON = {"scores": 1e-4, "masks": 1e-3}, (
+    "cuDNN picks other algorithms at batch 1 than at 4, so float32 sums run in another order; the "
+    "masks as FUSE3_REASON")
+PROFILE_CLIPS, PROFILE_STEPS = 2, 5
+EXTRAS_DEVICE = "cuda"  # where the phase runs: the card
+
+
+@contextmanager
+def _f32_kernels_plain():
+    """The float32 pointwise GEMM's and pool pair's plain versions in place
+    of their CUDA wrappers, on CUDA tensors: the f32 kernel route with
+    nothing else changed."""
+    from unittest import mock
+
+    from ivf_tpu_torch.ops.kernels import maxpool3d as pool
+    from ivf_tpu_torch.ops.kernels import pointwise_conv as pw
+
+    with mock.patch.object(pw, "pointwise_conv_cuda", pw._gemm_plain), \
+            mock.patch.object(pool, "maxpool3d_s1_fwd_cuda", lambda x, tile=None: pool.maxpool3d_s1_fwd_plain(x)), \
+            mock.patch.object(pool, "maxpool3d_s1_bwd_cuda",
+                              lambda x, y, g, tile=None: pool.maxpool3d_s1_bwd_plain(x, y, g)):
+        yield
+
+
+def _extras_i3d(weights: dict, dtype=torch.float32, softmax: bool = True, **flags):
+    from ivf_tpu_torch.models import I3D
+
+    model = I3D(num_classes=CLASSES, softmax=softmax, **flags)
+    model.load_state_dict(weights)
+    return model.to(EXTRAS_DEVICE, dtype).eval().requires_grad_(False)
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _launched(counters, fn):
+    """``fn()`` with every launch counter set to 0 just before it, read
+    just after: (its result, the nonzero counts)."""
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items() if c.launches}
+
+
+def _extras_guided(counters, weights, clip, require, card) -> dict:
+    from ivf_tpu_torch.interpret import guided_backprop_i3d
+
+    target, rows, maps = 7, {}, {}
+    for route, (flags, dtype) in GUIDED_ROUTES.items():
+        guided = _extras_i3d(weights, dtype, softmax=False, guided_relu=True, **flags)
+        sal, launched = _launched(counters, lambda: guided_backprop_i3d(guided, clip, target))
+        with torch.no_grad():
+            x = clip[None].to(dtype)
+            fwd_g = torch.softmax(guided(x).float(), -1)
+            fwd_u = torch.softmax(_extras_i3d(weights, dtype, softmax=False, **flags)(x).float(), -1)
+        gap = float((fwd_g - fwd_u).abs().max())
+        ok_fwd = gap <= (GUIDED_FWD_RTOL * float(fwd_u.abs().max()) if dtype == torch.float32 else BF16_ROUTES_TOL)
+        require(f"guided_{route}_forward", ok_fwd, gap)
+        require(f"guided_{route}_finite_nonzero", bool(torch.isfinite(sal).all()) and float(sal.abs().max()) > 0,
+                float(sal.abs().max()))
+        require(f"guided_{route}_launches", launched == GUIDED_LAUNCHES[route], launched)
+        maps[route] = sal.float()
+        rows[route] = {"forward_max_abs_gap": gap, "launches": launched, "saliency_norm": float(sal.float().norm())}
+        if route == "f32_kernels":
+            with _f32_kernels_plain():
+                plain_sal, plain_launched = _launched(counters, lambda: guided_backprop_i3d(guided, clip, target))
+            rel = _rel_l2(sal, plain_sal)
+            require("guided_kernels_vs_plain_versions", rel <= GUIDED_PLAIN_TOL and not plain_launched, rel)
+            rows[route]["vs_plain_versions_rel_l2"] = rel
+            for variant in (True, "tblock"):
+                fused = _extras_i3d(weights, dtype, softmax=False, guided_relu=True, use_pallas=True,
+                                    fuse_pool_conv=variant)
+                _, fl = _launched(counters, lambda: guided_backprop_i3d(fused, clip, target))
+                require(f"guided_fuse_pool_conv_{variant}_no_fused_kernel",
+                        not any(k.startswith("fused_pool_conv") for k in fl) and fl.get("pointwise_conv") == 76, fl)
+                rows[route][f"fuse_pool_conv_{variant}_launches"] = fl
+    unit = {r: m / m.norm() for r, m in maps.items()}
+    route_gap = _rel_l2(unit["f32_kernels"], unit["f32_plain"])
+    require("guided_kernels_vs_plain_route", route_gap <= GUIDED_ROUTE_TOL, route_gap)
+    emit({"phase": "interpret_extras_guided", "card": card, "clip": list(clip.shape), "target": target,
+          "routes": rows, "kernels_vs_plain_route_unit_rel_l2": route_gap,
+          "kernels_vs_plain_route_norm_ratio": float(maps["f32_kernels"].norm() / maps["f32_plain"].norm()),
+          "limits": {"forward_f32_rtol": GUIDED_FWD_RTOL, "forward_bf16_atol": BF16_ROUTES_TOL,
+                     "vs_plain_versions_rel_l2": GUIDED_PLAIN_TOL, "vs_plain_route_unit_rel_l2": GUIDED_ROUTE_TOL},
+          "reasons": [GUIDED_FWD_REASON, GUIDED_PLAIN_REASON, GUIDED_ROUTE_REASON]})
+    return rows
+
+
+def _search_from_carry(counters, model, clips, targets, steps: int):
+    """``steps`` search steps from one central-shaped carry: the masks and
+    the launches, the peak memory of the run."""
+    from ivf_tpu_torch.interpret import mask_opt
+
+    score = lambda x: model(x).float()  # noqa: E731
+
+    def run():
+        carry = _central_carry(clips.shape[0], clips.shape[1])
+        for _ in range(steps):
+            carry = mask_opt.search_step(score, clips, targets, carry)
+        return torch.sigmoid(carry.logits)
+
+    torch.cuda.reset_peak_memory_stats()
+    masks, launched = _launched(counters, run)
+    return masks, launched, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _extras_remat(api, counters, weights, require, card) -> dict:
+    from ivf_tpu_torch.train import make_train_step
+
+    gen = torch.Generator(device=EXTRAS_DEVICE).manual_seed(24)
+    big = torch.randint(0, 256, (REMAT_CLIPS, CLIP_T, CLIP_HW, CLIP_HW, 3), generator=gen,
+                        device=EXTRAS_DEVICE, dtype=torch.uint8).float()
+    targets = torch.arange(REMAT_CLIPS, device=EXTRAS_DEVICE) % CLASSES
+    models = {name: _extras_i3d(weights, torch.bfloat16, pool_impl="argmax", remat=remat)
+              for name, remat in (("off", False), ("on", True))}
+    runs = {name: _search_from_carry(counters, m, big, targets, REMAT_STEPS) for name, m in models.items()}
+    held = {}  # GiB the forward leaves saved for the backward
+    for name, m in models.items():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        x = big.requires_grad_(True)
+        out = m(x)
+        held[name] = (torch.cuda.memory_allocated() - before) / 2**30
+        del out, x
+        big.requires_grad_(False)
+    require("remat_search_equal_masks", torch.equal(runs["on"][0], runs["off"][0]),
+            float((runs["on"][0] - runs["off"][0]).abs().max()))
+    fwd = {name: r[1].get("argmax_pool_fwd", 0) for name, r in runs.items()}
+    require("remat_search_block_forwards_twice", fwd["on"] == 2 * fwd["off"] == 2 * 9 * REMAT_STEPS, fwd)
+    _step_timing("interpret_extras_remat_timing", models, big, card, turns=("off", "on", "on", "off"), steps=3)
+    del big
+    torch.cuda.empty_cache()
+    # one train step of the preset at batch 16, f32 kernel route
+    import numpy as np
+
+    rng = np.random.RandomState(24)
+    clips = torch.from_numpy(rng.randint(0, 256, (TRAIN_BATCH, CLIP_T, CLIP_HW, CLIP_HW, 3)).astype(np.uint8))
+    labels = torch.from_numpy((np.arange(TRAIN_BATCH) * 11 % CLASSES).astype(np.int32)).to(EXTRAS_DEVICE)
+    train = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = _train_preset(api, "config_i3d_smth.py", tmp, "remat", **TRAIN_I3D_ROUTES["f32_kernels"])
+        for name, remat in (("off", False), ("on", True)):
+            state = _train_state(api, cfg)
+            state.model.remat = remat
+            step = make_train_step(kernel_l2=cfg.model.kernel_l2, compute_dtype=cfg.model.compute_dtype)
+            torch.cuda.reset_peak_memory_stats()
+            (state, metrics), launched = _launched(counters, lambda: step(state, clips, labels))
+            train[name] = {"loss": float(metrics["loss"]), "bits": _state_bits(state), "launches": launched,
+                           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            del state, step
+            torch.cuda.empty_cache()
+    on, off = train["on"], train["off"]
+    stats = [n for n, t in off["bits"].items() if "running" in n or "num_batches" in n]
+    require("remat_train_equal_statistics", all(torch.equal(on["bits"][n], off["bits"][n]) for n in stats),
+            [n for n in stats if not torch.equal(on["bits"][n], off["bits"][n])][:5])
+    require("remat_train_batches_tracked_once",
+            {int(t) for n, t in on["bits"].items() if n.endswith("num_batches_tracked")} == {1}, "")
+    params_equal = _same_state(on["bits"], off["bits"]) and on["loss"] == off["loss"]
+    require("remat_train_equal_loss_and_parameters", params_equal, (on["loss"], off["loss"]))
+    require("remat_train_block_forwards_twice",
+            on["launches"].get("pointwise_conv") == off["launches"].get("pointwise_conv", 0) + 36 == 112
+            and on["launches"].get("maxpool3d_s1_fwd") == 2 * off["launches"].get("maxpool3d_s1_fwd", 0) == 18,
+            (on["launches"], off["launches"]))
+    row = {"search": {name: {"launches": r[1], "peak_gib": r[2], "held_after_forward_gib": held[name]}
+                      for name, r in runs.items()},
+           "train": {name: {k: v for k, v in r.items() if k != "bits"} for name, r in train.items()}}
+    emit({"phase": "interpret_extras_remat", "card": card, "search_clips": REMAT_CLIPS,
+          "search_steps": REMAT_STEPS, "train_batch": TRAIN_BATCH, **row})
+    return row
+
+
+def _extras_fuse_3x3(counters, weights, require, card) -> dict:
+    from ivf_tpu_torch.data.synthetic import SyntheticClips
+
+    ds = SyntheticClips(BATCH, CLIP_T, CLIP_HW, CLASSES, seed=1, lazy=False)
+    small = torch.stack([torch.from_numpy(ds[i][0]) for i in range(BATCH)]).to(EXTRAS_DEVICE).float()
+    gen = torch.Generator(device=EXTRAS_DEVICE).manual_seed(33)
+    big = torch.randint(0, 256, (REMAT_CLIPS, CLIP_T, CLIP_HW, CLIP_HW, 3), generator=gen,
+                        device=EXTRAS_DEVICE, dtype=torch.uint8).float()
+    out = {}
+    for label, clips, dtype, flags in (("f32_kernels_b4", small, torch.float32, GUIDED_ROUTES["f32_kernels"][0]),
+                                       ("bf16_default_b128", big, torch.bfloat16, dict(pool_impl="argmax"))):
+        targets = torch.arange(clips.shape[0], device=EXTRAS_DEVICE) % CLASSES
+        models = {name: _extras_i3d(weights, dtype, fuse_3x3=fuse, **flags)
+                  for name, fuse in (("off", False), ("true", True), ("auto", "auto"))}
+        with torch.no_grad():
+            scores = {name: m(clips).float() for name, m in models.items()}
+            if dtype == torch.bfloat16:
+                f32 = _extras_i3d(weights)(clips)
+        masks = {name: _search_from_carry(counters, m, clips, targets, REMAT_STEPS)[0]
+                 for name, m in models.items()}
+        tol = FUSE3_BF16_TOL if dtype == torch.bfloat16 else {
+            "scores": FUSE3_F32_TOL["scores"] * float(scores["off"].abs().max()), "masks": FUSE3_F32_TOL["masks"]}
+        row = {}
+        for name in ("true", "auto"):
+            s_gap = float((scores[name] - scores["off"]).abs().max())
+            m_gap = float((masks[name] - masks["off"]).abs().max())
+            row[name] = {"scores_max_abs_gap": s_gap, "masks_max_abs_gap": m_gap}
+            if dtype == torch.bfloat16:
+                row[name]["scores_vs_f32"] = float((scores[name] - f32).abs().max())
+            require(f"fuse_3x3_{label}_{name}", s_gap <= tol["scores"] and m_gap <= tol["masks"], row[name])
+        if dtype == torch.bfloat16:
+            row["off_scores_vs_f32"] = float((scores["off"] - f32).abs().max())
+            row.update(_fuse3_bf16_cause(models, clips, scores["off"]))
+            wrong = row["wrong_fusion_scores_gap"]
+            require("fuse_3x3_bf16_controls_caught", min(wrong.values()) > tol["scores"], wrong)
+        out[label] = row
+        emit({"phase": "interpret_extras_fuse_3x3", "card": card, "run": label, "vs_off": row,
+              "limits": {"f32": FUSE3_F32_TOL, "bf16": FUSE3_BF16_TOL}, "reasons": [FUSE3_REASON, FUSE3_BF16_REASON]})
+        _step_timing("interpret_extras_fuse_3x3_timing", models, clips, card,
+                     turns=("off", "true", "auto", "auto", "true", "off"), steps=3)
+        del models, scores, masks
+        torch.cuda.empty_cache()
+    return out
+
+
+# wrong fusions, the bf16 limit's controls: one block's b2b kernel as the
+# block-diagonal conv would take it with a layout slip, its input channels
+# one off or its taps turned 180 degrees in H and W (not at Mixed_5c, where
+# the logits' global mean sums a turned kernel's outputs almost alike)
+FUSE3_CONTROLS = {
+    "Mixed_3b_input_channels_rolled": ("Mixed_3b", lambda k: k.roll(1, 1)),
+    "Mixed_5c_input_channels_rolled": ("Mixed_5c", lambda k: k.roll(1, 1)),
+    "Mixed_3b_turned_hw": ("Mixed_3b", lambda k: k.flip(3, 4)),
+}
+
+
+def _fuse3_bf16_cause(models: dict, clips, off_scores) -> dict:
+    """The bf16 scores' gap to off with ``fuse_3x3`` on one block at a time
+    (in the off model), and with every block fused but one block's b2b
+    kernel slipped as in ``FUSE3_CONTROLS`` (wrong fusions, the limit's
+    controls)."""
+    from unittest import mock
+
+    gap = lambda m: float((m(clips).float() - off_scores).abs().max())  # noqa: E731
+    one, wrong = {}, {}
+    with torch.no_grad():
+        for name, _, _ in FUSED_SITES:
+            block = getattr(models["off"], name)
+            block.fuse_3x3 = True
+            one[name] = gap(models["off"])
+            block.fuse_3x3 = False
+        for bug, (name, slip) in FUSE3_CONTROLS.items():
+            b2b = getattr(models["true"], name).b2b
+            k, c = b2b.folded()
+            with mock.patch.object(b2b, "folded", lambda: (slip(k), c)):
+                wrong[bug] = gap(models["true"])
+    return {"one_block_scores_gap": one, "wrong_fusion_scores_gap": wrong}
+
+
+def _extras_find_mask(weights, require, card) -> dict:
+    from ivf_tpu_torch.data.synthetic import SyntheticClips
+    from ivf_tpu_torch.interpret import find_mask, mask_opt
+
+    ds = SyntheticClips(BATCH, CLIP_T, CLIP_HW, CLASSES, seed=1, lazy=False)
+    clips = torch.stack([torch.from_numpy(ds[i][0]) for i in range(BATCH)]).to(EXTRAS_DEVICE).float()
+    targets = torch.tensor([ds[i][1] for i in range(BATCH)], device=EXTRAS_DEVICE)
+    model = _extras_i3d(weights, torch.float32, **GUIDED_ROUTES["f32_kernels"][0])
+    score = lambda x: model(x).float()  # noqa: E731
+    init = _central_carry(BATCH, CLIP_T).logits
+    batched = mask_opt.find_mask_batched(score, clips, targets, init, n_steps=REMAT_STEPS)
+    one = find_mask(score, clips[0], int(targets[0]), init[0], n_steps=REMAT_STEPS)
+    m_gap = float((one.mask - batched.mask[0]).abs().max())
+    s_gap = max(abs(float(getattr(one, k)) - float(getattr(batched, k)[0])) / max(abs(float(getattr(batched, k)[0])),
+                                                                                 1e-12)
+                for k in ("freeze_score", "reverse_score", "orig_score"))
+    require("find_mask_vs_batched_row0", m_gap <= FIND_MASK_TOL["masks"] and s_gap <= FIND_MASK_TOL["scores"],
+            (m_gap, s_gap))
+    row = {"masks_max_abs_gap": m_gap, "scores_max_rel_gap": s_gap, "n_steps_run": int(one.n_steps_run)}
+    emit({"phase": "interpret_extras_find_mask", "card": card, "clips": BATCH, "steps": REMAT_STEPS, **row,
+          "limits": FIND_MASK_TOL, "reason": FIND_MASK_REASON})
+    return row
+
+
+def _extras_profile(counters, require, card) -> dict:
+    """``cli find-masks --profile DIR`` on the f32 pointwise route: the trace
+    names the hand kernels the run launched."""
+    import numpy as np
+
+    from ivf_tpu_torch import cli
+
+    root = Path(__file__).resolve().parent
+    rng = np.random.RandomState(44)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _write_jpegs({tmp / "smth" / "validation" / str(i * 17 % CLASSES) / f"clip{i}":
+                      rng.randint(0, 256, (CLIP_T, CLIP_HW, CLIP_HW, 3)).astype(np.uint8)
+                      for i in range(PROFILE_CLIPS)})
+        cfg = _preset_module(tmp / "cfg.py", root / "configs" / "config_i3d_smth.py",
+                             output_dir=str(tmp / "out"), data_folder=str(tmp / "smth"))
+        args = ["find-masks", "-c", cfg, "-bs", str(PROFILE_CLIPS), "-opti", str(PROFILE_STEPS),
+                "--use_pallas", "1", "--profile", str(tmp / "trace")]
+        t0 = time.perf_counter()
+        (tm, _), launched = _launched(counters, lambda: cli.main(args))
+        seconds = time.perf_counter() - t0
+        traces = list((tmp / "trace").glob("*.pt.trace.json"))
+        text = traces[0].read_text() if len(traces) == 1 else ""
+        named = {k: k in text for k in ("pw_gemm_f32",)}
+        row = {"records": len(tm), "launches": launched, "trace_files": len(traces), "trace_bytes": len(text),
+               "trace_names": named, "seconds": seconds}
+    require("profile_trace_names_the_kernels",
+            len(traces) == 1 and all(named.values()) and launched.get("pointwise_conv", 0) > 0
+            and len(tm) == PROFILE_CLIPS, row)
+    emit({"phase": "interpret_extras_profile", "card": card, "clips": PROFILE_CLIPS, "steps": PROFILE_STEPS, **row})
+    return row
+
+
+def interpret_extras_child() -> int:
+    """``python3 chip_smoke.py --interpret-extras-child``, the
+    ``interpret_extras`` phase's own process: i3d_smth at full width (174
+    classes, 16x224x224, the main path's seeded weights). Guided backprop
+    on one clip on three routes, the kernel route against its plain
+    versions and the plain route; ``remat`` in the bf16 default-route
+    search at 128 clips and in one f32 kernel-route train step at batch
+    16 (equal bits, statistics moved once, the blocks' forward kernels
+    launched twice); ``fuse_3x3`` True and ``'auto'`` against off at batch
+    4 (f32 kernel route) and 128 (bf16 default route), with device ms in
+    turns; ``find_mask`` against row 0 of ``find_mask_batched``; ``cli
+    find-masks --profile``. One JSON line per part; the failures on stderr
+    and exit code 1."""
+    from ivf_tpu_torch import api
+    from ivf_tpu_torch.config import Config
+    from ivf_tpu_torch.data.synthetic import SyntheticClips
+
+    t_phase = time.perf_counter()
+    card, counters, failures, checks = nvidia_smi(), launch_counters(), [], {}
+
+    def require(label, ok, detail):
+        if not ok:
+            failures.append(f"interpret_extras {label}: {detail}")
+        checks[label] = bool(ok)
+
+    cfg = Config()
+    for name, value in FUSED_ROUTES["kernels"].items():
+        setattr(cfg.model, name, value)
+    weights = _scaled_weights(cfg, api)
+    clip = torch.from_numpy(SyntheticClips(1, CLIP_T, CLIP_HW, CLASSES, seed=1, lazy=False)[0][0]).to(EXTRAS_DEVICE).float()
+    seconds = {}
+    for part, run in (("guided", lambda: _extras_guided(counters, weights, clip, require, card)),
+                      ("remat", lambda: _extras_remat(api, counters, weights, require, card)),
+                      ("fuse_3x3", lambda: _extras_fuse_3x3(counters, weights, require, card)),
+                      ("find_mask", lambda: _extras_find_mask(weights, require, card)),
+                      ("profile", lambda: _extras_profile(counters, require, card))):
+        t0 = time.perf_counter()
+        run()
+        seconds[part] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    emit({"phase": "interpret_extras_compare", "card": card, "checks": checks, "seconds": seconds,
+          "phase_seconds": time.perf_counter() - t_phase, "required": "every check true"})
+    for f in failures:
+        print(f, file=sys.stderr)
+    return 1 if failures else 0
+
+
+def phase_interpret_extras(failures) -> None:
+    """The ``interpret_extras`` phase in a child process
+    (``interpret_extras_child``), after the earlier phases' memory is
+    released. Its JSON lines pass through."""
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--interpret-extras-child"],
+                          capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            emit(json.loads(line))
+    if proc.returncode != 0:
+        failures.append(f"interpret_extras child exited {proc.returncode}: {proc.stderr[-3000:]}")
+
+
 def kernels_line(cases: dict, launches: dict, dp: dict) -> dict:
     """One entry per kernel, timed at its headline main-path shape;
     ``launches`` from the main path that runs it; ``dp_launches`` the
@@ -5753,6 +6173,7 @@ def main() -> int:
     launches.update(phase_checkpoint_cli(api, counters, failures, info["smi"], f32_run["weights"]))
     phase_serve(failures)
     dp = phase_parallel(failures)
+    phase_interpret_extras(failures)
     phase_whole_search(api, counters, failures, info["smi"], f32_run["weights"])
     if failures:
         for f in failures:
@@ -5772,6 +6193,8 @@ if __name__ == "__main__":
         sys.exit(serve_child())
     if sys.argv[1:] == ["--parallel-child"]:
         sys.exit(parallel_child())
+    if sys.argv[1:] == ["--interpret-extras-child"]:
+        sys.exit(interpret_extras_child())
     if sys.argv[1:] == ["--bf16-width-sweep"]:
         sys.exit(bf16_width_sweep())
     if sys.argv[1:] == ["--fused-sweep"]:

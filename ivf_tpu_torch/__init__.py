@@ -15,8 +15,9 @@ names mirror ``ivf_tpu``:
   models/       I3D, the ConvLSTM classifier and ``cnn_3d``, with the
                 kernel routes and training-mode BN and dropout
   train/        optimizers, LR schedules, the train state and loops
-  interpret/    perturbations, the batched mask search, Grad-CAM (I3D and
-                ConvLSTM)
+  interpret/    perturbations, the batched mask search (and its one-clip
+                ``find_mask``), Grad-CAM (I3D and ConvLSTM), 2-D Grad-CAM
+                and guided backprop
   data/         catalogs, samplers, ``.ivfrecords`` / ``.tfrecords``
                 readers, the frame-tree, KTH and record datasets, the
                 prefetching ``ClipLoader``; the synthetic clip dataset and
@@ -28,7 +29,11 @@ names mirror ``ivf_tpu``:
                 the GPipe schedule and tensor parallelism
   utils/        weight conversion from the JAX package's variable tree,
                 checkpoints, result files, TF bundles, the reference
-                TF and torch checkpoint imports and the torch export
+                TF and torch checkpoint imports, the torch export, and
+                profiling (``torch.profiler`` traces, the NaN check, the
+                step timer); the JAX package's ``utils/compile.py`` (XLA's
+                TPU compiler options and its persistent cache) has no
+                analogue: the port runs eagerly, with no XLA to set
   config.py     the config tree, its preset loading (``Config.load``) and
                 the command-line overrides
   api.py        ``build_model`` / ``build_dataset`` / ``build_loader`` /
@@ -37,6 +42,8 @@ names mirror ``ivf_tpu``:
                 / ``init_eval_state`` / ``infer``, loading
                 ``pretrained_model_path``
   cli.py        ``python -m ivf_tpu_torch.cli <command>``
+  quickstart.py ``python -m ivf_tpu_torch.quickstart [out_dir] [--cpu]``:
+                train, infer and the search on a generated dataset
 
 Public tensors keep the JAX layout: clips are ``(B, T, H, W, C)``.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -19,8 +19,10 @@ Every command that runs a model takes ``--device`` (default ``cuda``),
 passed to the API's ``device=``: with no card and no ``--device cpu`` it
 raises, as the API does. ``--checkpoint`` sets ``pretrained_model_path``:
 a reference ``.pth.tar``, a reference TF bundle prefix or a directory of
-the port's checkpoints. ``--detect-anomaly`` runs under
-``torch.autograd.set_detect_anomaly``.
+the port's checkpoints. ``--profile DIR`` runs the command inside
+``utils.profiling.trace(DIR)`` (a ``torch.profiler`` trace for
+TensorBoard); ``--detect-anomaly`` inside ``utils.profiling.detect_anomaly``
+(the first op with a NaN output raises, forward or backward).
 
 ``export-model`` takes ``--device`` where the JAX package takes
 ``--platforms``: the artifact runs on the device it was exported on, and
@@ -37,9 +39,6 @@ joins the process group too. On N cards of one host::
     torchrun --nproc-per-node N -m ivf_tpu_torch.cli train -c cfg.py -dp 0
 
 ``batch_size`` is then the node's batch, split over its ranks.
-
-Not ported (ROADMAP.md, Queue 1 item 14): ``--profile`` raises
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -51,10 +50,6 @@ import os
 import re
 
 from ivf_tpu_torch.config import Config, add_cli_overrides, apply_cli_overrides
-
-_NOT_PORTED = {
-    "profile": "--profile: the profiler trace is not ported yet (ROADMAP.md, Queue 1 item 14)",
-}
 
 
 def _load_cfg(args) -> Config:
@@ -80,9 +75,11 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--data-parallel", "-dp", type=int, default=None, metavar="N",
                        help="run on a data mesh of N ranks (0: the whole world; omit or 1: no mesh); "
                        "batch_size is the node's batch and must divide over its ranks")
-        p.add_argument("--profile", metavar="DIR", default=None, help="not ported (ROADMAP.md, Queue 1 item 14)")
+        p.add_argument("--profile", metavar="DIR", default=None,
+                       help="write a torch.profiler trace of the command into DIR (TensorBoard)")
         p.add_argument("--detect-anomaly", action="store_true",
-                       help="run under torch.autograd.set_detect_anomaly (the reference mask drivers do)")
+                       help="raise at the first op with a NaN output, forward or backward, under "
+                       "torch.autograd.set_detect_anomaly (the reference mask drivers run under it)")
         p.add_argument("--multihost", action="store_true",
                        help="join the process group before any device use (torchrun's MASTER_ADDR / MASTER_PORT / "
                        "WORLD_SIZE / RANK, else JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID); "
@@ -155,21 +152,20 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if getattr(args, "device", None) == "cuda" and not getattr(args, "artifact", None):
         args.device = None  # the API's own default: cuda, or a clear error with no card (an artifact has its own)
-    if args.command in _NOT_PORTED:
-        raise NotImplementedError(f"{args.command}: {_NOT_PORTED[args.command]}")
-    for flag in _NOT_PORTED:
-        if getattr(args, flag, None) not in (None, False):
-            raise NotImplementedError(_NOT_PORTED[flag])
     if getattr(args, "multihost", False) or getattr(args, "data_parallel", None) not in (None, 1):
         # before anything touches a device: NCCL ranks take their card first
         from ivf_tpu_torch.parallel import initialize_multihost
 
         initialize_multihost(device=args.device)
     with contextlib.ExitStack() as stack:
-        if getattr(args, "detect_anomaly", False):
-            import torch
+        if getattr(args, "profile", None):
+            from ivf_tpu_torch.utils.profiling import trace
 
-            stack.enter_context(torch.autograd.set_detect_anomaly(True))
+            stack.enter_context(trace(args.profile))
+        if getattr(args, "detect_anomaly", False):
+            from ivf_tpu_torch.utils.profiling import detect_anomaly
+
+            stack.enter_context(detect_anomaly(True))
         return _run(args)
 
 

@@ -3,9 +3,11 @@
 
 The JAX package vmaps a one-clip search; here every function takes the
 batch dimension written out: clips ``(B, T, H, W, C)``, targets ``(B,)``,
-mask logits ``(B, T)``. Rows never interact: the loss is summed over rows
-before ``backward``, so each row's gradient is its own loss's gradient,
-and the Adam state, step count and early-stop flags are kept per row.
+mask logits ``(B, T)``; ``find_mask`` is the one-clip entry, run as a
+batch of one, and every ``score_fn`` is batched (``ScoreFn`` below). Rows
+never interact: the loss is summed over rows before ``backward``, so each
+row's gradient is its own loss's gradient, and the Adam state, step count
+and early-stop flags are kept per row.
 
   * loss = lam1*sum|sigmoid(m)| + lam2*TV(sigmoid(m), p=3, q=3)
           + score(perturb(seq, sigmoid(m)))[target]
@@ -299,3 +301,47 @@ def find_mask_from_carry(
             )
         carry = replace(carry, loss=loss, aux=aux)
     return finalize_search(score_fn, seqs, targets, carry)
+
+
+def find_mask_batched(
+    score_fn: ScoreFn,
+    seqs: torch.Tensor,
+    targets: torch.Tensor,
+    mask_init_logits: torch.Tensor,
+    **kwargs,
+) -> MaskSearchResult:
+    """The search over a batch of clips ``(B, T, H, W, C)`` from logits
+    ``(B, T)`` (``ivf_tpu/interpret/mask_opt.py::find_mask_batched``, a
+    vmap there): ``find_mask_from_carry`` from a fresh carry, with its
+    keyword arguments. ``score_fn`` maps clips ``(B, T, H, W, C)`` to class
+    probabilities ``(B, num_classes)``; rows never interact."""
+    return find_mask_from_carry(score_fn, seqs, targets, make_search_carry(mask_init_logits), **kwargs)
+
+
+def find_mask(
+    score_fn: ScoreFn,
+    seq: torch.Tensor,
+    target,
+    mask_init_logits: torch.Tensor,
+    n_steps: int = 300,
+    lam1: float = 0.01,
+    lam2: float = 0.02,
+    lr: float = 0.2,
+    perturbation_type: str = "freeze",
+    early_stop: bool = False,
+    eta: float = 1e-5,
+    closed_form: bool = True,
+    eta_patience: int = 1,
+) -> MaskSearchResult:
+    """Optimize a temporal mask for one clip ``(T, H, W, C)``, class
+    ``target``, from logits ``(T,)`` (``ivf_tpu/interpret/mask_opt.py::
+    find_mask``): the batched search on a batch of one. ``score_fn`` is
+    batched, as everywhere in this module: clips ``(B, T, H, W, C)`` ->
+    probabilities ``(B, num_classes)``. Returns the row's result, each
+    field without the batch dimension."""
+    res = find_mask_batched(
+        score_fn, seq[None], torch.as_tensor([int(target)], device=seq.device), mask_init_logits[None],
+        n_steps=n_steps, lam1=lam1, lam2=lam2, lr=lr, perturbation_type=perturbation_type,
+        early_stop=early_stop, eta=eta, closed_form=closed_form, eta_patience=eta_patience,
+    )
+    return MaskSearchResult(*(field[0] for field in res))

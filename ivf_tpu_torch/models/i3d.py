@@ -1,11 +1,16 @@
 """Inception-v1 I3D (port of ``ivf_tpu/models/i3d.py``).
 
-Same trunk table, head and knobs as the JAX model; ``remat``,
-``guided_relu`` and ``fuse_3x3`` are not ported. In training mode
+Same trunk table, head and knobs as the JAX model. In training mode
 (``model.train()``) BatchNorm takes the batch's statistics, nothing folds
-or fuses (``fuse_1x1`` and ``fuse_pool_conv`` are inference-only, as in
-JAX: ``ivf_tpu/models/layers.py:205``), and dropout before the logits conv
-draws from the generator the train step sets (``layers.Dropout``). ``stem_s2d`` runs
+or fuses (``fuse_1x1``, ``fuse_3x3`` and ``fuse_pool_conv`` are
+inference-only, as in JAX: ``ivf_tpu/models/layers.py:205``), and dropout
+before the logits conv draws from the generator the train step sets
+(``layers.Dropout``). ``guided_relu`` gives the stem, ``Conv3d_2b_1x1``,
+``Conv3d_2c_3x3`` and the nine blocks the guided-backprop ReLU
+(``layers.guided_relu``): the same forward, the guided
+backward, and no fusion (the fused ReLUs' backward is the plain one).
+``remat`` recomputes each Inception block's activations in the backward
+(``layers.checkpointed``), BatchNorm's side effects once. ``stem_s2d`` runs
 the 7x7x7 stride-2 stem as the space-to-depth conv, as the JAX model
 does by default. ``pool_impl`` (any of the JAX package's six)
 reaches every max pool (``ops/conv.py::max_pool3d_same``) but the
@@ -30,6 +35,8 @@ from ivf_tpu_torch.models.layers import (
     InceptionModule,
     TorchBatchNorm,
     Unit3D,
+    checkpointed,
+    guided_relu as _guided_relu,
     variance_scaling_,
 )
 from ivf_tpu_torch.ops.conv import avg_pool3d_valid, max_pool3d_same
@@ -66,7 +73,9 @@ class I3D(nn.Module):
     through the max-pool kernel pair; ``fuse_pool_conv`` (True: per-frame,
     ``'tblock'``: whole-sample) runs each whole branch 3 through the fused
     pool + conv kernels instead. ``stem_s2d`` runs the stem as
-    ``ops/conv.py::conv3d_stem_s2d`` where the shapes allow it."""
+    ``ops/conv.py::conv3d_stem_s2d`` where the shapes allow it.
+    ``fuse_3x3`` (True / False / ``'auto'``) runs each block's two 3x3x3
+    convs as one block-diagonal conv (``layers.InceptionModule``)."""
 
     def __init__(
         self,
@@ -78,8 +87,11 @@ class I3D(nn.Module):
         last_relu: Optional[str] = None,
         pool_shape: Optional[Tuple[int, int, int]] = None,
         temporal_mean: bool = False,
+        guided_relu: bool = False,
+        remat: bool = False,
         fold_bn: bool = True,
         fuse_1x1: bool = True,
+        fuse_3x3: object = False,
         use_pallas: bool = False,
         pallas_pool: bool = False,
         fuse_pool_conv: object = False,
@@ -100,13 +112,15 @@ class I3D(nn.Module):
         self.softmax = softmax
         self.pool_shape = pool_shape
         self.temporal_mean = temporal_mean
+        self.remat = remat
+        act = _guided_relu if guided_relu else F.relu
         c = 3  # RGB clips
         for name, kind, spec in _TRUNK:
             if kind == "conv":
                 st = self._layer_stride_t(name, spec["stride_t"])
                 hw = spec["stride_hw"]
                 unit = Unit3D(
-                    c, spec["out"], spec["kernel"], (st, hw, hw),
+                    c, spec["out"], spec["kernel"], (st, hw, hw), activation=act,
                     fold_bn=fold_bn, use_pallas=use_pallas, s2d=stem_s2d,
                 )
                 setattr(self, name, unit)
@@ -117,17 +131,17 @@ class I3D(nn.Module):
                     self, name,
                     InceptionModule(
                         c, oc, fold_bn, fuse_1x1, use_pallas, pallas_pool, fuse_pool_conv,
-                        pool_impl,
+                        pool_impl, fuse_3x3, act,
                     ),
                 )
                 c = oc[0] + oc[2] + oc[4] + oc[5]
         # the reference's 'leaky' branch is dead code (its checkpoints were
         # trained with NO final activation); 'leaky_fixed' is the intended one
-        act = {"relu": F.relu, "leaky_fixed": F.leaky_relu}.get(last_relu)
+        head_act = {"relu": F.relu, "leaky_fixed": F.leaky_relu}.get(last_relu)
         self.dropout = Dropout(dropout_rate)
         self.logits = Unit3D(
             c, num_classes, (1, 1, 1), use_batch_norm=False, use_bias=True,
-            activation=act, use_pallas=use_pallas,
+            activation=head_act, use_pallas=use_pallas,
         )
         self.eval()
 
@@ -156,6 +170,8 @@ class I3D(nn.Module):
         return (t, 7, 7)
 
     def _apply_endpoint(self, name: str, kind: str, spec: dict, x):
+        if kind == "mixed" and self.remat and torch.is_grad_enabled():
+            return checkpointed(getattr(self, name), x)
         if kind in ("conv", "mixed"):
             return getattr(self, name)(x)
         if kind == "pool":

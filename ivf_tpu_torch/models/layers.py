@@ -14,8 +14,7 @@ module of the port starts in eval mode, as the JAX modules default to
 the batch's statistics and updates its running ones, and ``Dropout``
 draws its masks from the generator the train step hands it
 (``set_dropout_generator``). Each conv casts its input to the weight's
-dtype (``ivf_tpu/ops/conv.py:53``). The JAX package's ``fuse_3x3`` is not
-ported yet (ROADMAP.md).
+dtype (``ivf_tpu/ops/conv.py:53``).
 
 Under a data mesh the train step hands every BatchNorm the data axis's
 process group (``set_batch_stats_group``): the batch statistics are then
@@ -24,10 +23,16 @@ rank's place in the global batch, so it draws the global batch's mask and
 keeps its rows. ``parallel/mesh.py::tensor_parallel`` gives a ``Unit3D``
 its slice of the output channels and the model axis's group
 (``tp_group``): the unit gathers its output along the channels.
+
+``checkpointed`` runs a block as flax's ``nn.remat`` does (``I3D(remat=
+True)``): its activations are recomputed in the backward, and its
+BatchNorms' training-mode side effects (the running statistics and the
+synchronised statistics' collectives) happen once, in the forward.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -35,12 +40,14 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ivf_tpu_torch.ops.conv import conv3d_same, conv3d_stem_s2d, max_pool3d_same
 from ivf_tpu_torch.ops.kernels.fused_branch3 import fused_pool_conv, fused_pool_conv_tblock
 from ivf_tpu_torch.ops.kernels.maxpool3d import maxpool3d_s1
 from ivf_tpu_torch.ops.kernels.pointwise_conv import pointwise_conv
 from ivf_tpu_torch.parallel.collectives import all_gather_along, all_reduce_sum
+from ivf_tpu_torch.precision import reference_numerics
 
 
 def variance_scaling_(w: torch.Tensor, scale: float, generator: torch.Generator) -> None:
@@ -53,6 +60,26 @@ def variance_scaling_(w: torch.Tensor, scale: float, generator: torch.Generator)
     nn.init.trunc_normal_(cpu, 0.0, std, -2 * std, 2 * std, generator=generator)
     with torch.no_grad():
         w.copy_(cpu)
+
+
+class _GuidedReLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        return torch.clamp_min(x, 0)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        (x,) = ctx.saved_tensors
+        return torch.where((x > 0) & (g > 0), g, torch.zeros((), dtype=g.dtype, device=g.device))
+
+
+def guided_relu(x: torch.Tensor) -> torch.Tensor:
+    """Guided backprop's ReLU (``interpret/guided_backprop.py``):
+    ``max(x, 0)``, whose backward passes the gradient only where ``x`` and
+    the gradient are both positive; ``x`` is saved in its own dtype, as
+    the JAX VJP saves it."""
+    return _GuidedReLU.apply(x)
 
 
 class TorchBatchNorm(nn.Module):
@@ -83,7 +110,11 @@ class TorchBatchNorm(nn.Module):
     variance takes the global count's unbiased factor. The ranks' means
     summed (rather than their sums over the global count) keep the bits
     of the local statistics on a group of one rank. torch's
-    ``nn.SyncBatchNorm`` runs on CUDA only and has its own numerics."""
+    ``nn.SyncBatchNorm`` runs on CUDA only and has its own numerics.
+
+    Inside ``checkpointed`` the module holds the block's ``tape``: its
+    recompute updates no running statistic and takes the group's sums
+    from the tape instead of summing again."""
 
     def __init__(self, channels: int, eps: float = 1e-3, momentum: float = 0.01):
         super().__init__()
@@ -95,6 +126,7 @@ class TorchBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
         self.stats_group = None
+        self.tape: Optional[_RematTape] = None
         self.eval()
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
@@ -124,27 +156,86 @@ class TorchBatchNorm(nn.Module):
             dims = tuple(range(x.dim() - 1))
             xf = x.float()
             n = x.numel() // x.shape[-1]
-            group = self.stats_group
+            group, tape = self.stats_group, self.tape
             if group is None:
                 mean_f = xf.mean(dims)
                 centered = xf - mean_f
                 var_f = (centered * centered).mean(dims)
             else:
                 ranks = dist.get_world_size(group)
-                mean_f = all_reduce_sum(xf.mean(dims), group) / ranks
+                group_sum = all_reduce_sum if tape is None else tape.group_sum
+                mean_f = group_sum(xf.mean(dims), group) / ranks
                 centered = xf - mean_f
-                var_f = all_reduce_sum((centered * centered).mean(dims), group) / ranks
+                var_f = group_sum((centered * centered).mean(dims), group) / ranks
                 n *= ranks
             mean = mean_f.to(x.dtype)
             var = var_f.to(x.dtype)
-            with torch.no_grad():
-                m, rm, rv = self.momentum, self.running_mean, self.running_var
-                unbiased = var * (n / max(n - 1, 1))
-                rm.copy_((1 - m) * rm + (m * mean).to(rm.dtype))
-                rv.copy_((1 - m) * rv + (m * unbiased).to(rv.dtype))
-                self.num_batches_tracked.add_(1)
+            if tape is None or not tape.replaying:
+                with torch.no_grad():
+                    m, rm, rv = self.momentum, self.running_mean, self.running_var
+                    unbiased = var * (n / max(n - 1, 1))
+                    rm.copy_((1 - m) * rm + (m * mean).to(rm.dtype))
+                    rv.copy_((1 - m) * rv + (m * unbiased).to(rv.dtype))
+                    self.num_batches_tracked.add_(1)
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
+
+
+class _RematTape:
+    """What the first run of a checkpointed block hands its recompute: the
+    sums its synchronised BatchNorms took, in call order."""
+
+    def __init__(self):
+        self.sums: list = []
+        self.replaying = False
+        self.pos = 0
+
+    def group_sum(self, local: torch.Tensor, group) -> torch.Tensor:
+        if not self.replaying:
+            total = all_reduce_sum(local, group)
+            self.sums.append(total.detach())
+            return total
+        # the recompute only regenerates the tensors the backward saved;
+        # the gradient runs through the forward's graph. The sum tracks
+        # grad as the forward's did, so the ops after it save alike
+        total = self.sums[self.pos].requires_grad_(local.requires_grad)
+        self.pos += 1
+        return total
+
+
+def _pinned_recompute():
+    # the recompute runs in the backward, outside the forward's pin
+    return contextlib.nullcontext(), reference_numerics()
+
+
+def checkpointed(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)`` under ``torch.utils.checkpoint`` (non-reentrant), as
+    flax's ``nn.remat``: the block's activations are dropped after the
+    forward and recomputed in the backward, under the exact float32 pin
+    (``precision.py``) the forward ran in. Its BatchNorms' training-mode
+    side effects happen once, in the forward: the recompute updates no
+    running statistic and, under a data mesh, takes the synchronised sums
+    of the forward rather than summing again (``_RematTape``). A tensor-
+    parallel unit's gather of its channels runs again in the recompute, on
+    every rank alike. Nothing in a block draws random numbers, so the RNG
+    state is not saved."""
+    tape = _RematTape()
+    norms = [m for m in block.modules() if isinstance(m, TorchBatchNorm)]
+
+    def run(inp: torch.Tensor) -> torch.Tensor:
+        tape.pos = 0
+        for bn in norms:
+            bn.tape = tape
+        try:
+            return block(inp)
+        finally:
+            for bn in norms:
+                bn.tape = None
+            tape.replaying = True
+
+    return torch.utils.checkpoint.checkpoint(
+        run, x, use_reentrant=False, preserve_rng_state=False, context_fn=_pinned_recompute
+    )
 
 
 class Dropout(nn.Module):
@@ -300,25 +391,33 @@ class Unit3D(nn.Module):
 
 class InceptionModule(nn.Module):
     """4-branch Inception block; ``out_channels = [b0, b1a, b1b, b2a, b2b,
-    b3b]``, output = channel concat of (b0, b1, b2, b3).
+    b3b]``, output = channel concat of (b0, b1, b2, b3). ``activation``
+    is every unit's (``guided_relu`` for guided backprop).
 
-    ``fuse_1x1``: with folded BN, the three parallel 1x1x1 branch convs
-    (b0, b1a, b2a) run as ONE conv whose output channels split after the
-    shared ReLU. ``pallas_pool``: the branch-3 pool runs through the
-    ``maxpool3d_s1`` kernel pair (every-tie backward) instead of
-    ``F.max_pool3d``. ``fuse_pool_conv``: with b3b's BN folded, the whole
+    The fusions below run only while ``fusing``: BN folded (eval mode)
+    and the activation the plain ReLU, the JAX package's rule
+    (``ivf_tpu/models/layers.py:205``); under another activation every
+    unit runs apart, so the activation's own backward reaches each.
+    ``fuse_1x1``: the three parallel 1x1x1 branch convs (b0, b1a, b2a)
+    run as ONE conv whose output channels split after the shared ReLU.
+    ``fuse_3x3`` (True, or ``'auto'``: only where the block input's H is
+    at most 14): the two 3x3x3 convs (b1b, b2b) run as ONE conv of the
+    block-diagonal folded kernel over ``cat([b1, b2])``, split after the
+    ReLU (~1.4x the operations for half the convs). ``pallas_pool``: the
+    branch-3 pool runs through the ``maxpool3d_s1`` kernel pair (every-tie
+    backward) instead of ``F.max_pool3d``. ``fuse_pool_conv``: the whole
     branch 3 (pool, folded 1x1x1 conv, bias, ReLU) is one kernel each way
     (``ops/kernels/fused_branch3.py``, same tie rule); ``'tblock'`` takes
     the whole-sample kernels, any other true value the per-frame ones. It
-    takes precedence over ``pallas_pool`` and over ``use_pallas`` for b3b;
-    with BN unfolded the branch runs unfused, as in JAX. In bfloat16 the
-    fused kernels take the bf16 activations and folded weights and sum in
-    float32, rounding once (the Pallas kernels' bf16 path).
+    takes precedence over ``pallas_pool`` and over ``use_pallas`` for b3b.
+    In bfloat16 the fused kernels take the bf16 activations and folded
+    weights and sum in float32, rounding once (the Pallas kernels' bf16
+    path).
     ``pool_impl`` is the unfused branch-3 pool's (``max_pool3d_same``):
     ``pallas_pool`` and ``fuse_pool_conv`` override it, as in JAX
     (``ivf_tpu/models/layers.py:272-278``). Under tensor parallelism the
-    trio concatenates the three units' slices, and each part is gathered
-    after the split.
+    trio and the block-diagonal conv concatenate the units' slices, and
+    each part is gathered after the split.
     """
 
     def __init__(
@@ -331,17 +430,21 @@ class InceptionModule(nn.Module):
         pallas_pool: bool = False,
         fuse_pool_conv: object = False,
         pool_impl: str = "reduce_window",
+        fuse_3x3: object = False,
+        activation: Callable = F.relu,
     ):
         super().__init__()
         oc = tuple(out_channels)
         self.pool_impl = pool_impl
         self.out_channels = oc
         self.fuse_1x1 = fuse_1x1
+        self.fuse_3x3 = fuse_3x3
         self.use_pallas = use_pallas
         self.pallas_pool = pallas_pool
         self.fuse_pool_conv = fuse_pool_conv
+        self.activation = activation
         unit = lambda cin, cout, k, pw: Unit3D(  # noqa: E731
-            cin, cout, k, fold_bn=fold_bn, use_pallas=use_pallas and pw
+            cin, cout, k, activation=activation, fold_bn=fold_bn, use_pallas=use_pallas and pw
         )
         self.b0 = unit(in_channels, oc[0], (1, 1, 1), True)
         self.b1a = unit(in_channels, oc[1], (1, 1, 1), True)
@@ -351,10 +454,15 @@ class InceptionModule(nn.Module):
         self.b3b = unit(in_channels, oc[5], (1, 1, 1), True)
         self.eval()
 
+    @property
+    def fusing(self) -> bool:
+        units = (self.b0, self.b1a, self.b1b, self.b2a, self.b2b, self.b3b)
+        return self.activation is F.relu and all(m.folding for m in units)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        oc = self.out_channels
+        fusing = self.fusing
         heads = (self.b0, self.b1a, self.b2a)
-        if self.fuse_1x1 and all(m.folding for m in heads):
+        if self.fuse_1x1 and fusing:
             parts = [m.folded() for m in heads]
             kcat = torch.cat([k for k, _ in parts])
             bcat = torch.cat([b for _, b in parts])
@@ -370,9 +478,13 @@ class InceptionModule(nn.Module):
             b0, b1, b2 = (m.gather(p) for m, p in zip(heads, parts))
         else:
             b0, b1, b2 = (m(x) for m in heads)
-        b1 = self.b1b(b1)
-        b2 = self.b2b(b2)
-        if self.fuse_pool_conv and self.b3b.folding:
+        fuse3 = self.fuse_3x3 is True or (self.fuse_3x3 == "auto" and x.shape[2] <= 14)
+        if fuse3 and fusing:
+            b1, b2 = self._fused_3x3(b1, b2)
+        else:
+            b1 = self.b1b(b1)
+            b2 = self.b2b(b2)
+        if self.fuse_pool_conv and fusing:
             fused = fused_pool_conv_tblock if self.fuse_pool_conv == "tblock" else fused_pool_conv
             w3, c3 = self.b3b.folded()
             cin = x.shape[-1]
@@ -384,3 +496,16 @@ class InceptionModule(nn.Module):
                 b3 = max_pool3d_same(x, (3, 3, 3), (1, 1, 1), impl=self.pool_impl)
             b3 = self.b3b(b3)
         return torch.cat([b0, b1, b2, b3], dim=-1)
+
+    def _fused_3x3(self, b1: torch.Tensor, b2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """b1b(b1), b2b(b2) as one conv of the block-diagonal folded kernel
+        ``[[k1, 0], [0, k2]]`` over ``cat([b1, b2])``."""
+        (k1, c1), (k2, c2) = self.b1b.folded(), self.b2b.folded()
+        (n1, i1), (n2, i2) = k1.shape[:2], k2.shape[:2]
+        kd = torch.cat([
+            torch.cat([k1, k1.new_zeros((n1, i2, *k1.shape[2:]))], dim=1),
+            torch.cat([k2.new_zeros((n2, i1, *k2.shape[2:])), k2], dim=1),
+        ])
+        y = F.relu(conv3d_same(torch.cat([b1, b2], dim=-1), kd, (1, 1, 1), torch.cat([c1, c2])))
+        y1, y2 = torch.split(y, [n1, n2], dim=-1)
+        return self.b1b.gather(y1), self.b2b.gather(y2)

@@ -428,7 +428,7 @@ def scenario_pipeline(rank: int, world: int, out: Path) -> None:
 
 
 TP_ROUTES = {"plain": dict(fuse_1x1=False), "kernels_fused_1x1": dict(use_pallas=True, fuse_1x1=True),
-             "fused_branch3": dict(use_pallas=True, fuse_pool_conv=True)}
+             "fused_branch3": dict(use_pallas=True, fuse_pool_conv=True), "fuse_3x3": dict(fuse_3x3=True)}
 
 
 def scenario_tp(rank: int, world: int, out: Path) -> None:

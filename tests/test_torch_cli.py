@@ -255,16 +255,17 @@ def test_make_and_inspect_records_match_the_jax_package(tmp_path, tree, jax_reco
     [
         (["infer", "-dp", "2"], RuntimeError, "process group"),
         (["find-masks", "--multihost", "-dp", "2"], ValueError, "2-rank mesh in a world of 1"),
-        (["train", "--profile", "trace"], NotImplementedError, "item 14"),
+        (["grad-cam", "--profile", "{tmp}/trace", "-c", "{tmp}/missing.json"], FileNotFoundError, "missing"),
     ],
     ids=["data-parallel", "multihost", "profile"],
 )
 def test_unported_commands_and_flags_raise(argv, error, match, monkeypatch, tmp_path):
-    """What the port lacks (``--profile``) raises ``NotImplementedError``
-    naming its ROADMAP item, before any work. ``-dp 2`` with no process
-    group raises; ``--multihost`` joins the JAX package's coordinator (here
-    a world of one gloo rank over a ``file://`` store), and ``-dp 2`` that
-    is not the world's size raises."""
+    """``-dp 2`` with no process group raises; ``--multihost`` joins the
+    JAX package's coordinator (here a world of one gloo rank over a
+    ``file://`` store), and ``-dp 2`` that is not the world's size raises.
+    ``--profile`` (ported: it raised before) lets the error of the command
+    it wraps through and still writes its trace."""
+    argv = [a.format(tmp=tmp_path) for a in argv]
     for name in ("MASTER_ADDR", "MASTER_PORT", "JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
         monkeypatch.delenv(name, raising=False)
     if "--multihost" in argv:
@@ -275,6 +276,8 @@ def test_unported_commands_and_flags_raise(argv, error, match, monkeypatch, tmp_
         with pytest.raises(error, match=match):
             cli.main(argv + ["--device", "cpu"])
         assert dist.is_initialized() == ("--multihost" in argv)
+        if "--profile" in argv:
+            assert list((tmp_path / "trace").glob("*.pt.trace.json"))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

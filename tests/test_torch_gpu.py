@@ -1386,3 +1386,80 @@ def test_artifact_exported_on_the_card_gives_the_live_bits_and_launches_its_kern
         torch.cuda.synchronize()
         assert {fn: fn.launches for fn in SERVE_COUNTERS if fn.launches} == want
         assert torch.equal(got, live(x))
+
+
+def _small_i3d(device, **flags):
+    """A seeded 5-class I3D for 8x64x64 clips (the logits pool takes
+    Mixed_5c's (1, 2, 2)), in eval mode on ``device``."""
+    from ivf_tpu_torch.models import I3D
+
+    model = I3D(num_classes=5, pool_shape=(1, 2, 2), **flags)
+    model.reset_parameters(torch.Generator().manual_seed(4))
+    return model.to(device).eval()
+
+
+def _small_clip(device, b=1):
+    return torch.rand((b, 8, 64, 64, 3), generator=torch.Generator().manual_seed(5)).mul(255).to(device)
+
+
+def test_guided_backprop_kernel_route_matches_its_plain_versions(cuda_device):
+    """Guided backprop on the f32 kernel route (``use_pallas`` +
+    ``pallas_pool``): 38 pointwise convs forward and 38 dx, the pool pair
+    9 / 9, against the same route with the wrappers patched to their plain
+    versions on the card (``chip_smoke._f32_kernels_plain``) within
+    ``chip_smoke.GUIDED_PLAIN_TOL`` (relative L2, its reason there). With
+    ``fuse_pool_conv`` True or ``'tblock'`` no fused kernel launches."""
+    import chip_smoke as cs
+    from ivf_tpu_torch.interpret import guided_backprop_i3d
+
+    model = _small_i3d(cuda_device, guided_relu=True, use_pallas=True, pallas_pool=True)
+    clip = _small_clip(cuda_device)[0]
+    counters = cs.launch_counters()
+    sal, launched = cs._launched(counters, lambda: guided_backprop_i3d(model, clip, 2))
+    assert launched == {"pointwise_conv": 76, "maxpool3d_s1_fwd": 9, "maxpool3d_s1_bwd": 9}
+    with cs._f32_kernels_plain():
+        plain, none = cs._launched(counters, lambda: guided_backprop_i3d(model, clip, 2))
+    assert not none and torch.isfinite(sal).all() and sal.abs().max() > 0
+    assert cs._rel_l2(sal, plain) <= cs.GUIDED_PLAIN_TOL
+    for variant in (True, "tblock"):
+        fused = _small_i3d(cuda_device, guided_relu=True, use_pallas=True, fuse_pool_conv=variant)
+        _, launched = cs._launched(counters, lambda: guided_backprop_i3d(fused, clip, 2))
+        assert launched == {"pointwise_conv": 76}
+
+
+def test_remat_gives_equal_bits_and_launches_the_block_kernels_twice(cuda_device):
+    """``remat`` on the f32 kernel route: in eval mode (logits and input
+    gradient, as the search) and in one train step (loss, parameters, BN
+    statistics, each ``num_batches_tracked`` 1) the bits of the model
+    without it; the blocks' forward kernels launch twice: eval 40 -> 58
+    pointwise launches (20 forward, 20 dx, 18 forwards again), pool 9 ->
+    18 forwards; a train step 76 -> 112 (the trio unfused), pool 9 -> 18."""
+    import chip_smoke as cs
+    from ivf_tpu_torch.train import build_optimizer, create_train_state, make_train_step
+
+    counters = cs.launch_counters()
+    x = _small_clip(cuda_device, b=2)
+    evals, trains = {}, {}
+    for remat in (False, True):
+        model = _small_i3d(cuda_device, remat=remat, use_pallas=True, pallas_pool=True)
+
+        def saliency():
+            xg = x.clone().requires_grad_(True)
+            logits = model(xg)
+            return logits.detach(), torch.autograd.grad(logits.sum(), xg)[0]
+
+        evals[remat] = cs._launched(counters, saliency)
+        model = _small_i3d(cuda_device, remat=remat, use_pallas=True, pallas_pool=True, dropout_rate=0.0)
+        state = create_train_state(model, build_optimizer("sgd", 1.0, momentum=0.0))
+        (state, metrics), launched = cs._launched(counters, lambda: make_train_step()(state, x, torch.tensor([1, 3])))
+        trains[remat] = (float(metrics["loss"]), {n: t.detach().clone() for n, t in state.model.state_dict().items()},
+                         launched)
+    (off, off_launched), (on, on_launched) = evals[False], evals[True]
+    assert all(torch.equal(a, b) for a, b in zip(on, off))
+    assert off_launched == {"pointwise_conv": 40, "maxpool3d_s1_fwd": 9, "maxpool3d_s1_bwd": 9}
+    assert on_launched == {"pointwise_conv": 58, "maxpool3d_s1_fwd": 18, "maxpool3d_s1_bwd": 9}
+    (off_loss, off_sd, off_train), (on_loss, on_sd, on_train) = trains[False], trains[True]
+    assert on_loss == off_loss and all(torch.equal(on_sd[n], off_sd[n]) for n in off_sd)
+    assert {int(t) for n, t in on_sd.items() if n.endswith("num_batches_tracked")} == {1}
+    assert off_train == {"pointwise_conv": 76, "maxpool3d_s1_fwd": 9, "maxpool3d_s1_bwd": 9}
+    assert on_train == {"pointwise_conv": 112, "maxpool3d_s1_fwd": 18, "maxpool3d_s1_bwd": 9}
